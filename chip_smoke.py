@@ -18,19 +18,31 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    plain PyTorch version on the card, run twice for bit-identical repeats,
    and timed with CUDA events beside its plain version and, for K3, one
    PyTorch call computing the same function;
-5. small-step parity: one ``dnn_ssl_step`` with the GPU kernels against the
-   same step on the CPU (plain versions), from the same params and batch;
-6. main path: ``repro_torch.api.Experiment(cfg, device="cuda").run()`` at
+5. block-sparse kernels K4–K7 the same way, on the path's block and the
+   layout ``block_layout(W, 128)`` gives it (with both scalar sets), on a
+   ragged B=1000, bt=64 random symmetric tile mask, on a mask with an
+   empty tile row, and on a full mask, where K4 must equal K1 bit for bit
+   and K5∘K6 and K7 are also held against K2 and K3; K5 is timed beside
+   ``torch.bmm(W.mT, p)``;
+6. small-step parity: one ``dnn_ssl_step`` with the GPU kernels against the
+   same step on the CPU (plain versions), from the same params and batch,
+   without and with a block layout on the batch;
+7. main path: ``repro_torch.api.Experiment(cfg, device="cuda").run()`` at
    the paper's width (4×2000 DNN, 351→39, batch 1024) for one epoch, with
    every kernel launch counter set to 0 just before and read just after,
    and the steady ms/step timed between two synchronised points;
-   K1 and K2 must launch once per step and K3 never (W needs no gradient);
-   then the W-gradient path (the ``"auto"`` entry's VJP with ``W`` requiring
-   a gradient, at the same shape), which must launch K1, K2 and K3 once;
-7. a step breakdown (``repro_torch.bench.profile_step`` without the
-   profiler): host batch assembly, staging, and one full step timed between
-   CUDA events, back to back (which includes the host's launch gaps);
-8. the ``{"kernels": [...]}`` line, then the result line.
+   K1 and K2 must launch once per step and no other kernel; then the
+   W-gradient path (the ``"auto"`` entry's VJP with ``W`` requiring a
+   gradient, at the same shape), which must launch K1, K2 and K3 once;
+8. the block-sparse main path: the same epoch with
+   ``BatchConfig(layout_bt=128)`` on the same corpus, graph and plan; K4,
+   K5 and K6 must launch once per step and no other kernel; then its
+   W-gradient path, which must launch K4, K5, K6 and K7 once;
+9. a step breakdown of both paths (``repro_torch.bench.profile_step``
+   without the profiler): host batch assembly, staging, and one full step
+   timed between CUDA events, back to back (which includes the host's
+   launch gaps);
+10. the ``{"kernels": [...]}`` line, then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -59,7 +71,17 @@ REPLACES = {
                            "(kernel _reg_bwd_dlogp_kernel :262)",
     "graph_reg_bwd_dw": "src/repro/kernels/graph_reg.py:371 _reg_bwd_dw "
                         "(kernel _reg_bwd_dw_kernel :299)",
+    "graph_reg_bsp_fwd": "src/repro/kernels/graph_reg.py:520 _bsp_forward "
+                         "(kernel _bsp_fwd_kernel :465, call :555)",
+    "graph_reg_bsp_bterm": "src/repro/kernels/graph_reg.py:684 _bsp_bwd pass "
+                           "1 (kernel _bsp_bterm_kernel :589, call :702)",
+    "graph_reg_bsp_dlogp": "src/repro/kernels/graph_reg.py:684 _bsp_bwd pass "
+                           "2 (kernel _bsp_dlogp_kernel :615, call :722)",
+    "graph_reg_bsp_dw": "src/repro/kernels/graph_reg.py:684 _bsp_bwd pass 3 "
+                        "(kernel _bsp_dw_kernel :648, call :753)",
 }
+#: Tile edge of the block-sparse main path.
+LAYOUT_BT = 128
 
 
 def fail(msg: str) -> None:
@@ -206,29 +228,184 @@ def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
     return records
 
 
-def small_step_parity() -> None:
-    """One full step with the GPU kernels against the CPU plain path."""
+def masked_block(B: int, bt: int, seed: int, density: float = 0.25,
+                 empty_line: int | None = None):
+    """A (B, B) W, zero outside a random symmetric tile mask (optionally
+    with one empty tile row and column)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nt = -(-B // bt)
+    occ = rng.random((nt, nt)) < density
+    occ = occ | occ.T
+    if empty_line is not None:
+        occ[empty_line, :] = occ[:, empty_line] = False
+    W = rng.random((B, B), dtype=np.float32)
+    mask = np.kron(occ, np.ones((bt, bt), bool))[:B, :B]
+    return np.where(mask, (W + W.T) / 2, 0.0).astype(np.float32)
+
+
+def layout_tensors(lay):
+    import torch
+    return [torch.from_numpy(a)[None].cuda() for a in lay.arrays()]
+
+
+def active_entries(lay, B: int) -> int:
+    """Entries of W inside the listed (valid) tiles, clipped to B: the work
+    the block-sparse kernels must do for this layout."""
+    bt = lay.bt
+    side = [min(bt, B - t * bt) for t in range(lay.nt)]
+    return sum(side[r] * side[c] for r, c, v in
+               zip(lay.rows, lay.cols, lay.valid) if v == 1)
+
+
+def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
+    """Check, repeat and time K4-K7; return the per-kernel records at the
+    path's shape and layout."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import time_ms
+    from repro_torch.core.metabatch import block_layout, layout_from_occupancy
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import graph_reg_bsp as bsp
+    from repro_torch.kernels import ref
+
+    P, C = W_path.shape[0], 39
+    nt_path = -(-P // LAYOUT_BT)
+    full = layout_from_occupancy(np.ones((nt_path, nt_path), bool), LAYOUT_BT)
+    cases = (
+        ("path", W_path, block_layout(W_path, LAYOUT_BT), gamma, kappa, None),
+        ("path κ=1e-2 g=0.5", W_path, block_layout(W_path, LAYOUT_BT), 0.8,
+         1e-2, 0.5),
+        ("ragged bt=64", masked_block(1000, 64, 5), None, gamma, kappa, None),
+        ("empty tile row bt=64", masked_block(1000, 64, 6, empty_line=7),
+         None, 0.8, 1e-2, 0.5),
+        ("full mask", W_path, full, gamma, kappa, None),
+    )
+    records = {}
+    for label, W_np, lay, gc, kap, g_val in cases:
+        B = W_np.shape[0]
+        lay = block_layout(W_np, 64) if lay is None else lay
+        bt = lay.bt
+        logp, W, g = kernel_inputs(B, C, W_np, seed=B + 1, g=g_val)
+        rows, cols, valid, crows, ccols, cvalid, occ = layout_tensors(lay)
+        ge = gc
+        p = torch.exp(logp)
+        bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt)
+        runs = {
+            "graph_reg_bsp_fwd": (
+                lambda: bsp.bsp_forward(logp, W, rows, cols, valid, bt, gc,
+                                        kap, ge),
+                lambda: ref.bsp_forward_ref(logp, W, rows, cols, valid, bt,
+                                            gc, kap, ge)),
+            "graph_reg_bsp_bterm": (
+                lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
+                lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid,
+                                              bt)),
+            "graph_reg_bsp_dlogp": (
+                lambda: bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid,
+                                          g, bt, gc, kap, ge),
+                lambda: ref.bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols,
+                                              valid, g, bt, gc, kap, ge)),
+            "graph_reg_bsp_dw": (
+                lambda: bsp.bsp_bwd_dw(logp, occ, g, bt, gc, ge),
+                lambda: ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge)),
+        }
+        where = (f"{label} B={B} C={C} bt={bt} "
+                 f"{lay.n_active}/{lay.nt ** 2} tiles")
+        for name, (kern, plain) in runs.items():
+            a, b, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"{name} [{where}]: two launches on the "
+                  "same inputs differ")
+            rec = compare(f"{name} [{where}]", a, want)
+            if label == "path":
+                records[name] = dict(rec, ms=time_ms(kern),
+                                     plain_ms=time_ms(plain),
+                                     library_ms=None)
+        dW = runs["graph_reg_bsp_dw"][0]()
+        live = occ.repeat_interleave(bt, -2).repeat_interleave(bt, -1)
+        check(bool((dW[live[..., :B, :B] == 0] == 0).all()),
+              f"graph_reg_bsp_dw [{where}]: nonzero off the occupied tiles")
+        if label == "full mask":
+            k1 = gr.reg_forward(logp, W, gc, kap, ge)
+            k4 = runs["graph_reg_bsp_fwd"][0]()
+            check(torch.equal(k4, k1), f"K4 {k4.item()!r} is not K1 "
+                  f"{k1.item()!r} bit for bit on the full mask")
+            print(f"full mask: K4 == K1 bit for bit ({k4.item()!r})")
+            k56 = bsp.bsp_bwd_dlogp(
+                logp, W, bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
+                rows, cols, valid, g, bt, gc, kap, ge)
+            k2 = gr.reg_bwd_dlogp(logp, W, g, gc, kap, ge)
+            k7, k3 = dW, gr.reg_bwd_dw(logp, g, gc, ge)
+            compare("K5∘K6 against K2 [full mask]", k56, k2)
+            compare("K7 against K3 [full mask]", k7, k3)
+            print(f"full mask: K5∘K6 bit-identical to K2: "
+                  f"{torch.equal(k56, k2)}; K7 bit-identical to K3: "
+                  f"{torch.equal(k7, k3)}")
+        if label == "path":
+            # One PyTorch call for K5's function: the dense Wᵀ·P.
+            records["graph_reg_bsp_bterm"]["library_ms"] = time_ms(
+                lambda: torch.bmm(W.mT, p))
+            n_el, T, nt = active_entries(lay, B), lay.list_len, lay.nt
+            s_flops = 2.0 * n_el * C
+            f4 = 4.0
+            records["graph_reg_bsp_fwd"]["bound"] = bound_ms(
+                f4 * (n_el + B * C + 3 * T + 1),
+                s_flops + 2.0 * n_el + 4.0 * B * C)
+            records["graph_reg_bsp_bterm"]["bound"] = bound_ms(
+                f4 * (n_el + 2 * B * C + 3 * T), s_flops)
+            records["graph_reg_bsp_dlogp"]["bound"] = bound_ms(
+                f4 * (n_el + 3 * B * C + 3 * T + 1),
+                s_flops + n_el + 8.0 * B * C)
+            records["graph_reg_bsp_dw"]["bound"] = bound_ms(
+                f4 * (B * C + nt * nt + 1 + B * B),
+                s_flops + 3.0 * n_el + 2.0 * B * C)
+            print(f"path layout: bt={bt}, {lay.n_active} of {nt * nt} tiles "
+                  f"occupied, list length {T}, {n_el} entries of W in them")
+    return records
+
+
+def small_step_parity(layout_bt: int | None = None) -> None:
+    """One full step with the GPU kernels against the CPU plain path; with
+    ``layout_bt`` the batch carries each worker's block layout, and the
+    step must run on K4, K5 and K6."""
     import numpy as np
     import torch
     from repro_torch.api.registry import resolve_pairwise
     from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.core.metabatch import block_layout, tile_occupancy
     from repro_torch.core.ssl_loss import SSLHyper
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels.tuning import TileSpec
     from repro_torch.models.dnn import DNNConfig, init_dnn
     from repro_torch.optim import adagrad
-    from repro_torch.train.train_step import dnn_ssl_step
+    from repro_torch.train.train_step import _TILE_KEYS, dnn_ssl_step
 
     rng = np.random.default_rng(7)
     k, P, D, C = 2, 200, 24, 39
     cfg = DNNConfig(input_dim=D, hidden_dim=64, n_hidden=2, n_classes=C,
                     dropout=0.0)
-    W = rng.random((k, P, P), dtype=np.float32)
-    W = (W + W.transpose(0, 2, 1)) * (rng.random((k, P, P)) < 0.05)
+    if layout_bt is None:
+        W = rng.random((k, P, P), dtype=np.float32)
+        W = (W + W.transpose(0, 2, 1)) * (rng.random((k, P, P)) < 0.05)
+    else:
+        W = np.stack([masked_block(P, layout_bt, seed=z, density=0.4)
+                      for z in range(k)])
     valid = np.ones((k, P), bool)
     valid[:, 180:] = False
     batch = {"x": rng.standard_normal((k, P, D)).astype(np.float32),
              "y": rng.integers(0, C, (k, P)),
              "label_mask": (rng.random((k, P)) < 0.3).astype(np.float32),
              "W": W.astype(np.float32), "valid": valid}
+    tiles = None
+    if layout_bt is not None:
+        T = max(block_layout(w, layout_bt).list_len for w in W)
+        lays = [block_layout(w, layout_bt, list_len=T).arrays() for w in W]
+        batch.update({key: np.stack([lay[i] for lay in lays])
+                      for i, key in enumerate(_TILE_KEYS)})
+        tiles = TileSpec(bi=layout_bt)
+        check(all(tile_occupancy(w, layout_bt).sum() < lay[6].size
+                  for w, lay in zip(W, lays)), "the layout skips no tile")
     params0 = to_numpy(init_dnn(cfg, 3))
     hyper = SSLHyper(gamma=1.0, kappa=1e-4, weight_decay=1e-5)
     out = {}
@@ -238,9 +415,19 @@ def small_step_parity() -> None:
         state = opt.init(params)
         b = {key: torch.from_numpy(np.asarray(v)).to(dev)
              for key, v in batch.items()}
+        gr.reset_launch_counts()
         params, state, metrics = dnn_ssl_step(
             params, state, b, cfg=cfg, hyper=hyper, opt=opt, lr=1e-3,
-            pairwise=resolve_pairwise("auto"))
+            pairwise=resolve_pairwise("auto", tiles=tiles))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in gr.launch_counts().items() if c}
+            want = (["graph_reg_fwd", "graph_reg_bwd_dlogp"]
+                    if layout_bt is None else
+                    ["graph_reg_bsp_fwd", "graph_reg_bsp_bterm",
+                     "graph_reg_bsp_dlogp"])
+            check(counts == dict.fromkeys(want, 1),
+                  f"small step launched {counts}, not {want} once each")
         out[dev] = ({key: float(v) for key, v in metrics.items()},
                     to_numpy(params))
     for key, v in out["cpu"][0].items():
@@ -253,8 +440,8 @@ def small_step_parity() -> None:
         [lyr[n] for lyr in out["cuda"][1]["layers"] for n in ("w", "b")],
         [lyr[n] for lyr in out["cpu"][1]["layers"] for n in ("w", "b")]))
     check(worst <= 2.5e-3, f"small step: params differ by {worst}")
-    print(f"small-step parity (k={k}, P={P}, C={C}): loss/total "
-          f"gpu={out['cuda'][0]['loss/total']:.6f} "
+    print(f"small-step parity (k={k}, P={P}, C={C}, layout_bt={layout_bt}): "
+          f"loss/total gpu={out['cuda'][0]['loss/total']:.6f} "
           f"cpu={out['cpu'][0]['loss/total']:.6f}, max param diff "
           f"{worst:.2e} (lr 1e-3)")
 
@@ -298,7 +485,9 @@ class TimedPipeline:
             yield b
 
 
-def train_phase(exp) -> dict:
+def train_phase(exp, kernels: tuple[str, ...], label: str) -> dict:
+    """One epoch of ``exp`` on the card; each of ``kernels`` must launch
+    once per step and no other kernel at all."""
     import numpy as np
     from repro_torch.kernels import graph_reg as gr
 
@@ -307,50 +496,68 @@ def train_phase(exp) -> dict:
     gr.reset_launch_counts()
     res = exp.run()
     counts = gr.launch_counts()
-    check(len(res.history) == 1, "the epoch produced no history row")
+    exp.pipeline = timed.inner
+    check(len(res.history) == 1, f"{label}: the epoch produced no history row")
     row = res.history[0]
-    print("epoch row: " + json.dumps(row))
+    print(f"{label} epoch row: " + json.dumps(row))
     steps = timed.n
-    check(timed.steady_steps >= 2, f"too few steps ({steps}) to time")
+    check(timed.steady_steps >= 2, f"{label}: too few steps ({steps}) to time")
     steady = (timed.t_end - timed.t_steady) / timed.steady_steps
-    print(f"main path: {steps} steps, {1e3 * steady:.3f} ms/step over steps "
+    print(f"{label}: {steps} steps, {1e3 * steady:.3f} ms/step over steps "
           f"1..{timed.steady_steps} (host clock, prefetch {timed.d}), host "
           f"batch assembly {1e3 * timed.host_s / steps:.3f} ms/step, "
           f"launches {counts}")
     check(np.isfinite(row["loss/total"]) and np.isfinite(row["eval/acc"]),
-          "non-finite loss/total or eval/acc")
-    check(counts["graph_reg_fwd"] == steps, "K1 did not launch every step")
-    check(counts["graph_reg_bwd_dlogp"] == steps,
-          "K2 did not launch every step")
-    check(counts["graph_reg_bwd_dw"] == 0,
-          "K3 launched though W needs no gradient")
+          f"{label}: non-finite loss/total or eval/acc")
+    want = {name: (steps if name in kernels else 0) for name in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want} "
+          "(each path kernel once per step, no other kernel)")
     return {"counts": counts, "steps": steps, "steady_ms": 1e3 * steady,
-            "host_ms": 1e3 * timed.host_s / steps}
+            "host_ms": 1e3 * timed.host_s / steps, "row": row}
 
 
-def w_grad_path(W_path, gamma: float, kappa: float) -> dict:
+def w_grad_path(W_path, gamma: float, kappa: float,
+                layout_bt: int | None = None) -> dict:
     """The regularizer's VJP with respect to W (what graph-weight learning
     asks for), through the ``"auto"`` registry entry a user calls, at the
-    main path's shape.  Counts at 0 just before, read just after: K3's only
+    main path's shape, with the block layout of W when ``layout_bt`` is
+    given.  Counts at 0 just before, read just after: K3's and K7's only
     path, since training never needs dW."""
     import torch
     from repro_torch.api.registry import resolve_pairwise
+    from repro_torch.core.metabatch import block_layout
     from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels.tuning import TileSpec
 
     logp, W, _ = kernel_inputs(W_path.shape[0], 39, W_path, seed=3)
     logp.requires_grad_(True)
     W.requires_grad_(True)
+    if layout_bt is None:
+        fn, kw = resolve_pairwise("auto"), {}
+        want = ("graph_reg_fwd", "graph_reg_bwd_dlogp", "graph_reg_bwd_dw")
+    else:
+        fn = resolve_pairwise("auto", tiles=TileSpec(bi=layout_bt))
+        kw = {"layout": layout_tensors(block_layout(W_path, layout_bt))}
+        want = ("graph_reg_bsp_fwd", "graph_reg_bsp_bterm",
+                "graph_reg_bsp_dlogp", "graph_reg_bsp_dw")
     gr.reset_launch_counts()
-    resolve_pairwise("auto")(logp, W, gamma, kappa).sum().backward()
+    fn(logp, W, gamma, kappa, **kw).sum().backward()
     torch.cuda.synchronize()
     counts = gr.launch_counts()
-    print(f"W-gradient path: launches {counts}")
-    check(counts == {"graph_reg_fwd": 1, "graph_reg_bwd_dlogp": 1,
-                     "graph_reg_bwd_dw": 1},
-          "the W-gradient path did not run K1, K2 and K3 once each")
+    print(f"W-gradient path (layout_bt={layout_bt}): launches {counts}")
+    check(counts == {name: int(name in want) for name in counts},
+          f"the W-gradient path did not run {want} once each and nothing "
+          "else")
     check(bool(torch.isfinite(W.grad).all() and torch.isfinite(logp.grad).all()),
           "non-finite gradients on the W-gradient path")
     return counts
+
+
+def print_step(label: str, step: dict) -> None:
+    print(f"{label} step breakdown: step between CUDA events, back to back "
+          f"(includes host launch gaps) {step['step_ms_events']:.3f} ms, "
+          f"host batch assembly {step['host_batch_assembly_ms']:.3f} ms, "
+          f"staging (pinned copy + H2D) {step['host_staging_ms']:.3f} ms")
 
 
 def main() -> int:
@@ -367,8 +574,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    import numpy
+    import scipy
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+          f"cuda {torch.version.cuda}, numpy {numpy.__version__}, scipy "
+          f"{scipy.__version__}, device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.api import Experiment
     from repro_torch.bench import paper_config, profile_step
@@ -385,27 +595,45 @@ def main() -> int:
     obj = exp.config.objective
     W_path = real_block(exp, P)
     records = kernel_phase(W_path, obj.gamma, obj.kappa)
+    records.update(bsp_kernel_phase(W_path, obj.gamma, obj.kappa))
     small_step_parity()
-    train = train_phase(exp)
+    small_step_parity(layout_bt=64)
+    dense = train_phase(exp, ("graph_reg_fwd", "graph_reg_bwd_dlogp"),
+                        "main path")
     w_grad = w_grad_path(W_path, obj.gamma, obj.kappa)
-    exp.pipeline = exp.pipeline.inner
-    step = profile_step(exp, trace=False)
-    print(f"step breakdown: step between CUDA events, back to back "
-          f"(includes host launch gaps) {step['step_ms_events']:.3f} ms, "
-          f"host batch assembly "
-          f"{step['host_batch_assembly_ms']:.3f} ms, staging (pinned copy + "
-          f"H2D) {step['host_staging_ms']:.3f} ms")
+    t0 = time.time()
+    exp_bsp = Experiment(paper_config(layout_bt=LAYOUT_BT),
+                         corpus=exp.corpus, eval_data=exp.eval_data,
+                         graph=exp.graph, plan=exp.plan, device="cuda").build()
+    print(f"block-sparse pipeline: layout_bt={LAYOUT_BT}, tile-list length "
+          f"{exp_bsp.pipeline.__self__.layout_len}, {time.time() - t0:.1f}s")
+    sparse = train_phase(exp_bsp, ("graph_reg_bsp_fwd", "graph_reg_bsp_bterm",
+                                   "graph_reg_bsp_dlogp"),
+                         "block-sparse main path")
+    print(f"loss/total: dense {dense['row']['loss/total']!r}, block-sparse "
+          f"{sparse['row']['loss/total']!r}; eval/acc: dense "
+          f"{dense['row']['eval/acc']!r}, block-sparse "
+          f"{sparse['row']['eval/acc']!r}")
+    w_grad_bsp = w_grad_path(W_path, obj.gamma, obj.kappa,
+                             layout_bt=LAYOUT_BT)
+    print_step("main path", profile_step(exp, trace=False))
+    print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 
-    from repro_torch.kernels.graph_reg import SOURCE
+    from repro_torch.kernels import graph_reg, graph_reg_bsp
     kernels = []
     for name, rec in records.items():
         b_ms, b_by = rec["bound"]
-        # K1/K2 count on the training path; K3 on the W-gradient path (the
-        # training path launches it 0 times, checked above).
-        path, counts = (("w_grad", w_grad) if name == "graph_reg_bwd_dw"
-                        else ("train", train["counts"]))
+        # K3 and K7 count on their W-gradient paths (training launches them
+        # 0 times, checked above); the others on their training paths.
+        path, counts = {
+            "graph_reg_bwd_dw": ("w_grad", w_grad),
+            "graph_reg_bsp_dw": ("w_grad_blocksparse", w_grad_bsp),
+        }.get(name, ("train", dense["counts"]) if name in graph_reg.WRAPPERS
+              else ("train_blocksparse", sparse["counts"]))
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": (graph_reg.SOURCE if name in graph_reg.WRAPPERS
+                       else graph_reg_bsp.SOURCE),
             "replaces": REPLACES[name], "launches": counts[name],
             "path": path,
             "max_abs_err": rec["max_abs_err"], "tol": rec["tol"],

@@ -213,14 +213,15 @@ class ObjectiveConfig:
     ``pairwise`` names a PAIRWISE registry entry — ``"ref"`` (plain
     version), ``"pallas"`` (cross-term kernel; the name is the
     reference's), ``"fused"`` (fused regularizer kernel, fwd + analytic
-    VJP), ``"blocksparse"`` (the tile-skipping kernels; needs
-    ``BatchConfig.layout_bt``, a later slice of the port) or ``"auto"``
-    (the GPU kernels for CUDA tensors, the plain version on the CPU).
+    VJP), ``"blocksparse"`` (the tile-skipping kernels K4–K7; needs
+    ``BatchConfig.layout_bt``) or ``"auto"`` (the GPU kernels for CUDA
+    tensors, the plain version on the CPU; block-sparse with a layout).
     ``gamma=kappa=0`` recovers the fully-supervised baseline.
 
     ``tile_bi``/``tile_bj``/``tile_bc`` pin kernel block sizes (rows ×
     affinity-columns × class-chunk); ``None`` auto-selects.  The Hopper
-    kernels have fixed block shapes and refuse a pinned size.
+    kernels have fixed block shapes and refuse a pinned size, except the
+    block-sparse kernels' ``bi``, which is the layout's tile edge.
     """
 
     gamma: float = 1.0            # graph-regularizer weight γ

@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import ExperimentConfig
-from repro_torch.api.registry import (AFFINITY, OPTIMIZER, PARTITIONER,
-                                      PIPELINE, resolve_pairwise)
+from repro_torch.api.registry import (AFFINITY, OPTIMIZER, PAIRWISE,
+                                      PARTITIONER, PIPELINE, resolve_pairwise)
 from repro_torch.device import resolve_device
 
 __all__ = ["Experiment", "ExperimentResult"]
@@ -77,11 +77,6 @@ class Experiment:
             raise NotImplementedError(
                 "online graph refresh (OnlineConfig.refresh_every > 0) is not "
                 "ported to repro_torch yet (engine extras slice)")
-        if cfg.batch.layout_bt is not None:
-            raise NotImplementedError(
-                "BatchConfig.layout_bt needs the block-sparse GPU kernels "
-                "(K4-K7), which are not ported yet (block-sparse batches "
-                "slice)")
         if self.corpus is None:
             self.corpus, self.eval_data = self._make_data()
         if self.graph is None:
@@ -134,7 +129,7 @@ class Experiment:
             supervisor=None,
             fault_injector=None,
             record_indices=False,
-            layout_bt=None)
+            layout_bt=cfg.batch.layout_bt)
         self._built = True
         return self
 
@@ -154,6 +149,25 @@ class Experiment:
             self.graph.W, tol=cfg.partition.tol,
             coarsen_to=cfg.partition.coarsen_to,
             seed=cfg.repartition.seed)
+
+    def tiles(self):
+        """The tiles the pairwise entry runs with: the config's pinned ones.
+        A pipeline-built block layout fixes the block-sparse kernels' tile
+        edge, so ``bi`` is pinned to ``layout_bt`` as in the reference
+        (config validation rejects a conflicting ``tile_bi``), but only for
+        layout-aware entries: the dense Hopper kernels refuse any pinned
+        size, and they never see the layout."""
+        cfg = self.config
+        tiles = cfg.objective.tiles()
+        takes_layout = getattr(PAIRWISE.get(cfg.objective.pairwise),
+                               "accepts_layout", False)
+        if cfg.batch.layout_bt is None or not takes_layout:
+            return tiles
+        from repro_torch.kernels.tuning import TileSpec
+        tiles = tiles or TileSpec()
+        if tiles.bi is None:
+            tiles = dataclasses.replace(tiles, bi=cfg.batch.layout_bt)
+        return tiles
 
     def _strategy(self) -> str:
         strategy = self.config.execution.strategy
@@ -197,7 +211,7 @@ class Experiment:
             n_hidden=t.n_hidden, n_classes=self.corpus.n_classes,
             dropout=t.dropout)
         pairwise = resolve_pairwise(cfg.objective.pairwise,
-                                    tiles=cfg.objective.tiles())
+                                    tiles=self.tiles())
         t0 = time.time()
         res = train_dnn_ssl(
             self.pipeline,

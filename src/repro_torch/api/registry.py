@@ -90,8 +90,8 @@ PIPELINE.register("metabatch_stream",
 #:   * ``"pallas"`` — the cross term through the K1 kernel and its K2/K3
 #:     VJP (the reference's name for its Pallas cross-term entry);
 #:   * ``"fused"``  — the fused regularizer kernel K1 with its VJP;
-#:   * ``"blocksparse"`` — the tile-skipping kernels with a ``layout=``
-#:     (a later slice; raises), the dense fused path without one;
+#:   * ``"blocksparse"`` — the tile-skipping kernels K4–K7 with a
+#:     ``layout=``, the dense fused path without one;
 #:   * ``"auto"``   — the Hopper kernels for CUDA tensors, the plain
 #:     version for CPU tensors.
 PAIRWISE = Registry("pairwise")

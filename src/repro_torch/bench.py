@@ -2,15 +2,19 @@
 timing with CUDA events, and a profiled training step.
 
     PYTHONPATH=src python -m repro_torch.bench [--steps 5] [--out DIR]
+                                               [--layout-bt 128]
 
 builds the paper's configuration (4×2000 DNN, 351→39, batch 1024, 20k
 nodes), stages one real batch and runs ``--steps`` training steps under
-``torch.profiler`` after a warm-up.  It prints one JSON line with the
-device time per step by kernel group (dense matmuls, the graph-regularizer
-kernels, everything else), the device's busy share of the profiled window,
-and the host's batch-assembly and staging times; the full kernel table goes
-to ``DIR/step_profile.txt``.  Needs a GPU; ``chip_smoke.py`` imports
-:func:`paper_config` and :func:`time_ms` from here.
+``torch.profiler`` after a warm-up; ``--layout-bt`` gives the batches a
+block layout, so the step runs the block-sparse kernels K4–K6.  It prints
+one JSON line with the device time per step by kernel group (dense
+matmuls, the graph-regularizer kernels, everything else), the device's
+busy share of the profiled window, and the host's batch-assembly and
+staging times; the full kernel table goes to ``DIR/step_profile.txt``
+(``step_profile_bt<N>.txt`` with a layout).  Needs a GPU;
+``chip_smoke.py`` imports :func:`paper_config` and :func:`time_ms` from
+here.
 """
 from __future__ import annotations
 
@@ -23,13 +27,17 @@ import torch
 
 __all__ = ["paper_config", "time_ms", "profile_step"]
 
-#: Names of this package's kernels in a profiler trace.
+#: Names of this package's kernels in a profiler trace: K1–K3 and the
+#: block-sparse K4–K7.
 REG_KERNELS = ("reg_fwd_partials", "reg_fwd_sum", "reg_bwd_dlogp",
-               "reg_bwd_dw")
+               "reg_bwd_dw", "bsp_fwd_partials", "bsp_bwd_bterm",
+               "bsp_bwd_dlogp", "bsp_bwd_dw")
 
 
-def paper_config(n_epochs: int = 1):
-    """The paper's TIMIT-width setup (§3) on the synthetic corpus."""
+def paper_config(n_epochs: int = 1, layout_bt: int | None = None):
+    """The paper's TIMIT-width setup (§3) on the synthetic corpus; with
+    ``layout_bt`` the batches carry a block layout of that tile edge and
+    the regularizer runs on the block-sparse kernels."""
     from repro_torch.api import (BatchConfig, DataConfig, ExperimentConfig,
                                  ObjectiveConfig, TrainConfig)
     return ExperimentConfig(
@@ -39,7 +47,7 @@ def paper_config(n_epochs: int = 1):
         objective=ObjectiveConfig(gamma=1.0, kappa=1e-4, pairwise="auto"),
         train=TrainConfig(hidden_dim=2000, n_hidden=4, dropout=0.2,
                           n_epochs=n_epochs),
-        batch=BatchConfig(batch_size=1024))
+        batch=BatchConfig(batch_size=1024, layout_bt=layout_bt))
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -97,7 +105,7 @@ def profile_step(exp, steps: int = 5, out: Path | None = None, *,
     opt = adagrad()
     state = opt.init(params)
     gen = torch.Generator(dev).manual_seed(0)
-    pairwise = resolve_pairwise(cfg.objective.pairwise)
+    pairwise = resolve_pairwise(cfg.objective.pairwise, tiles=exp.tiles())
     hyper = cfg.objective.hyper()
 
     def step():
@@ -138,7 +146,10 @@ def profile_step(exp, steps: int = 5, out: Path | None = None, *,
                   device_busy_share=busy / (wall_ms / steps) if busy else None)
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
-        with open(out / "step_profile.txt", "w") as fh:
+        bt = cfg.batch.layout_bt
+        fname = ("step_profile.txt" if bt is None
+                 else f"step_profile_bt{bt}.txt")
+        with open(out / fname, "w") as fh:
             fh.write(json.dumps(result) + "\n")
             for ms, calls, name in rows:
                 fh.write(f"{ms:10.4f} ms/step {calls:5d} calls/step  "
@@ -153,9 +164,11 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out"))
+    ap.add_argument("--layout-bt", type=int, default=None)
     args = ap.parse_args(argv)
     from repro_torch.api import Experiment
-    exp = Experiment(paper_config(), device="cuda").build()
+    exp = Experiment(paper_config(layout_bt=args.layout_bt),
+                     device="cuda").build()
     print(json.dumps(profile_step(exp, args.steps, args.out)))
 
 

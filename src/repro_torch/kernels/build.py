@@ -2,11 +2,12 @@
 
 Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, and loaded with ``ctypes``.  The
-library's file name carries a hash of the source text and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Builds
-land in ``<checkout>/build/`` (``REPRO_TORCH_BUILD_DIR`` overrides it); a
-build writes to a temporary name and renames it into place, so concurrent
-first uses in several processes cannot load a half-written library.
+library's file name carries a hash of the source text, the shared headers
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  Builds land in ``<checkout>/build/``
+(``REPRO_TORCH_BUILD_DIR`` overrides it); a build writes to a temporary
+name and renames it into place, so concurrent first uses in several
+processes cannot load a half-written library.
 
 Nothing here runs at import time: machines without ``nvcc`` import every
 module, and a build starts only when a CUDA tensor first meets a kernel.
@@ -49,8 +50,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed on its text and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to: keyed on its text, the shared
+    headers' (``csrc/*.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{key[:16]}.so"
 

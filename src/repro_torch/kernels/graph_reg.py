@@ -37,7 +37,9 @@ f32 without tensor cores):
 
 All three are plain FMA loops in f32 (no TF32, no tensor cores): the first
 aim is agreement with the reference, speed is later work.  Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches``; :func:`launch_counts`
+reports them together with those of the block-sparse kernels K4–K7
+(:mod:`.graph_reg_bsp`).
 """
 from __future__ import annotations
 
@@ -85,9 +87,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"all on one device; got {sorted(kinds)}")
 
 
-def _checked(t: torch.Tensor, name: str, shape: tuple) -> int:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _checked(t: torch.Tensor, name: str, shape: tuple,
+             dtype: torch.dtype = torch.float32) -> int:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -167,18 +170,22 @@ def reg_bwd_dw(logp: torch.Tensor, g: torch.Tensor, gc: float, ge: float, *,
     return out
 
 
-_WRAPPERS = {"graph_reg_fwd": reg_forward, "graph_reg_bwd_dlogp": reg_bwd_dlogp,
-             "graph_reg_bwd_dw": reg_bwd_dw}
+WRAPPERS = {"graph_reg_fwd": reg_forward, "graph_reg_bwd_dlogp": reg_bwd_dlogp,
+            "graph_reg_bwd_dw": reg_bwd_dw}
+for _fn in WRAPPERS.values():
+    _fn.launches = 0
+
+
+def _all_wrappers() -> dict:
+    from . import graph_reg_bsp   # K4-K7 reuse this module's helpers
+    return {**WRAPPERS, **graph_reg_bsp.WRAPPERS}
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    """Kernel launches per wrapper since the last reset, K1-K7."""
+    return {name: fn.launches for name, fn in _all_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
+    for fn in _all_wrappers().values():
         fn.launches = 0
-
-
-reset_launch_counts()

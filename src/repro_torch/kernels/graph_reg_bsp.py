@@ -1,0 +1,197 @@
+"""Hopper kernels K4–K7 of the block-sparse Eq.-3/4 graph regularizer.
+
+The block-sparse regularizer is the fused one (:mod:`.graph_reg`) over the
+bt×bt tiles of W that a ``BlockLayout`` lists as occupied
+(:mod:`repro_torch.core.metabatch`): the pipeline builds one per batch when
+``BatchConfig.layout_bt`` is set, and the ``tile_*`` fields of the batch
+carry its row-major list (``rows``, ``cols``, ``valid``), its column-major
+list (``crows``, ``ccols``, ``cvalid``) and its occupancy mask ``occ``.
+Each wrapper below launches one kernel of ``csrc/graph_reg_bsp.cu`` for
+CUDA tensors, runs its plain version from :mod:`repro_torch.kernels.ref`
+for CPU tensors, and raises for anything else.
+
+Source notes (paper's path: P = 2176, C = 39, bt = 128, nt = 17, about 60
+of the 289 tiles occupied; bounds for one worker on an H100 SXM, 3.35 TB/s
+and 67 TFLOP/s f32 without tensor cores):
+
+* ``bsp_forward`` — K4, replaces ``repro/kernels/graph_reg.py:
+  _bsp_forward`` / ``_bsp_fwd_kernel``.  Reads the occupied tiles of W
+  and logp (4.3 MB, 1.3 µs) and does 2·C flops per occupied entry
+  (77 MFLOP, 1.1 µs): bound by bytes.  The Pallas kernel walks the list as one ordered grid and adds
+  every step into one (1,1) output.  Here one block owns a 32-row piece of
+  a tile strip, binary-searches its strip's entries in the sorted ``rows``
+  and loops over them in list order with K1's loops, then writes one
+  partial; a second launch sums the partials in strip order, as for K1.
+* ``bsp_bwd_bterm`` — K5, replaces ``_bsp_bwd`` pass 1 /
+  ``_bsp_bterm_kernel``.  bterm = Wᵀ·P per output column strip over the
+  column-major list, reading each listed W tile transposed through shared
+  memory, as K2 reads Wᵀ.  Same bytes and flops as K4.
+* ``bsp_bwd_dlogp`` — K6, replaces ``_bsp_bwd`` pass 2 /
+  ``_bsp_dlogp_kernel``.  W·logP and the degrees over the row-major list,
+  folding in K5's bterm (a (k, B, C) buffer; the two launches are ordered
+  on one stream).
+* ``bsp_bwd_dw`` — K7, replaces ``_bsp_bwd`` pass 3 / ``_bsp_dw_kernel``.
+  Writes the dense P×P dW (18.9 MB, 5.7 µs): bound by bytes.  K3's blocks,
+  with the S tile computed only where ``occ`` marks a tile occupied and
+  exact zeros written elsewhere.  Training never asks for it.
+
+The kernels take any tile edge bt that is a positive multiple of 32 (a
+32-row block piece must lie in one tile strip); :func:`check_tile_edge`
+raises for any other, naming the rule.  The plain versions take any bt.
+On a full occupancy mask with bt a multiple of 64 the kernels repeat the
+dense kernels' sums in the same order (one copy of the tile code,
+``csrc/graph_reg_tiles.cuh``), so K4 equals K1 bit for bit.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, ref
+from .graph_reg import _checked, _dims, _on_cpu, _raise_on, _stream
+
+__all__ = ["bsp_forward", "bsp_bwd_bterm", "bsp_bwd_dlogp", "bsp_bwd_dw",
+           "check_tile_edge", "WRAPPERS", "SOURCE"]
+
+SOURCE = "src/repro_torch/csrc/graph_reg_bsp.cu"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "graph_reg_bsp_fwd_n_partials": (_I, _I),
+    "graph_reg_bsp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _P, _P, _P),
+    "graph_reg_bsp_bterm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "graph_reg_bsp_dlogp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _F, _F, _P, _P),
+    "graph_reg_bsp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P),
+}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("graph_reg_bsp")
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_tile_edge(bt: int) -> None:
+    """Raise unless the CUDA kernels can take tile edge ``bt``."""
+    if not (isinstance(bt, int) and bt > 0 and bt % 32 == 0):
+        raise ValueError(
+            f"block-sparse kernels: tile edge bt={bt!r} is not a positive "
+            f"multiple of 32 (a block owns 32 rows of one tile strip); "
+            f"build the layout with such a BatchConfig.layout_bt")
+
+
+def _lists(k: int, **lists: torch.Tensor) -> list[int]:
+    """Pointers of one layout's three (k, T) int32 tile lists."""
+    T = next(iter(lists.values())).shape[-1]
+    return [_checked(t, name, (k, T), torch.int32)
+            for name, t in lists.items()]
+
+
+def bsp_forward(logp: torch.Tensor, W: torch.Tensor, rows: torch.Tensor,
+                cols: torch.Tensor, valid: torch.Tensor, bt: int, gc: float,
+                kappa: float, ge: float, *,
+                p: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: the block-sparse fused regularizer per worker.  logp (k, B, C),
+    W (k, B, B), the row-major list (k, T) int32 -> (k,)."""
+    if _on_cpu(logp, W, rows, cols, valid):
+        return ref.bsp_forward_ref(logp, W, rows, cols, valid, bt, gc, kappa,
+                                   ge)
+    k, B, C = _dims(logp)
+    check_tile_edge(bt)
+    p = torch.exp(logp) if p is None else p
+    partials = torch.empty(_lib().graph_reg_bsp_fwd_n_partials(k, B),
+                           dtype=torch.float32, device=logp.device)
+    out = torch.empty(k, dtype=torch.float32, device=logp.device)
+    rc = _lib().graph_reg_bsp_fwd(
+        _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
+        _checked(W, "W", (k, B, B)),
+        *_lists(k, rows=rows, cols=cols, valid=valid), k, B, C,
+        rows.shape[-1], bt, gc, kappa, ge, partials.data_ptr(),
+        out.data_ptr(), _stream(logp))
+    _raise_on(rc, "graph_reg_bsp_fwd")
+    bsp_forward.launches += 1
+    return out
+
+
+def bsp_bwd_bterm(logp: torch.Tensor, W: torch.Tensor, crows: torch.Tensor,
+                  ccols: torch.Tensor, cvalid: torch.Tensor, bt: int, *,
+                  p: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: bterm = Wᵀ·P over the column-major list, (k, B, C)."""
+    if _on_cpu(logp, W, crows, ccols, cvalid):
+        return ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt)
+    k, B, C = _dims(logp)
+    check_tile_edge(bt)
+    p = torch.exp(logp) if p is None else p
+    out = torch.empty(k, B, C, dtype=torch.float32, device=logp.device)
+    rc = _lib().graph_reg_bsp_bterm(
+        _checked(p, "p", (k, B, C)), _checked(W, "W", (k, B, B)),
+        *_lists(k, crows=crows, ccols=ccols, cvalid=cvalid), k, B, C,
+        crows.shape[-1], bt, out.data_ptr(), _stream(logp))
+    _raise_on(rc, "graph_reg_bsp_bterm")
+    bsp_bwd_bterm.launches += 1
+    return out
+
+
+def bsp_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, bterm: torch.Tensor,
+                  rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
+                  g: torch.Tensor, bt: int, gc: float, kappa: float,
+                  ge: float, *, p: torch.Tensor | None = None) -> torch.Tensor:
+    """K6: dL/dlogp, (k, B, C), from K5's ``bterm`` and the row-major list,
+    for the cotangent ``g`` of shape (k,), read by pointer."""
+    if _on_cpu(logp, W, bterm, rows, cols, valid, g):
+        return ref.bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols, valid, g,
+                                     bt, gc, kappa, ge)
+    k, B, C = _dims(logp)
+    check_tile_edge(bt)
+    p = torch.exp(logp) if p is None else p
+    out = torch.empty(k, B, C, dtype=torch.float32, device=logp.device)
+    rc = _lib().graph_reg_bsp_dlogp(
+        _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
+        _checked(W, "W", (k, B, B)), _checked(bterm, "bterm", (k, B, C)),
+        _checked(g, "g", (k,)),
+        *_lists(k, rows=rows, cols=cols, valid=valid), k, B, C,
+        rows.shape[-1], bt, gc, kappa, ge, out.data_ptr(), _stream(logp))
+    _raise_on(rc, "graph_reg_bsp_dlogp")
+    bsp_bwd_dlogp.launches += 1
+    return out
+
+
+def bsp_bwd_dw(logp: torch.Tensor, occ: torch.Tensor, g: torch.Tensor,
+               bt: int, gc: float, ge: float, *,
+               p: torch.Tensor | None = None) -> torch.Tensor:
+    """K7: dL/dW, (k, B, B), on the tiles ``occ`` (k, nt, nt) marks
+    occupied and exact zeros elsewhere."""
+    if _on_cpu(logp, occ, g):
+        return ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge)
+    k, B, C = _dims(logp)
+    check_tile_edge(bt)
+    nt = -(-B // bt)
+    p = torch.exp(logp) if p is None else p
+    out = torch.empty(k, B, B, dtype=torch.float32, device=logp.device)
+    rc = _lib().graph_reg_bsp_dw(
+        _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
+        _checked(occ, "occ", (k, nt, nt), torch.int32),
+        _checked(g, "g", (k,)), k, B, C, bt, gc, ge, out.data_ptr(),
+        _stream(logp))
+    _raise_on(rc, "graph_reg_bsp_dw")
+    bsp_bwd_dw.launches += 1
+    return out
+
+
+WRAPPERS = {"graph_reg_bsp_fwd": bsp_forward,
+            "graph_reg_bsp_bterm": bsp_bwd_bterm,
+            "graph_reg_bsp_dlogp": bsp_bwd_dlogp,
+            "graph_reg_bsp_dw": bsp_bwd_dw}
+for _fn in WRAPPERS.values():
+    _fn.launches = 0

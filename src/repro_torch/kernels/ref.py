@@ -10,13 +10,24 @@ forms are the analytic VJP the reference's backward kernels tile:
 
     dlogp = g·[−gc·(P⊙(W·logP) + Wᵀ·P) + (κ + ge·deg)⊙P⊙(logP + 1)]
     dW    = −g·(gc·P·logPᵀ + ge·H(p)·1ᵀ)
+
+The block-sparse versions (``bsp_*_ref``, K4–K7) take a worker axis —
+``logp`` (k, B, C), ``W`` (k, B, B) — and the lists of a ``BlockLayout``
+per worker: ``rows``/``cols``/``valid`` (k, T), ``crows``/``ccols``/
+``cvalid`` (k, T), ``occ`` (k, nt, nt), nt = ceil(B / bt).  They walk the
+lists as the kernels do: W's bt×bt tiles are gathered at the listed
+(row, col) entries with ``valid == 1`` (sentinels and tail padding add
+nothing), and every listed row strip owes its rows' entropy term once.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["graph_reg_pairwise_ref", "graph_regularizer_ref",
-           "reg_forward_ref", "reg_bwd_dlogp_ref", "reg_bwd_dw_ref"]
+           "reg_forward_ref", "reg_bwd_dlogp_ref", "reg_bwd_dw_ref",
+           "bsp_forward_ref", "bsp_bwd_bterm_ref", "bsp_bwd_dlogp_ref",
+           "bsp_bwd_dw_ref"]
 
 
 def graph_reg_pairwise_ref(logp: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -60,3 +71,88 @@ def reg_bwd_dw_ref(logp: torch.Tensor, g, gc: float, ge: float) -> torch.Tensor:
     p = torch.exp(logp)
     h = -torch.sum(p * logp, dim=-1, keepdim=True)
     return -_g(g, logp) * (gc * (p @ logp.mT) + ge * h)
+
+
+def _strips(x: torch.Tensor, bt: int) -> torch.Tensor:
+    """(k, B, ·) -> (k, nt, bt, ·), rows zero-padded to nt·bt."""
+    k, B = x.shape[:2]
+    nt = -(-B // bt)
+    pad = [0, 0] * (x.dim() - 2) + [0, nt * bt - B]
+    return F.pad(x, pad).reshape((k, nt, bt) + x.shape[2:])
+
+
+def _tiles(W: torch.Tensor, bt: int) -> torch.Tensor:
+    """(k, B, B) -> (k, nt, nt, bt, bt): W's tiles, zero-padded."""
+    k, B = W.shape[:2]
+    nt = -(-B // bt)
+    n = nt * bt - B
+    return F.pad(W, (0, n, 0, n)).reshape(k, nt, bt, nt, bt).transpose(2, 3)
+
+
+def _pick(blocks: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
+    """``blocks[z, idx[0][z, t], ...]`` for each worker z: (k, T, ...)."""
+    z = torch.arange(blocks.shape[0], device=blocks.device)[:, None]
+    return blocks[(z,) + tuple(i.long() for i in idx)]
+
+
+def _sum_into(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Per worker, sum ``vals`` (k, T, ...) into n lines at ``idx`` (k, T)."""
+    k = vals.shape[0]
+    at = (idx.long() + n * torch.arange(k, device=idx.device)[:, None])
+    out = vals.new_zeros((k * n,) + vals.shape[2:])
+    out.index_add_(0, at.reshape(-1), vals.flatten(0, 1))
+    return out.reshape((k, n) + vals.shape[2:])
+
+
+def _listed_tiles(W, rows, cols, valid, bt) -> torch.Tensor:
+    """W's tiles at the listed entries, zero where ``valid != 1``."""
+    live = (valid == 1)[..., None, None]
+    return torch.where(live, _pick(_tiles(W, bt), rows, cols), 0.0)
+
+
+def bsp_forward_ref(logp, W, rows, cols, valid, bt: int, gc: float,
+                    kappa: float, ge: float) -> torch.Tensor:
+    """K4: the fused forward over the listed tiles, (k,)."""
+    B = logp.shape[1]
+    nt = -(-B // bt)
+    p = torch.exp(logp)
+    Wt = _listed_tiles(W, rows, cols, valid, bt)
+    S = _pick(_strips(p, bt), rows) @ _pick(_strips(logp, bt), cols).mT
+    cross = -torch.sum(Wt * S, dim=(1, 2, 3))
+    deg = _sum_into(Wt.sum(-1), rows, nt)                     # (k, nt, bt)
+    listed = _sum_into(W.new_ones(rows.shape), rows, nt) > 0
+    h = _strips(-torch.sum(p * logp, dim=-1), bt)             # (k, nt, bt)
+    ent = torch.sum(torch.where(listed[..., None], (kappa + ge * deg) * h,
+                                0.0), dim=(1, 2))
+    return gc * cross - ent
+
+
+def bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt: int) -> torch.Tensor:
+    """K5: Wᵀ·P over the column-major list, (k, B, C)."""
+    B = logp.shape[1]
+    nt = -(-B // bt)
+    Wt = _listed_tiles(W, crows, ccols, cvalid, bt)     # W[j-tile, i-tile]
+    contrib = Wt.mT @ _pick(_strips(torch.exp(logp), bt), crows)
+    return _sum_into(contrib, ccols, nt).flatten(1, 2)[:, :B].contiguous()
+
+
+def bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols, valid, g, bt: int,
+                      gc: float, kappa: float, ge: float) -> torch.Tensor:
+    """K6: dL/dlogp from W·logP and the degrees over the row-major list and
+    K5's ``bterm``."""
+    B = logp.shape[1]
+    nt = -(-B // bt)
+    p = torch.exp(logp)
+    Wt = _listed_tiles(W, rows, cols, valid, bt)
+    A = _sum_into(Wt @ _pick(_strips(logp, bt), cols), rows, nt)
+    A = A.flatten(1, 2)[:, :B]
+    deg = _sum_into(Wt.sum(-1), rows, nt).flatten(1, 2)[:, :B, None]
+    return _g(g, logp) * (-gc * (p * A + bterm)
+                          + (kappa + ge * deg) * p * (logp + 1.0))
+
+
+def bsp_bwd_dw_ref(logp, occ, g, bt: int, gc: float, ge: float) -> torch.Tensor:
+    """K7: K3's dL/dW on tiles with ``occ == 1``, exact zeros elsewhere."""
+    B = logp.shape[-2]
+    live = (occ == 1).repeat_interleave(bt, -2).repeat_interleave(bt, -1)
+    return torch.where(live[..., :B, :B], reg_bwd_dw_ref(logp, g, gc, ge), 0.0)

@@ -4,8 +4,10 @@
 so an ``ObjectiveConfig`` with pinned ``tile_bi``/``tile_bj``/``tile_bc``
 round-trips between the two packages.  The Hopper kernels of this package
 have fixed block shapes (see ``csrc/graph_reg.cu``): a spec that pins any
-dimension is refused when it reaches a CUDA kernel, rather than ignored.
-The plain versions on the CPU have no tiles at all and accept any spec.
+dimension is refused when it reaches a CUDA kernel, rather than ignored;
+the block-sparse kernels take a pinned ``bi`` equal to their layout's tile
+edge and nothing else.  The plain versions on the CPU have no tiles at all
+and accept any spec.
 """
 from __future__ import annotations
 
@@ -37,9 +39,21 @@ class TileSpec:
         return (self.bi, self.bj, self.bc, self.bd)
 
 
-def refuse_pinned(tiles: TileSpec | None, kernel: str) -> None:
-    """Raise if ``tiles`` pins a block size the CUDA ``kernel`` cannot take."""
-    if tiles is not None and any(v is not None for v in tiles.astuple()):
+def refuse_pinned(tiles: TileSpec | None, kernel: str, *,
+                  bi: int | None = None) -> None:
+    """Raise if ``tiles`` pins a block size the CUDA ``kernel`` cannot take.
+
+    ``bi`` is the one row tile the kernel does take: the block-sparse
+    kernels run at their layout's tile edge, which the reference pins as
+    ``tiles.bi`` (``Experiment`` does so from ``BatchConfig.layout_bt``).
+    """
+    if tiles is None:
+        return
+    pinned = {name: v for name, v in zip(_DIMS, tiles.astuple())
+              if v is not None and not (name == "bi" and v == bi)}
+    if pinned:
+        takes = f" (only bi={bi}, the layout's tile edge)" if bi else ""
         raise ValueError(
-            f"{kernel}: the Hopper kernel has fixed block shapes and does not "
-            f"take a pinned {tiles}; leave ObjectiveConfig.tile_* unset")
+            f"{kernel}: the Hopper kernel has fixed block shapes{takes} and "
+            f"does not take a pinned {tiles}; leave ObjectiveConfig.tile_* "
+            f"unset")

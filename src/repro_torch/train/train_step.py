@@ -14,8 +14,9 @@ from repro_torch.core.ssl_loss import SSLHyper, ssl_objective, tree_leaves
 from repro_torch.models.dnn import DNNConfig, dnn_forward
 from repro_torch.optim import Optimizer
 
-#: SSLBatch block-layout fields (present when the pipeline was built with
-#: ``BatchConfig.layout_bt``).
+#: SSLBatch block-layout fields, in ``BlockLayout.arrays()`` order — the
+#: tuple the layout-aware pairwise kernels consume (present when the
+#: pipeline was built with ``BatchConfig.layout_bt``).
 _TILE_KEYS = ("tile_rows", "tile_cols", "tile_valid",
               "tile_crows", "tile_ccols", "tile_cvalid", "tile_occ")
 
@@ -41,13 +42,13 @@ def dnn_ssl_loss(params, batch: dict, cfg: DNNConfig, hyper: SSLHyper, *,
 
     Padding rows get zero label mask and zero affinity (``W`` masked by the
     outer product of ``valid``); the ``mean`` reduction still divides the
-    graph term by the padded size P, as the reference does.
+    graph term by the padded size P, as the reference does.  When the
+    pipeline attached a block layout (all ``tile_*`` keys, worker axis
+    leading) it goes to layout-aware pairwise entries, which skip W's
+    unoccupied tiles.
     """
-    if any(batch.get(k) is not None for k in _TILE_KEYS):
-        raise NotImplementedError(
-            "batches with a block layout (BatchConfig.layout_bt) need the "
-            "block-sparse GPU kernels, which are not ported yet (block-sparse "
-            "batches slice)")
+    layout = (tuple(batch[k] for k in _TILE_KEYS)
+              if all(batch.get(k) is not None for k in _TILE_KEYS) else None)
     logits = dnn_forward(params, batch["x"], generator=generator,
                          dropout=dropout)
     valid = batch["valid"].to(torch.float32)
@@ -55,7 +56,7 @@ def dnn_ssl_loss(params, batch: dict, cfg: DNNConfig, hyper: SSLHyper, *,
     Wm = batch["W"] * valid[..., :, None] * valid[..., None, :]
     losses, metrics = ssl_objective(
         logits, batch["y"], mask, Wm, hyper, params=params,
-        pairwise=pairwise, reduction="mean")
+        pairwise=pairwise, layout=layout, reduction="mean")
     return losses.mean(), {k: v.mean() for k, v in metrics.items()}
 
 

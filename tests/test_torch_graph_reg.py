@@ -139,11 +139,27 @@ def test_registry_names_and_markers_match_reference():
                                                                      marker)
 
 
-def test_blocksparse_layout_raises_until_ported():
+def test_blocksparse_layout_computes_and_refuses_other_pinned_bi(
+        monkeypatch):
+    """With a layout the entry computes (K4–K7's plain versions here); on
+    the card path a pinned bi other than the layout's tile edge raises."""
+    from repro_torch.core.metabatch import block_layout
     logp, W = _problem(64, 8)
-    with pytest.raises(NotImplementedError, match="block-sparse"):
+    lay = block_layout(W, 32)
+    lp = torch.tensor(logp, requires_grad=True)
+    val = ops.graph_regularizer_blocksparse(lp, torch.tensor(W), GAMMA,
+                                            KAPPA, layout=lay)
+    val.backward()
+    _close(val.item(), ops.graph_regularizer_fused(
+        torch.tensor(logp), torch.tensor(W), GAMMA, KAPPA).item())
+    assert torch.isfinite(lp.grad).all()
+    # The card path's check runs before any kernel: fake a CUDA tensor.
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda")))
+    with pytest.raises(ValueError, match="only bi=32"):
         ops.graph_regularizer_blocksparse(torch.tensor(logp), torch.tensor(W),
-                                          GAMMA, KAPPA, layout=(0,) * 7)
+                                          GAMMA, KAPPA, layout=lay,
+                                          tiles=TileSpec(bi=64))
 
 
 def test_pinned_tiles_are_refused_for_cuda_kernels():
@@ -188,6 +204,8 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
     gr.reset_launch_counts()
     logp, W = _problem(64, 8)
     ops.graph_regularizer_fused(torch.tensor(logp), torch.tensor(W), 1.0, 0.0)
-    assert gr.launch_counts() == {"graph_reg_fwd": 0,
-                                  "graph_reg_bwd_dlogp": 0,
-                                  "graph_reg_bwd_dw": 0}
+    assert gr.launch_counts() == {
+        name: 0 for name in ("graph_reg_fwd", "graph_reg_bwd_dlogp",
+                             "graph_reg_bwd_dw", "graph_reg_bsp_fwd",
+                             "graph_reg_bsp_bterm", "graph_reg_bsp_dlogp",
+                             "graph_reg_bsp_dw")}

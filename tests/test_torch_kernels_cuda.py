@@ -8,14 +8,19 @@ machine that has only PyTorch:
 
 Tolerance: the kernels and the plain versions (cuBLAS products) sum float32
 terms in different orders; rtol 2e-5 with an atol of 2e-5 of the largest
-magnitude.  Repeats must be bit-identical: the kernels use no atomics.
+magnitude.  Repeats must be bit-identical: the kernels use no atomics.  On
+a full occupancy mask the block-sparse K4 must equal the dense K1 bit for
+bit (same tile code, same order).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.metabatch import (block_layout,  # noqa: E402
+                                        layout_from_occupancy)
 from repro_torch.kernels import graph_reg as gr  # noqa: E402
+from repro_torch.kernels import graph_reg_bsp as bsp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.tuning import TileSpec  # noqa: E402
 
@@ -88,9 +93,9 @@ def test_training_skips_k3_and_counts_launches(cuda):
     gr.reset_launch_counts()
     ops.graph_regularizer_fused(lp, W.to(cuda), GAMMA, KAPPA).backward()
     torch.cuda.synchronize()
-    assert gr.launch_counts() == {"graph_reg_fwd": 1,
-                                  "graph_reg_bwd_dlogp": 1,
-                                  "graph_reg_bwd_dw": 0}
+    counts = gr.launch_counts()
+    assert counts["graph_reg_fwd"] == counts["graph_reg_bwd_dlogp"] == 1
+    assert sum(counts.values()) == 2
 
 
 @pytest.mark.cuda
@@ -99,3 +104,134 @@ def test_pinned_tiles_raise_on_the_card(cuda):
     with pytest.raises(ValueError, match="fixed block shapes"):
         ops.graph_regularizer_fused(logp.to(cuda), W.to(cuda), 1.0, 0.0,
                                     tiles=TileSpec(bi=64))
+
+
+def _bsp_problem(B, C, bt, k, seed=0, density=0.4, empty_line=None):
+    """k workers of (logp, W, layout): W zero outside a random symmetric
+    tile mask, optionally with one empty tile row and column."""
+    rng = np.random.default_rng(seed + B + bt)
+    nt = -(-B // bt)
+    logps, Ws, occs = [], [], []
+    for _ in range(k):
+        occ = rng.random((nt, nt)) < density
+        occ = occ | occ.T
+        if empty_line is not None:
+            occ[empty_line, :] = occ[:, empty_line] = False
+        W = np.abs(rng.normal(size=(B, B))).astype(np.float32)
+        mask = np.kron(occ, np.ones((bt, bt), bool))[:B, :B]
+        Ws.append(np.where(mask, (W + W.T) / 2, 0.0).astype(np.float32))
+        logps.append(torch.log_softmax(torch.tensor(
+            rng.normal(size=(B, C)) * 2.0, dtype=torch.float32), -1))
+        occs.append(occ)
+    T = max(layout_from_occupancy(o, bt).list_len for o in occs)
+    lays = [block_layout(W, bt, list_len=T).arrays() for W in Ws]
+    arrays = [torch.tensor(np.stack([lay[i] for lay in lays]))
+              for i in range(7)]
+    return torch.stack(logps), torch.tensor(np.stack(Ws)), arrays
+
+
+def _bsp_pairs(logp, W, arrays, g, bt, gc, kappa, ge):
+    rows, cols, valid, crows, ccols, cvalid, occ = arrays
+    bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt)
+    return [
+        (lambda: bsp.bsp_forward(logp, W, rows, cols, valid, bt, gc, kappa,
+                                 ge),
+         ref.bsp_forward_ref(logp, W, rows, cols, valid, bt, gc, kappa, ge)),
+        (lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt), bterm),
+        (lambda: bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid, g, bt,
+                                   gc, kappa, ge),
+         ref.bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols, valid, g, bt, gc,
+                               kappa, ge)),
+        (lambda: bsp.bsp_bwd_dw(logp, occ, g, bt, gc, ge),
+         ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,bt,empty", [(200, 39, 32, None),
+                                          (257, 70, 64, 1),
+                                          (300, 39, 128, None),
+                                          (1000, 39, 96, 3)])
+def test_block_sparse_kernels_match_plain_versions(cuda, B, C, bt, empty):
+    logp, W, arrays = _bsp_problem(B, C, bt, k=2, empty_line=empty)
+    logp, W = logp.to(cuda), W.to(cuda)
+    arrays = [a.to(cuda) for a in arrays]
+    g = torch.tensor([0.5, -2.0], device=cuda)
+    for kern, want in _bsp_pairs(logp, W, arrays, g, bt, GAMMA, KAPPA,
+                                 GAMMA):
+        a, b = kern(), kern()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        _close(a.cpu().numpy(), want.cpu().numpy())
+    dW = bsp.bsp_bwd_dw(logp, arrays[6], g, bt, GAMMA, GAMMA)
+    live = arrays[6].repeat_interleave(bt, -2).repeat_interleave(bt, -1)
+    assert bool((dW[live[:, :B, :B] == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [64, 128])
+def test_block_sparse_full_mask_equals_dense_kernels(cuda, bt):
+    """Full mask: K4 is K1 bit for bit; K5∘K6 and K7 agree with K2 and K3
+    within the tolerance (bit-identical where the compiler emits the same
+    code)."""
+    logp, W, arrays = _bsp_problem(256, 39, bt, k=2, density=2.0)
+    logp, W = logp.to(cuda), W.to(cuda)
+    rows, cols, valid, crows, ccols, cvalid, occ = [a.to(cuda)
+                                                    for a in arrays]
+    assert bool(occ.all())
+    g = torch.tensor([0.5, -2.0], device=cuda)
+    assert torch.equal(bsp.bsp_forward(logp, W, rows, cols, valid, bt, GAMMA,
+                                       KAPPA, GAMMA),
+                       gr.reg_forward(logp, W, GAMMA, KAPPA, GAMMA))
+    bterm = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
+    _close(bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid, g, bt, GAMMA,
+                             KAPPA, GAMMA).cpu().numpy(),
+           gr.reg_bwd_dlogp(logp, W, g, GAMMA, KAPPA, GAMMA).cpu().numpy())
+    _close(bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, GAMMA).cpu().numpy(),
+           gr.reg_bwd_dw(logp, g, GAMMA, GAMMA).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_block_sparse_function_on_the_card_matches_cpu(cuda):
+    logp, W, arrays = _bsp_problem(300, 39, 64, k=2, empty_line=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        lp = logp.to(dev).requires_grad_(True)
+        w = W.to(dev).requires_grad_(True)
+        val = ops.graph_regularizer_blocksparse(
+            lp, w, GAMMA, KAPPA, layout=[a.to(dev) for a in arrays],
+            tiles=TileSpec(bi=64))
+        val.sum().backward()
+        out[dev.type] = (val.detach().cpu().numpy(), lp.grad.cpu().numpy(),
+                         w.grad.cpu().numpy())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_block_sparse_training_skips_k7_and_counts_launches(cuda):
+    logp, W, arrays = _bsp_problem(256, 39, 64, k=1)
+    lp = logp.to(cuda).requires_grad_(True)
+    gr.reset_launch_counts()
+    ops.graph_regularizer_auto(lp, W.to(cuda), GAMMA, KAPPA,
+                               layout=[a.to(cuda) for a in arrays],
+                               tiles=TileSpec(bi=64)).sum().backward()
+    torch.cuda.synchronize()
+    counts = gr.launch_counts()
+    assert counts == {**{name: 0 for name in counts},
+                      "graph_reg_bsp_fwd": 1, "graph_reg_bsp_bterm": 1,
+                      "graph_reg_bsp_dlogp": 1}
+
+
+@pytest.mark.cuda
+def test_block_sparse_refusals_on_the_card(cuda):
+    logp, W, arrays = _bsp_problem(192, 8, 48, k=1)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.graph_regularizer_blocksparse(
+            logp.to(cuda), W.to(cuda), 1.0, 0.0,
+            layout=[a.to(cuda) for a in arrays], tiles=TileSpec(bi=48))
+    logp, W, arrays = _bsp_problem(192, 8, 64, k=1)
+    with pytest.raises(ValueError, match="fixed block shapes"):
+        ops.graph_regularizer_blocksparse(
+            logp.to(cuda), W.to(cuda), 1.0, 0.0,
+            layout=[a.to(cuda) for a in arrays], tiles=TileSpec(bi=64, bc=8))

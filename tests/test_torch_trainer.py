@@ -6,7 +6,8 @@ bit-identical copies), with dropout 0.  The reference runs its plain
 ``pairwise="ref"``; the port runs its default ``"auto"``, which on CPU
 tensors is the plain version too.  Per-epoch means agree to ~3e-6 relative
 (float32 sums in other orders, carried through ~lr·sign(g) AdaGrad updates
-of near-zero gradients); they are held to rtol 1e-5.
+of near-zero gradients); they are held to rtol 1e-5.  The same holds for
+two epochs of ``Experiment`` with block-sparse batches (``layout_bt``).
 """
 import json
 
@@ -29,6 +30,7 @@ from repro_torch.api import (BatchConfig, DataConfig, ExecutionConfig,  # noqa: 
                              Experiment, ExperimentConfig, OnlineConfig,
                              ResilienceConfig, TrainConfig)
 from repro_torch.core.ssl_loss import SSLHyper as THyper  # noqa: E402
+from repro_torch.kernels.tuning import TileSpec  # noqa: E402
 from repro_torch.data.pipeline import make_meta_batch_pipeline as tmake  # noqa: E402
 from repro_torch.models.dnn import DNNConfig as TDNN  # noqa: E402
 from repro_torch.train.trainer import train_dnn_ssl as ttrain  # noqa: E402
@@ -91,13 +93,51 @@ def test_experiment_runs_end_to_end_on_cpu():
     assert res.params["layers"][0]["w"].device.type == "cpu"
 
 
+def test_experiment_with_block_layout_matches_reference(monkeypatch):
+    """``BatchConfig(layout_bt=32)``: two epochs of the port's
+    ``Experiment`` on the CPU (block-sparse Function, plain K4–K6) against
+    the reference's ``Experiment`` from the same config document and the
+    same initial params (captured from the reference's init), dropout 0."""
+    import repro.train.trainer as jtrainer
+    import repro_torch.train.trainer as ttrainer
+    from repro.api import Experiment as JExperiment
+    from repro.api import ExperimentConfig as JConfig
+    from repro_torch.convert import to_torch
+
+    cfg = _tiny(batch=BatchConfig(batch_size=96, layout_bt=32),
+                train=TrainConfig(hidden_dim=32, n_hidden=2, n_epochs=2,
+                                  dropout=0.0))
+    inits = []
+
+    def capture(*a, **k):
+        inits.append(jax.device_get(jinit(*a, **k)))
+        return inits[-1]
+
+    monkeypatch.setattr(jtrainer, "init_dnn", capture)
+    jres = JExperiment(JConfig.from_dict(cfg.to_dict())).run()
+    monkeypatch.setattr(ttrainer, "init_dnn",
+                        lambda *a, device=None, **k: to_torch(inits[0],
+                                                              device))
+    exp = Experiment(cfg, device="cpu")
+    tres = exp.run()
+    assert exp.tiles() == TileSpec(bi=32)
+    assert len(tres.history) == len(jres.history) == 2
+    for trow, jrow in zip(tres.history, jres.history):
+        assert set(trow) == set(jrow)
+        for k in ("loss/total", "loss/supervised", "loss/graph", "loss/l2"):
+            np.testing.assert_allclose(trow[k], jrow[k], rtol=1e-5)
+        assert trow["lr"] == jrow["lr"] and trow["epoch"] == jrow["epoch"]
+        assert abs(trow["eval/acc"] - jrow["eval/acc"]) <= 0.01
+    batch = next(iter(exp.pipeline()))
+    assert batch.tile_occ is not None and not batch.tile_occ.all()
+
+
 @pytest.mark.parametrize("over,match", [
     (dict(execution=ExecutionConfig(strategy="sync_mesh")), "strategies"),
     (dict(execution=ExecutionConfig(strategy="async_ps")), "strategies"),
     (dict(execution=ExecutionConfig(checkpoint_every=1,
                                     checkpoint_dir="ckpt")), "checkpoint"),
     (dict(resilience=ResilienceConfig(nonfinite_guard=True)), "guard"),
-    (dict(batch=BatchConfig(batch_size=96, layout_bt=32)), "block-sparse"),
     (dict(batch=BatchConfig(batch_size=96, pipeline="metabatch_stream"),
           online=OnlineConfig(refresh_every=1)), "online"),
 ])
