@@ -10,7 +10,14 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    checkout, one ``nvcc`` per source, all started together;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
-   padded batch size P of the main path;
+   padded batch size P of the main path; then the device graph build:
+   ``Experiment.build`` with ``construction="device"`` on the same corpus
+   (n = 20,000, D = 351, k = 10), counts at 0 just before and read just
+   after (K8 exactly once, nothing else), less than N²·4/10 bytes of
+   device memory over the call (no N×N buffer), its seconds split into
+   H2D, K8 and the host's sigma/CSR beside the host search's, and its
+   graph held against the host graph (sigma within rel 1e-5, edge churn
+   ≤ 1e-3, every differing edge at a near-tie row);
 4. kernels: K1, K2 and K3 at the path's shape (k=1, B=P, C=39, γ=1,
    κ=1e-4, g=1/B, W a real padded affinity block), at the same shape with
    γ=0.8, κ=1e-2 and g=0.5 (so the κ and degree terms are not lost under
@@ -24,6 +31,14 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    empty tile row, and on a full mask, where K4 must equal K1 bit for bit
    and K5∘K6 and K7 are also held against K2 and K3; K5 is timed beside
    ``torch.bmm(W.mT, p)``;
+   K8 (streaming top-k) on the whole corpus against the dense plain
+   version (|Δd2| ≤ 1e-5·(‖x_i‖² + ‖y_j‖²), indices equal except at near
+   ties), K9 (RBF block) on the path's meta-batch rows with the graph's
+   sigma, K10 (bare cross term) on the path's block and a ragged one; each
+   repeated bit for bit and timed beside its plain version and, for K8
+   and K9, a PyTorch call (``mm`` and ``cdist``, which compute only the
+   products or distances); K9 and K10 then once through their ``ops``
+   entries with the counts at 0 just before and read just after;
 6. small-step parity: one ``dnn_ssl_step`` with the GPU kernels against the
    same step on the CPU (plain versions), from the same params and batch,
    without and with a block layout on the batch;
@@ -38,11 +53,13 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    ``BatchConfig(layout_bt=128)`` on the same corpus, graph and plan; K4,
    K5 and K6 must launch once per step and no other kernel; then its
    W-gradient path, which must launch K4, K5, K6 and K7 once;
-9. a step breakdown of both paths (``repro_torch.bench.profile_step``
+9. one epoch on the device-built graph: K1 and K2 once per step, K8 and
+   every other kernel 0 times;
+10. a step breakdown of both paths (``repro_torch.bench.profile_step``
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
    launch gaps);
-10. the ``{"kernels": [...]}`` line, then the result line.
+11. the ``{"kernels": [...]}`` line, then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -79,7 +96,19 @@ REPLACES = {
                            "2 (kernel _bsp_dlogp_kernel :615, call :722)",
     "graph_reg_bsp_dw": "src/repro/kernels/graph_reg.py:684 _bsp_bwd pass 3 "
                         "(kernel _bsp_dw_kernel :648, call :753)",
+    "knn_topk": "src/repro/kernels/pairwise.py:161 _knn_topk (kernel "
+                "_topk_kernel :104, call :170; entry knn_topk_pallas :199)",
+    "rbf_affinity": "src/repro/kernels/pairwise.py:66 rbf_affinity_pallas "
+                    "(kernel _pairwise_kernel :45, call :83)",
+    "graph_reg_pairwise": "src/repro/kernels/graph_reg.py:214 "
+                          "graph_reg_pairwise_pallas (kernel "
+                          "_graph_reg_kernel :73, call :241)",
 }
+#: K8 and K9 against their plain versions: |Δd2| ≤ D2_RTOL·(‖x_i‖² +
+#: ‖y_j‖²).  d2 = ‖x‖² − 2·x·y + ‖y‖² in float32 loses up to ~1.2e-6 of
+#: that scale to round-off (measured against float64 on the corpus), and
+#: the kernel and cuBLAS sum the products in different orders.
+D2_RTOL = 1e-5
 #: Tile edge of the block-sparse main path.
 LAYOUT_BT = 128
 
@@ -98,6 +127,7 @@ def check(cond: bool, msg: str) -> None:
 #: RTOL·|want| with atol = RTOL·max|want| (no floor, so outputs scaled by a
 #: small g keep a relative limit).  Both sum float32 terms in other orders.
 RTOL = 2e-5
+TOL_RULE = f"|Δ| ≤ tol + {RTOL:g}·|want|, tol = {RTOL:g}·max|want|"
 
 
 def compare(name: str, got, want) -> dict:
@@ -145,15 +175,298 @@ def kernel_inputs(B: int, C: int, W_np, seed: int, g: float | None = None):
     return logp, W, g
 
 
-def real_block(exp, P: int):
-    """A padded affinity block as the main path builds it: two meta-batches
-    of the plan, concatenated, zero-padded to P."""
+def block_rows(exp, P: int):
+    """The corpus rows of the path's block: two meta-batches of the plan,
+    concatenated, at most P."""
     import numpy as np
     plan = exp.plan
-    idx = np.concatenate([plan.meta_batches[0], plan.meta_batches[1]])[:P]
+    return np.concatenate([plan.meta_batches[0], plan.meta_batches[1]])[:P]
+
+
+def real_block(exp, P: int):
+    """A padded affinity block as the main path builds it: the rows of
+    :func:`block_rows`, zero-padded to P."""
+    import numpy as np
+    idx = block_rows(exp, P)
     W = np.zeros((P, P), np.float32)
     W[:len(idx), :len(idx)] = exp.graph.dense_block(idx)
     return W
+
+
+def sync_time(fn):
+    """(result, seconds) of ``fn()`` between two device synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def near_tie_rows(X, k: int):
+    """Rows whose exact (float64) k-th and (k+1)-th squared distances lie
+    within D2_RTOL·(‖x_i‖² + max_j ‖x_j‖²) of each other: where float32
+    round-off may pick another k-th neighbour.  float64 on the card, 4096
+    rows at a time."""
+    import torch
+    x = torch.from_numpy(X).to("cuda", torch.float64)
+    sq = (x * x).sum(1)
+    near = torch.empty(len(X), dtype=torch.bool, device="cuda")
+    for s in range(0, len(X), 4096):
+        e = min(s + 4096, len(X))
+        d2 = sq[s:e, None] - 2.0 * (x[s:e] @ x.T) + sq[None, :]
+        d2[torch.arange(e - s), torch.arange(s, e)] = torch.inf
+        top = torch.topk(d2, k + 1, dim=1, largest=False).values
+        near[s:e] = (top[:, k] - top[:, k - 1]) <= D2_RTOL * (sq[s:e] + sq.max())
+    return near.cpu().numpy()
+
+
+def graph_build_phase(exp) -> dict:
+    """``Experiment.build`` with ``construction="device"`` on the host
+    experiment's corpus: K8 once, no N×N buffer, its time split, and its
+    graph against the host graph."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.bench import paper_config
+    from repro_torch.core.affinity import build_affinity_graph
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import pairwise
+    from repro_torch.online.refresh import edge_churn, edge_set
+
+    X = np.ascontiguousarray(exp.corpus.X, np.float32)
+    n, k = len(X), exp.config.graph.k
+    t0 = time.perf_counter()
+    build_affinity_graph(X, k=k, backend="host")
+    host_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gr.reset_launch_counts()
+    exp_dev, build_s = sync_time(lambda: Experiment(
+        paper_config(construction="device"), corpus=exp.corpus,
+        eval_data=exp.eval_data, device="cuda").build())
+    counts = gr.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"device graph build: Experiment.build {build_s:.3f}s, launches "
+          f"{counts}, peak device memory over the call {peak / 1e6:.1f} MB "
+          f"(limit N²·4/10 = {n * n * 0.4 / 1e6:.1f} MB)")
+    check(counts == {name: int(name == "knn_topk") for name in counts},
+          f"the device graph build launched {counts}, not K8 exactly once")
+    check(peak < n * n * 4 / 10, f"the device graph build allocated {peak} "
+          f"bytes over the K8 call: an N×N buffer?")
+
+    # Where the graph stage's time goes: H2D, K8, D2H, then the host's
+    # sigma, RBF weights and CSR symmetrisation (by difference).
+    x, h2d_s = sync_time(lambda: torch.from_numpy(X).cuda())
+    (d2, idx), k8_s = sync_time(
+        lambda: pairwise.knn_topk(x, x, k, exclude_self=True))
+    _, d2h_s = sync_time(lambda: (idx.cpu().numpy(), d2.cpu().numpy()))
+    _, graph_s = sync_time(lambda: build_affinity_graph(
+        X, k=k, backend="device", device="cuda"))
+    rest_s = graph_s - h2d_s - k8_s - d2h_s
+    print(f"graph stage: host k-NN graph (backend host) {host_s:.3f}s; "
+          f"device k-NN graph {graph_s:.3f}s = H2D {h2d_s:.4f}s + K8 "
+          f"{k8_s:.4f}s + D2H {d2h_s:.4f}s + host sigma/RBF/CSR "
+          f"{rest_s:.3f}s (by difference)")
+
+    g_host, g_dev = exp.graph, exp_dev.graph
+    rel = abs(g_dev.sigma - g_host.sigma) / g_host.sigma
+    a, b = edge_set(g_host), edge_set(g_dev)
+    diff = a ^ b
+    churn = edge_churn(g_host, g_dev)
+    near = near_tie_rows(X, k)
+    bad = [e for e in diff if not (near[e[0]] or near[e[1]])]
+    touched = sorted({i for e in diff for i in e})
+    print(f"device vs host graph: sigma {g_dev.sigma!r} vs {g_host.sigma!r} "
+          f"(rel {rel:.2e}), {len(a)} vs {len(b)} edges, symmetric "
+          f"difference {len(diff)} of {len(a | b)} (churn {churn:.2e}), "
+          f"{len(touched)} rows touched, {int(near.sum())} near-tie rows in "
+          f"the corpus, {len(bad)} differing edges at no near-tie row")
+    same = g_host.W.indices.size == g_dev.W.indices.size and bool(
+        (g_host.W.indices == g_dev.W.indices).all()
+        and (g_host.W.indptr == g_dev.W.indptr).all())
+    dw = (float(np.abs(g_host.W.data - g_dev.W.data).max()) if same
+          else float("nan"))
+    plan_same = len(exp.plan.meta_batches) == len(
+        exp_dev.plan.meta_batches) and all(
+        np.array_equal(a, b) for a, b in zip(exp.plan.meta_batches,
+                                             exp_dev.plan.meta_batches))
+    print(f"device vs host graph: same edge structure {same}, max |ΔW| on "
+          f"it {dw:.3e}; same meta-batch plan {plan_same}; padded batch P "
+          f"{exp_dev.pipeline.__self__.pad} (host {exp.pipeline.__self__.pad})")
+    check(rel <= 1e-5, f"device sigma differs from host sigma by rel {rel}")
+    check(churn <= 1e-3, f"device graph churn {churn} against the host graph")
+    check(not bad, f"differing edges away from near ties: {bad[:10]}")
+    return {"exp": exp_dev, "counts": counts, "build_s": build_s,
+            "host_s": host_s, "graph_s": graph_s, "k8_s": k8_s}
+
+
+def knn_kernel_phase(X, k: int) -> dict:
+    """K8 on the whole corpus against the dense plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import time_ms
+    from repro_torch.kernels import pairwise, ref
+
+    x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
+    N, D = x.shape
+
+    def kern():
+        return pairwise.knn_topk(x, x, k, exclude_self=True)
+
+    def plain():
+        return ref.knn_topk_ref(x, x, k, exclude_self=True)
+
+    (d2, idx), (d2b, idxb), (pd, pi) = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(d2, d2b) and torch.equal(idx, idxb),
+          "knn_topk: two launches on the same inputs differ")
+    rows = torch.arange(N, device="cuda")[:, None]
+    check(bool(((idx >= 0) & (idx < N) & (idx != rows)).all()),
+          "knn_topk: an index out of range or the row itself")
+    check(bool((idx.sort(1).values.diff(dim=1) != 0).all()),
+          "knn_topk: a repeated neighbour in a row")
+    check(bool((d2.diff(dim=1) >= 0).all()), "knn_topk: a row out of order")
+    nx = (x * x).sum(1)
+    scale = nx[:, None] + torch.maximum(nx[idx.long()], nx[pi.long()])
+    err = (d2 - pd).abs()
+    over = float((err / (D2_RTOL * scale)).max())
+    # An index may differ only where the two candidates' plain d2 are
+    # within the same tolerance of each other (a near tie).
+    mis_r, mis_c = (idx != pi).nonzero(as_tuple=True)
+    if len(mis_r):
+        alt = torch.gather(ref._sq_dists(x[mis_r], x), 1,
+                           idx[mis_r, mis_c].long()[:, None])[:, 0]
+        tie = (alt - pd[mis_r, mis_c]).abs() <= D2_RTOL * scale[mis_r, mis_c]
+        check(bool(tie.all()), "knn_topk: an index differs away from a tie")
+    print(f"knn_topk [N=M={N} D={D} k={k}]: max_abs_err={float(err.max()):.3e} "
+          f"err/tol={over:.3f} (tol {D2_RTOL:g}·(‖x_i‖²+‖y_j‖²)), "
+          f"{len(mis_r)} indices differ from the plain version, all at near "
+          f"ties, in {len(set(mis_r.tolist()))} rows")
+    check(math.isfinite(over) and over <= 1.0,
+          "knn_topk disagrees with its plain version")
+    ms = time_ms(kern, n=5, warmup=1)
+    plain_ms = time_ms(plain, n=3, warmup=1)
+    mm_ms = time_ms(lambda: torch.mm(x, x.T), n=5, warmup=1)
+    print(f"knn_topk: {ms:.3f} ms; plain (dense matrix + stable sort) "
+          f"{plain_ms:.3f} ms; no PyTorch call computes the top-k without "
+          f"the N×N matrix: torch.mm(x, x.T) alone takes {mm_ms:.3f} ms")
+    return {"max_abs_err": float(err.max()), "tol": D2_RTOL,
+            "tol_rule": f"|Δd2| ≤ tol·(‖x_i‖²+‖y_j‖²); indices equal but "
+                        f"at near ties ({len(mis_r)} here)",
+            "err_over_tol": over, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "note": f"no PyTorch call computes it without the N×N matrix; "
+                    f"torch.mm(x, x.T) alone {mm_ms} ms",
+            "bound": bound_ms(4.0 * (N * D + N + 2 * N * k),
+                              2.0 * N * N * D + 3.0 * N * N)}
+
+
+def rbf_kernel_phase(X, sigma: float) -> dict:
+    """K9 on the path's meta-batch rows (x = y) with the graph's sigma."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import time_ms
+    from repro_torch.kernels import pairwise, ref
+
+    x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
+    n, D = x.shape
+    records = {}
+    cases = (("path", x, x), ("ragged", x[:1000], x[:333].contiguous()))
+    for label, a_in, b_in in cases:
+        def kern():
+            return pairwise.rbf_affinity(a_in, b_in, sigma)
+
+        def plain():
+            return ref.rbf_affinity_ref(a_in, b_in, sigma)
+
+        a, b, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        where = f"rbf_affinity [{label} {tuple(a.shape)} D={D} σ={sigma:.4f}]"
+        check(torch.equal(a, b), f"{where}: two launches differ")
+        # |Δ√d2| ≤ √|Δd2|: the square root amplifies d2's round-off near
+        # d2 = 0 (the diagonal).
+        sq_a, sq_b = (a_in * a_in).sum(1), (b_in * b_in).sum(1)
+        tol = 2e-5 + want * torch.sqrt(
+            D2_RTOL * (sq_a[:, None] + sq_b[None, :])) / (2 * sigma * sigma)
+        err = (a - want).abs()
+        over = float((err / tol).max())
+        print(f"{where}: max_abs_err={float(err.max()):.3e} err/tol="
+              f"{over:.3f}")
+        check(math.isfinite(over) and over <= 1.0,
+              f"{where} disagrees with its plain version")
+        if label == "path":
+            records = {"max_abs_err": float(err.max()), "tol": 2e-5,
+                       "tol_rule": f"|Δw| ≤ tol + w·√({D2_RTOL:g}·(‖x_i‖²+"
+                                   f"‖y_j‖²))/(2σ²)",
+                       "note": "library_ms is torch.cdist(x, x): the "
+                               "distances only, no RBF",
+                       "err_over_tol": over, "ms": time_ms(kern),
+                       "plain_ms": time_ms(plain),
+                       "library_ms": time_ms(lambda: torch.cdist(x, x)),
+                       "bound": bound_ms(4.0 * (n * D + n + n * n),
+                                         2.0 * n * n * D + 6.0 * n * n)}
+    print(f"rbf_affinity: {records['ms']:.4f} ms; library torch.cdist(x, x) "
+          f"{records['library_ms']:.4f} ms computes the distances only")
+    return records
+
+
+def pairwise_reg_phase(W_path) -> dict:
+    """K10 on the path's block and a ragged one, against its plain version
+    and against K1 at (1, 0, 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import time_ms
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(2)
+    W_ragged = rng.random((1000, 1000), dtype=np.float32) * (
+        rng.random((1000, 1000)) < 0.02)
+    records = {}
+    for label, W_np in (("path", W_path), ("ragged", W_ragged)):
+        B, C = W_np.shape[0], 39
+        logp, W, _ = kernel_inputs(B, C, W_np, seed=B + 2)
+        logp, W = logp[0], W[0]
+
+        def kern():
+            return gr.reg_pairwise(logp, W)
+
+        def plain():
+            return ref.graph_reg_pairwise_ref(logp, W)
+
+        a, b, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"graph_reg_pairwise [{label} B={B}]: two "
+              "launches on the same inputs differ")
+        rec = compare(f"graph_reg_pairwise [{label} B={B} C={C}]", a, want)
+        k1 = gr.reg_forward(logp[None], W[None], 1.0, 0.0, 0.0)[0]
+        print(f"graph_reg_pairwise [{label}]: K10 {a.item()!r}, K1 at "
+              f"(1, 0, 0) {k1.item()!r}, bit-identical {torch.equal(a, k1)}")
+        if label == "path":
+            s_flops = 2.0 * B * B * C
+            records = dict(rec, ms=time_ms(kern), plain_ms=time_ms(plain),
+                           library_ms=None,
+                           bound=bound_ms(4.0 * (B * B + 2 * B * C + 1),
+                                          s_flops + 2.0 * B * B))
+    return records
+
+
+def ops_path(name: str, fn) -> dict:
+    """Call one ``ops`` entry with the counts at 0 just before and read just
+    after: ``name`` must launch once and nothing else."""
+    import torch
+    from repro_torch.kernels import graph_reg as gr
+    gr.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = gr.launch_counts()
+    print(f"ops path of {name}: launches {counts}")
+    check(counts == {n: int(n == name) for n in counts},
+          f"the ops entry of {name} launched {counts}")
+    return counts
 
 
 def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
@@ -592,10 +905,25 @@ def main() -> int:
     print(f"host pipeline: n={exp.corpus.X.shape[0]} nodes, "
           f"{exp.plan.n_meta} meta-batches, padded batch P={P}, "
           f"{time.time() - t0:.1f}s")
+    graph = graph_build_phase(exp)
     obj = exp.config.objective
     W_path = real_block(exp, P)
     records = kernel_phase(W_path, obj.gamma, obj.kappa)
     records.update(bsp_kernel_phase(W_path, obj.gamma, obj.kappa))
+    records["knn_topk"] = knn_kernel_phase(exp.corpus.X, exp.config.graph.k)
+    rows_x = exp.corpus.X[block_rows(exp, P)]
+    records["rbf_affinity"] = rbf_kernel_phase(rows_x, exp.graph.sigma)
+    records["graph_reg_pairwise"] = pairwise_reg_phase(W_path)
+    from repro_torch.kernels import ops
+    x_rows = torch.from_numpy(rows_x).cuda()
+    logp_path, W_cuda, _ = kernel_inputs(P, 39, W_path, seed=4)
+    ops_counts = {
+        "rbf_affinity": ops_path("rbf_affinity", lambda: ops.rbf_affinity(
+            x_rows, x_rows, exp.graph.sigma)),
+        "graph_reg_pairwise": ops_path(
+            "graph_reg_pairwise",
+            lambda: ops.graph_reg_pairwise(logp_path[0], W_cuda[0])),
+    }
     small_step_parity()
     small_step_parity(layout_bt=64)
     dense = train_phase(exp, ("graph_reg_fwd", "graph_reg_bwd_dlogp"),
@@ -616,31 +944,46 @@ def main() -> int:
           f"{sparse['row']['eval/acc']!r}")
     w_grad_bsp = w_grad_path(W_path, obj.gamma, obj.kappa,
                              layout_bt=LAYOUT_BT)
+    dev_graph = train_phase(graph["exp"], ("graph_reg_fwd",
+                                           "graph_reg_bwd_dlogp"),
+                            "device-graph path")
+    print(f"loss/total: host graph {dense['row']['loss/total']!r}, device "
+          f"graph {dev_graph['row']['loss/total']!r}; eval/acc: host graph "
+          f"{dense['row']['eval/acc']!r}, device graph "
+          f"{dev_graph['row']['eval/acc']!r}")
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 
-    from repro_torch.kernels import graph_reg, graph_reg_bsp
+    from repro_torch.kernels import graph_reg, graph_reg_bsp, pairwise
     kernels = []
     for name, rec in records.items():
         b_ms, b_by = rec["bound"]
         # K3 and K7 count on their W-gradient paths (training launches them
-        # 0 times, checked above); the others on their training paths.
+        # 0 times, checked above), K8 on the device graph build, K9 and K10
+        # on their ops entries; the others on their training paths.
         path, counts = {
             "graph_reg_bwd_dw": ("w_grad", w_grad),
             "graph_reg_bsp_dw": ("w_grad_blocksparse", w_grad_bsp),
+            "knn_topk": ("graph_build_device", graph["counts"]),
+            "rbf_affinity": ("ops.rbf_affinity", ops_counts["rbf_affinity"]),
+            "graph_reg_pairwise": ("ops.graph_reg_pairwise",
+                                   ops_counts["graph_reg_pairwise"]),
         }.get(name, ("train", dense["counts"]) if name in graph_reg.WRAPPERS
               else ("train_blocksparse", sparse["counts"]))
+        source = next(mod.SOURCE for mod in (graph_reg, graph_reg_bsp,
+                                              pairwise)
+                      if name in mod.WRAPPERS)
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": (graph_reg.SOURCE if name in graph_reg.WRAPPERS
-                       else graph_reg_bsp.SOURCE),
+            "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": counts[name],
             "path": path,
             "max_abs_err": rec["max_abs_err"], "tol": rec["tol"],
-            "rtol": RTOL, "err_over_tol": rec["err_over_tol"],
+            "tol_rule": rec.get("tol_rule", TOL_RULE),
+            "err_over_tol": rec["err_over_tol"],
             "ms": rec["ms"], "kernel_ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": rec.get("library_ms")})
+            "library_ms": rec.get("library_ms"),
+            **({"note": rec["note"]} if "note" in rec else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,8 +91,9 @@ class GraphConfig:
     """k-NN affinity graph (paper §3): ``builder`` names an AFFINITY entry.
 
     ``construction`` picks the streaming top-k search backend: ``"host"``
-    (numpy, column-streamed) or ``"device"`` (the GPU streaming top-k
-    kernel, a later slice of the port) — both exact, neither materializes the N×N distance matrix.
+    (numpy, column-streamed) or ``"device"`` (the streaming top-k kernel
+    K8 on the experiment's device; its plain version on the CPU) — both
+    exact, neither materializes the N×N distance matrix.
     """
 
     builder: str = "knn_rbf"

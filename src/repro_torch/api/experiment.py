@@ -46,6 +46,16 @@ class ExperimentResult:
         return max(vals)
 
 
+def _accepts(fn: Callable, name: str) -> bool:
+    """True when ``fn`` takes a keyword ``name`` (or ``**kwargs``)."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):   # non-introspectable callable
+        return False
+    return name in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 class Experiment:
     """Config-driven experiment: ``build()`` assembles, ``run()`` trains.
 
@@ -81,22 +91,16 @@ class Experiment:
             self.corpus, self.eval_data = self._make_data()
         if self.graph is None:
             builder = AFFINITY.get(cfg.graph.builder)
-            try:
-                params = inspect.signature(builder).parameters
-                takes_backend = ("backend" in params or any(
-                    p.kind is inspect.Parameter.VAR_KEYWORD
-                    for p in params.values()))
-            except (TypeError, ValueError):   # non-introspectable callable
-                takes_backend = False
-            if takes_backend:
-                kw = {"backend": cfg.graph.construction}
+            kw = {}
+            if _accepts(builder, "backend"):
+                kw["backend"] = cfg.graph.construction
             elif cfg.graph.construction != "host":
                 raise ValueError(
                     f"graph.construction={cfg.graph.construction!r} but "
                     f"AFFINITY builder {cfg.graph.builder!r} does not "
                     f"accept a backend= argument")
-            else:
-                kw = {}
+            if _accepts(builder, "device"):
+                kw["device"] = self.device
             self.graph = builder(self.corpus.X, k=cfg.graph.k,
                                  sigma=cfg.graph.sigma, **kw)
         if self.plan is None and cfg.batch.pipeline != "random_batch":

@@ -34,16 +34,19 @@ REG_KERNELS = ("reg_fwd_partials", "reg_fwd_sum", "reg_bwd_dlogp",
                "bsp_bwd_dlogp", "bsp_bwd_dw")
 
 
-def paper_config(n_epochs: int = 1, layout_bt: int | None = None):
+def paper_config(n_epochs: int = 1, layout_bt: int | None = None,
+                 construction: str = "host"):
     """The paper's TIMIT-width setup (§3) on the synthetic corpus; with
     ``layout_bt`` the batches carry a block layout of that tile edge and
-    the regularizer runs on the block-sparse kernels."""
+    the regularizer runs on the block-sparse kernels; ``construction=
+    "device"`` builds the k-NN graph on the streaming top-k kernel K8."""
     from repro_torch.api import (BatchConfig, DataConfig, ExperimentConfig,
-                                 ObjectiveConfig, TrainConfig)
+                                 GraphConfig, ObjectiveConfig, TrainConfig)
     return ExperimentConfig(
         name="paper_4x2000",
         data=DataConfig(n=20000, n_classes=39, input_dim=351,
                         manifold_dim=12),
+        graph=GraphConfig(construction=construction),
         objective=ObjectiveConfig(gamma=1.0, kappa=1e-4, pairwise="auto"),
         train=TrainConfig(hidden_dim=2000, n_hidden=4, dropout=0.2,
                           n_epochs=n_epochs),

@@ -14,8 +14,9 @@ construction, not training, is the scale bottleneck — Bai et al. 1511.06104).
 Two backends share the same semantics and are validated against each other:
 
   * ``"host"``   — numpy, column-streamed (this module; the default);
-  * ``"device"`` — a streaming top-k kernel on the GPU.  Its Hopper kernel
-    is not ported yet, so this backend raises ``NotImplementedError``.
+  * ``"device"`` — the streaming top-k kernel K8 on the GPU
+    (:func:`repro_torch.kernels.pairwise.knn_topk`); ``device="cpu"`` runs
+    its plain version, which streams column chunks the same way.
 
 Both backends compute distances in float32: the self-tuning ``sigma``
 heuristic (and hence every edge weight) is a function of the returned
@@ -163,17 +164,24 @@ def _streaming_topk_rows(
     return cols, dsts
 
 
-def _streaming_topk_device(X: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
-    """The device streaming top-k search.
+def _streaming_topk_device(X: np.ndarray, k: int,
+                           device) -> tuple[np.ndarray, np.ndarray]:
+    """The streaming top-k kernel K8 (running top-k in shared memory).
 
-    Its Hopper kernel (the port of the reference's streaming top-k kernel)
-    belongs to a later slice of the port; until then this backend raises
-    rather than falling back to the host search or a dense N×N product.
+    X is copied to ``device`` once and searched against itself; on a CUDA
+    device the kernel runs unconditionally — falling back to a dense
+    oracle would break the "never materialize N×N" contract this backend
+    exists for.  ``device="cpu"`` runs the kernel's plain version, which
+    streams column chunks against a running (N, k) state.
     """
-    raise NotImplementedError(
-        "construction='device' needs the streaming top-k GPU kernel, which "
-        "is not ported yet (device graph-construction slice); use "
-        "construction='host'")
+    import torch
+
+    from repro_torch.kernels.pairwise import knn_topk
+
+    x = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device)
+    d2, idx = knn_topk(x, x, k, exclude_self=True)
+    return (idx.cpu().numpy().astype(np.int64),
+            d2.cpu().numpy().astype(np.float32))
 
 
 def knn_edges(
@@ -183,6 +191,7 @@ def knn_edges(
     block: int = 2048,
     col_block: int = 4096,
     backend: str = "host",
+    device="cuda",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Exact k-NN by blocked brute force, streaming over candidate columns.
 
@@ -190,8 +199,9 @@ def knn_edges(
     exact blocked search is both simpler and exactly reproducible.  The
     candidate axis is consumed in ``col_block``-wide chunks against a
     running per-row top-k, so no row ever sees more than one distance tile
-    at a time.  ``backend="device"`` routes the search through the GPU
-    streaming top-k kernel instead (same semantics, f32 distances).
+    at a time.  ``backend="device"`` routes the search through the
+    streaming top-k kernel K8 on ``device`` instead (same semantics, f32
+    distances); ``device`` is read only by that backend.
     Returns (rows, cols, sq_dists) for the directed k-NN edge set (self
     excluded), neighbours sorted nearest-first.
     """
@@ -201,7 +211,8 @@ def knn_edges(
         raise ValueError(
             f"backend must be 'host' or 'device', got {backend!r}")
     if backend == "device":
-        cols, dsts = _streaming_topk_device(X, k)
+        from repro_torch.device import resolve_device
+        cols, dsts = _streaming_topk_device(X, k, resolve_device(device))
     else:
         cols, dsts = _streaming_topk_host(X, k, block, col_block)
     src = np.repeat(np.arange(n), k)
@@ -216,6 +227,7 @@ def build_affinity_graph(
     block: int = 2048,
     col_block: int = 4096,
     backend: str = "host",
+    device="cuda",
 ) -> AffinityGraph:
     """Build the symmetrized RBF-weighted k-NN graph of the paper.
 
@@ -224,12 +236,12 @@ def build_affinity_graph(
     standard choice and is recorded on the returned graph).  The heuristic
     is evaluated on float32 distances on *both* backends, so host and
     device builds agree to f32 round-off.  ``backend`` selects the
-    streaming top-k search: ``"host"`` (numpy) or ``"device"`` (GPU
-    kernel) — see :func:`knn_edges`.
+    streaming top-k search: ``"host"`` (numpy) or ``"device"`` (kernel K8
+    on ``device``) — see :func:`knn_edges`.
     """
     n = X.shape[0]
     src, dst, d2 = knn_edges(X, k, block=block, col_block=col_block,
-                             backend=backend)
+                             backend=backend, device=device)
     dist = np.sqrt(d2)
     if sigma is None:
         kth = dist.reshape(n, -1)[:, -1]

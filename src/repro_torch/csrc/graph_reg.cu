@@ -14,6 +14,12 @@
 //   K2 graph_reg_bwd_dlogp dlogp = g*[-gc*(P.*(W logP) + W^T P)
 //                                     + (kappa + ge*deg) .* P .* (logP + 1)]
 //   K3 graph_reg_bwd_dw    dW    = -g*(gc*P logP^T + ge*H(p) 1^T)
+//   K10 graph_reg_pairwise out = -sum_ij W_ij (P logP^T)_ij  (one worker)
+//
+// K10 replaces repro/kernels/graph_reg.py:graph_reg_pairwise_pallas
+// (_graph_reg_kernel), the bare cross term.  It is K1's strip kernel
+// compiled without the degree and entropy terms (kFull = false), with
+// K1's second pass, so it equals K1 at (gc, kappa, ge) = (1, 0, 0).
 //
 // Padding is done with masks (graph_reg_tiles.cuh).
 //
@@ -28,7 +34,9 @@ namespace {
 // K1, pass 1: one block per (row strip, worker).  The block loops over all
 // column tiles and the class dimension itself, so it holds complete row
 // degrees and writes one partial that already includes its strip's
-// (kappa + ge*deg_i) H_i term.
+// (kappa + ge*deg_i) H_i term.  kFull = false (K10) drops the degrees and
+// the entropy term: the partial is -gc times the strip's cross term.
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads)
 reg_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
                  const float* __restrict__ W, int B, int C, float gc,
@@ -55,7 +63,7 @@ reg_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
                 if (i < B && j < B) {
                     const float w = W[(int64_t)i * B + j];   // coalesced row
                     cross = fmaf(w, acc[r][c], cross);
-                    deg[r] += w;
+                    if (kFull) deg[r] += w;
                 }
             }
         }
@@ -63,7 +71,7 @@ reg_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
     // Row r of this warp: complete degree by warp sum, entropy by warp sum.
     float ent = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < 4 && kFull; ++r) {
         const int i = i0 + ty + 8 * r;
         const float d = warp_sum(deg[r]);
         if (i < B) {
@@ -208,7 +216,7 @@ int graph_reg_fwd(const void* p, const void* logp, const void* W, int k,
                   void* partials, void* out, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_strips = (B + kRows - 1) / kRows;
-    reg_fwd_partials<<<dim3(n_strips, 1, k), kThreads, 0, s>>>(
+    reg_fwd_partials<true><<<dim3(n_strips, 1, k), kThreads, 0, s>>>(
         static_cast<const float*>(p), static_cast<const float*>(logp),
         static_cast<const float*>(W), B, C, gc, kappa, ge,
         static_cast<float*>(partials));
@@ -217,6 +225,23 @@ int graph_reg_fwd(const void* p, const void* logp, const void* W, int k,
     reg_fwd_sum<<<(k + 127) / 128, 128, 0, s>>>(
         static_cast<const float*>(partials), n_strips, k,
         static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K10: logp and p (B, C), W (B, B), no worker axis; out is one float.
+// partials holds graph_reg_fwd_n_partials(1, B) floats.
+int graph_reg_pairwise(const void* p, const void* logp, const void* W, int B,
+                       int C, void* partials, void* out, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int n_strips = (B + kRows - 1) / kRows;
+    reg_fwd_partials<false><<<dim3(n_strips, 1, 1), kThreads, 0, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(logp),
+        static_cast<const float*>(W), B, C, 1.f, 0.f, 0.f,
+        static_cast<float*>(partials));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reg_fwd_sum<<<1, 128, 0, s>>>(static_cast<const float*>(partials),
+                                  n_strips, 1, static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 

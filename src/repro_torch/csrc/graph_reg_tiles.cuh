@@ -1,12 +1,15 @@
-// Device helpers shared by the graph-regularizer kernels: the dense ones
-// (graph_reg.cu, K1-K3) and the block-sparse ones (graph_reg_bsp.cu,
-// K4-K7).  One copy of the tile arithmetic means the block-sparse kernels
-// repeat the dense kernels' sums in the same order, so on a full occupancy
-// mask K4 equals K1 bit for bit.
+// Device helpers shared by the graph-regularizer kernels, the dense ones
+// (graph_reg.cu, K1-K3 and K10) and the block-sparse ones
+// (graph_reg_bsp.cu, K4-K7), and by the graph-construction kernels
+// (pairwise.cu, K8 and K9), whose inner products are the same 32 x 64 tile
+// over the feature axis.  One copy of the tile arithmetic means the
+// block-sparse kernels repeat the dense kernels' sums in the same order, so
+// on a full occupancy mask K4 equals K1 bit for bit.
 //
 // Padding is done with masks, never with values: rows, columns and classes
-// outside (B, B, C) are loaded as 0 for p, logp and W alike, so they drop
-// out of every product (exp() of a padded logp is never taken).
+// outside (B, B, C) (features outside (N, M, D)) are loaded as 0 for p,
+// logp, W, x and y alike, so they drop out of every product (exp() of a
+// padded logp is never taken).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,34 +30,35 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// acc[r][c] += sum_k P[i0+ty+8r, k] * logP[j0+tx+32c, k] over all classes.
-// Thread (ty, tx) owns rows ty+8r (r<4) and columns tx+32c (c<2) of the
-// 32 x 64 tile; a warp reads 32 consecutive columns (conflict-free) and one
-// broadcast row from shared memory.
-__device__ __forceinline__ void s_tile(
-        const float* __restrict__ P, const float* __restrict__ L,
-        int B, int C, int i0, int j0,
-        float (*Ps)[kRows + 1], float (*Ls)[kCols + 1], float acc[4][2]) {
+// acc[r][c] += sum_k X[i0+ty+8r, k] * Y[j0+tx+32c, k] over all k < D, for
+// X (N, D) and Y (M, D).  Thread (ty, tx) owns rows ty+8r (r<4) and columns
+// tx+32c (c<2) of the 32 x 64 tile; a warp reads 32 consecutive columns
+// (conflict-free) and one broadcast row from shared memory.  The k-th term
+// of every output is added in increasing k, one fmaf each.
+__device__ __forceinline__ void xy_tile(
+        const float* __restrict__ X, const float* __restrict__ Y,
+        int N, int M, int D, int i0, int j0,
+        float (*Xs)[kRows + 1], float (*Ys)[kCols + 1], float acc[4][2]) {
     const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    for (int c0 = 0; c0 < C; c0 += kChunk) {
+    for (int c0 = 0; c0 < D; c0 += kChunk) {
         for (int e = tid; e < kRows * kChunk; e += kThreads) {
             const int i = e / kChunk, k = e % kChunk;
-            const bool ok = (i0 + i < B) && (c0 + k < C);
-            Ps[k][i] = ok ? P[(int64_t)(i0 + i) * C + c0 + k] : 0.f;
+            const bool ok = (i0 + i < N) && (c0 + k < D);
+            Xs[k][i] = ok ? X[(int64_t)(i0 + i) * D + c0 + k] : 0.f;
         }
         for (int e = tid; e < kCols * kChunk; e += kThreads) {
             const int j = e / kChunk, k = e % kChunk;
-            const bool ok = (j0 + j < B) && (c0 + k < C);
-            Ls[k][j] = ok ? L[(int64_t)(j0 + j) * C + c0 + k] : 0.f;
+            const bool ok = (j0 + j < M) && (c0 + k < D);
+            Ys[k][j] = ok ? Y[(int64_t)(j0 + j) * D + c0 + k] : 0.f;
         }
         __syncthreads();
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
             float a[4], b[2];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) a[r] = Ps[k][ty + 8 * r];
+            for (int r = 0; r < 4; ++r) a[r] = Xs[k][ty + 8 * r];
 #pragma unroll
-            for (int c = 0; c < 2; ++c) b[c] = Ls[k][tx + 32 * c];
+            for (int c = 0; c < 2; ++c) b[c] = Ys[k][tx + 32 * c];
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -62,6 +66,15 @@ __device__ __forceinline__ void s_tile(
         }
         __syncthreads();
     }
+}
+
+// The regularizer's S tile: acc[r][c] += sum_k P[i0+ty+8r, k] *
+// logP[j0+tx+32c, k] over all C classes, P and logP both (B, C).
+__device__ __forceinline__ void s_tile(
+        const float* __restrict__ P, const float* __restrict__ L,
+        int B, int C, int i0, int j0,
+        float (*Ps)[kRows + 1], float (*Ls)[kCols + 1], float acc[4][2]) {
+    xy_tile(P, L, B, B, C, i0, j0, Ps, Ls, acc);
 }
 
 // H(p_i) = -sum_c p_ic logp_ic for row i, summed by one warp (lane-strided

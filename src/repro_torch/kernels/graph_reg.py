@@ -1,4 +1,5 @@
-"""Hopper kernels K1–K3 of the Eq.-3/4 graph regularizer, and their wrappers.
+"""Hopper kernels K1–K3 and K10 of the Eq.-3/4 graph regularizer, and their
+wrappers.
 
 The regularizer over one dense (meta-)batch affinity block is
 
@@ -35,11 +36,18 @@ f32 without tensor cores):
   each block computes its 32×64 tile of P·logPᵀ over all classes and adds
   ge·H_i.  Training never asks for it (W carries no gradient).
 
-All three are plain FMA loops in f32 (no TF32, no tensor cores): the first
+* ``reg_pairwise`` — K10, replaces ``graph_reg_pairwise_pallas`` /
+  ``_graph_reg_kernel``: the bare cross term −Σ W⊙(P·logPᵀ) of one
+  (B, C) block, no worker axis.  K1's strip kernel compiled without the
+  degree and entropy terms, with K1's ordered second pass, so it equals
+  K1 at (1, 0, 0); same bytes and bound as K1.
+
+All four are plain FMA loops in f32 (no TF32, no tensor cores): the first
 aim is agreement with the reference, speed is later work.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``; :func:`launch_counts`
 reports them together with those of the block-sparse kernels K4–K7
-(:mod:`.graph_reg_bsp`).
+(:mod:`.graph_reg_bsp`) and the graph-construction kernels K8–K9
+(:mod:`.pairwise`).
 """
 from __future__ import annotations
 
@@ -50,8 +58,8 @@ import torch
 
 from . import build, ref
 
-__all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "launch_counts",
-           "reset_launch_counts", "SOURCE"]
+__all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "reg_pairwise",
+           "launch_counts", "reset_launch_counts", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg.cu"
 
@@ -61,6 +69,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "graph_reg_fwd_n_partials": (_I, _I),
     "graph_reg_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P),
+    "graph_reg_pairwise": (_P, _P, _P, _I, _I, _P, _P, _P),
     "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P),
     "graph_reg_bwd_dw": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
 }
@@ -83,8 +92,8 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
         return True
     if kinds == {"cuda"}:
         return False
-    raise ValueError(f"graph-regularizer kernels take CPU or CUDA tensors, "
-                     f"all on one device; got {sorted(kinds)}")
+    raise ValueError(f"the kernels take CPU or CUDA tensors, all on one "
+                     f"device; got {sorted(kinds)}")
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple,
@@ -134,6 +143,29 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
     return out
 
 
+def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
+                 p: torch.Tensor | None = None) -> torch.Tensor:
+    """K10: the bare cross term Σ_ij W_ij·Hc(p_i, p_j) of one block.
+    logp (B, C), W (B, B) -> scalar."""
+    if _on_cpu(logp, W):
+        return ref.graph_reg_pairwise_ref(logp, W)
+    if logp.dim() != 2:
+        raise ValueError(f"K10 takes no worker axis: logp must be (B, C), "
+                         f"got {tuple(logp.shape)}")
+    B, C = logp.shape
+    p = torch.exp(logp) if p is None else p
+    partials = torch.empty(_lib().graph_reg_fwd_n_partials(1, B),
+                           dtype=torch.float32, device=logp.device)
+    out = torch.empty((), dtype=torch.float32, device=logp.device)
+    rc = _lib().graph_reg_pairwise(
+        _checked(p, "p", (B, C)), _checked(logp, "logp", (B, C)),
+        _checked(W, "W", (B, B)), B, C, partials.data_ptr(), out.data_ptr(),
+        _stream(logp))
+    _raise_on(rc, "graph_reg_pairwise")
+    reg_pairwise.launches += 1
+    return out
+
+
 def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
                   gc: float, kappa: float, ge: float, *,
                   p: torch.Tensor | None = None) -> torch.Tensor:
@@ -171,18 +203,18 @@ def reg_bwd_dw(logp: torch.Tensor, g: torch.Tensor, gc: float, ge: float, *,
 
 
 WRAPPERS = {"graph_reg_fwd": reg_forward, "graph_reg_bwd_dlogp": reg_bwd_dlogp,
-            "graph_reg_bwd_dw": reg_bwd_dw}
+            "graph_reg_bwd_dw": reg_bwd_dw, "graph_reg_pairwise": reg_pairwise}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 
 
 def _all_wrappers() -> dict:
-    from . import graph_reg_bsp   # K4-K7 reuse this module's helpers
-    return {**WRAPPERS, **graph_reg_bsp.WRAPPERS}
+    from . import graph_reg_bsp, pairwise   # they reuse this module's helpers
+    return {**WRAPPERS, **graph_reg_bsp.WRAPPERS, **pairwise.WRAPPERS}
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset, K1-K7."""
+    """Kernel launches per wrapper since the last reset, K1-K10."""
     return {name: fn.launches for name, fn in _all_wrappers().items()}
 
 

@@ -23,6 +23,14 @@ With a ``BlockLayout`` (``layout=``), :class:`GraphRegBlockSparse` runs
 the same regularizer over the occupied tiles only: K4 forward, K5 → K6
 backward for ``dlogp``, and K7 only when ``W`` needs a gradient.
 
+The graph-construction entries :func:`knn_topk` (K8) and
+:func:`rbf_affinity` (K9), and :func:`graph_reg_pairwise` (K10 forward,
+K2/K3 backward, the bare cross term through its own kernel), are the twins
+of the reference's ``ops`` entries of those names; they take no
+``use_pallas``: the tensors' device picks the kernel or the plain version.
+The ``"pallas"`` registry entry keeps routing the cross term through K1
+with (1, 0, 0), as the reference's does.
+
 ``"auto"`` is the fused entry (the block-sparse one when a layout is
 given) on every device: each wrapper in :mod:`.graph_reg` and
 :mod:`.graph_reg_bsp` launches its Hopper kernel for CUDA tensors and runs
@@ -35,11 +43,14 @@ import numpy as np
 import torch
 
 from . import graph_reg, graph_reg_bsp
+from .pairwise import knn_topk, rbf_affinity
 from .tuning import TileSpec, refuse_pinned
 
-__all__ = ["GraphReg", "GraphRegBlockSparse", "graph_reg_cross_vjp",
+__all__ = ["GraphReg", "GraphRegBlockSparse", "GraphRegPairwise",
+           "graph_reg_cross_vjp", "graph_reg_pairwise",
            "graph_regularizer_fused", "graph_regularizer_blocksparse",
-           "graph_regularizer_auto", "DEFAULT_BT"]
+           "graph_regularizer_auto", "knn_topk", "rbf_affinity",
+           "DEFAULT_BT"]
 
 #: Tile edge of a layout given as bare arrays with no pinned ``tiles.bi``
 #: (the reference's table default).
@@ -67,6 +78,40 @@ class GraphReg(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dW = graph_reg.reg_bwd_dw(logp, g, gc, ge, p=p)
         return dlogp, dW, None, None, None
+
+
+class GraphRegPairwise(torch.autograd.Function):
+    """K10 forward; K2 (and K3 when W needs a gradient) backward, at
+    (gc, κ, ge) = (1, 0, 0).  logp (B, C), W (B, B) -> scalar."""
+
+    @staticmethod
+    def forward(ctx, logp, W):
+        p = torch.exp(logp)
+        ctx.save_for_backward(logp, W, p)
+        return graph_reg.reg_pairwise(logp, W, p=p)
+
+    @staticmethod
+    def backward(ctx, g):
+        logp, W, p = (t[None] for t in ctx.saved_tensors)
+        g = g.reshape(1).contiguous()
+        dlogp = dW = None
+        if ctx.needs_input_grad[0]:
+            dlogp = graph_reg.reg_bwd_dlogp(logp, W, g, 1.0, 0.0, 0.0, p=p)[0]
+        if ctx.needs_input_grad[1]:
+            dW = graph_reg.reg_bwd_dw(logp, g, 1.0, 0.0, p=p)[0]
+        return dlogp, dW
+
+
+def graph_reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
+                       tiles: TileSpec | None = None) -> torch.Tensor:
+    """Σ_ij W_ij·Hc(p_i,p_j) of one block, logp (B, C), W (B, B), through
+    K10 and its analytic VJP."""
+    if logp.device.type == "cuda":
+        refuse_pinned(tiles, "graph_reg_pairwise")
+    return GraphRegPairwise.apply(logp.contiguous(), W.contiguous())
+
+
+graph_reg_pairwise.accepts_tiles = True
 
 
 def _reg(logp, W, gc: float, kappa: float, ge: float,

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the graph-regularizer kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function is the semantic ground truth of its Hopper kernel in
-:mod:`repro_torch.kernels.graph_reg`: the CPU path runs them, and
-``chip_smoke.py`` holds each kernel against them on the card.  All take an
-optional leading worker axis: ``logp`` (..., B, C), ``W`` (..., B, B).
+:mod:`repro_torch.kernels.graph_reg`, :mod:`~repro_torch.kernels.graph_reg_bsp`
+or :mod:`~repro_torch.kernels.pairwise`: the CPU path runs them, and
+``chip_smoke.py`` holds each kernel against them on the card.  The
+regularizer's versions take an optional leading worker axis: ``logp``
+(..., B, C), ``W`` (..., B, B).
 
 The forward pair mirrors the reference oracles; the two backward closed
 forms are the analytic VJP the reference's backward kernels tile:
@@ -18,6 +20,14 @@ per worker: ``rows``/``cols``/``valid`` (k, T), ``crows``/``ccols``/
 lists as the kernels do: W's bt×bt tiles are gathered at the listed
 (row, col) entries with ``valid == 1`` (sentinels and tail padding add
 nothing), and every listed row strip owes its rows' entropy term once.
+
+The graph-construction versions (K8, K9) take x (N, D) and y (M, D) and
+form ``d2 = max(‖x‖² − 2·x·yᵀ + ‖y‖², 0)`` in float32, the reference's
+formula.  ``knn_topk_ref`` is the dense oracle; ``knn_topk_stream_ref``
+streams column chunks against a running (N, k) state, so the CPU path
+never holds an N×M matrix either.  Both order each row by (d2, index),
+ties to the lowest index, as the reference's ``lax.top_k`` does
+(``torch.topk`` promises no order among ties, so they sort stably).
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["graph_reg_pairwise_ref", "graph_regularizer_ref",
+           "rbf_affinity_ref", "knn_topk_ref", "knn_topk_stream_ref",
            "reg_forward_ref", "reg_bwd_dlogp_ref", "reg_bwd_dw_ref",
            "bsp_forward_ref", "bsp_bwd_bterm_ref", "bsp_bwd_dlogp_ref",
            "bsp_bwd_dw_ref"]
@@ -50,6 +61,69 @@ def reg_forward_ref(logp: torch.Tensor, W: torch.Tensor, gc: float,
     deg = torch.sum(W, dim=-1)
     h = -torch.sum(p * logp, dim=-1)
     return gc * cross - torch.sum((kappa + ge * deg) * h, dim=-1)
+
+
+def _sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """max(‖x_i‖² − 2·x_i·y_j + ‖y_j‖², 0) in float32, (N, M)."""
+    x, y = x.to(torch.float32), y.to(torch.float32)
+    xx = torch.sum(x * x, dim=1)[:, None]
+    yy = torch.sum(y * y, dim=1)[None, :]
+    return torch.clamp_min(xx - 2.0 * (x @ y.mT) + yy, 0.0)
+
+
+def rbf_affinity_ref(x: torch.Tensor, y: torch.Tensor,
+                     sigma: float) -> torch.Tensor:
+    """exp(−‖x_i − y_j‖ / 2σ²) dense block;  x: (N, D), y: (M, D)."""
+    sigma = torch.tensor(sigma, dtype=torch.float32)
+    return torch.exp(-torch.sqrt(_sq_dists(x, y)) / (2.0 * sigma * sigma))
+
+
+def _mask_self(d2: torch.Tensor, col0: int) -> None:
+    """Set d2[i, i - col0] to inf, in place, for every row i of the chunk
+    starting at column ``col0``."""
+    stop = min(d2.shape[0], col0 + d2.shape[1])
+    rows = torch.arange(col0, max(col0, stop), device=d2.device)
+    d2[rows, rows - col0] = torch.inf
+
+
+def _smallest(d2: torch.Tensor, idx: torch.Tensor, k: int):
+    """The k first (d2, idx) pairs of each row after a stable sort by d2:
+    with ``idx`` increasing along each row, ties go to the lowest index."""
+    d2, order = torch.sort(d2, dim=1, stable=True)
+    return d2[:, :k], torch.gather(idx, 1, order[:, :k])
+
+
+def knn_topk_ref(x: torch.Tensor, y: torch.Tensor, k: int, *,
+                 exclude_self: bool = False):
+    """k smallest squared distances per row via the dense (N, M) matrix:
+    ``(d2, idx)``, (N, k) float32 and int32, sorted ascending — the ground
+    truth the streaming kernel never materializes."""
+    d2 = _sq_dists(x, y)
+    if exclude_self:
+        _mask_self(d2, 0)
+    cols = torch.arange(d2.shape[1], device=d2.device, dtype=torch.int32)
+    return _smallest(d2, cols.expand(d2.shape), k)
+
+
+def knn_topk_stream_ref(x: torch.Tensor, y: torch.Tensor, k: int, *,
+                        exclude_self: bool = False, chunk: int = 1024):
+    """:func:`knn_topk_ref` streamed over ``chunk``-wide column chunks: a
+    running (N, k) top-k is merged with each (N, chunk) distance block in
+    column order, so the (N, M) matrix is never held.  The running entries
+    precede the chunk's and carry lower indices, so one stable sort per
+    chunk keeps the (d2, index) order."""
+    N, M = x.shape[0], y.shape[0]
+    best_d = torch.empty((N, 0), device=x.device)
+    best_i = torch.empty((N, 0), dtype=torch.int32, device=x.device)
+    for c0 in range(0, M, chunk):
+        d2 = _sq_dists(x, y[c0:c0 + chunk])
+        if exclude_self:
+            _mask_self(d2, c0)
+        cols = torch.arange(c0, c0 + d2.shape[1], device=x.device,
+                            dtype=torch.int32).expand(d2.shape)
+        best_d, best_i = _smallest(torch.cat([best_d, d2], 1),
+                                   torch.cat([best_i, cols], 1), k)
+    return best_d.contiguous(), best_i.contiguous()
 
 
 def _g(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

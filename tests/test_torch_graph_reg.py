@@ -204,8 +204,13 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
     gr.reset_launch_counts()
     logp, W = _problem(64, 8)
     ops.graph_regularizer_fused(torch.tensor(logp), torch.tensor(W), 1.0, 0.0)
+    ops.graph_reg_pairwise(torch.tensor(logp), torch.tensor(W))
+    x = torch.tensor(logp)
+    ops.knn_topk(x, x, 3, exclude_self=True)
+    ops.rbf_affinity(x, x, 1.0)
     assert gr.launch_counts() == {
         name: 0 for name in ("graph_reg_fwd", "graph_reg_bwd_dlogp",
                              "graph_reg_bwd_dw", "graph_reg_bsp_fwd",
                              "graph_reg_bsp_bterm", "graph_reg_bsp_dlogp",
-                             "graph_reg_bsp_dw")}
+                             "graph_reg_bsp_dw", "graph_reg_pairwise",
+                             "knn_topk", "rbf_affinity")}

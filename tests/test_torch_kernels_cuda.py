@@ -10,7 +10,10 @@ Tolerance: the kernels and the plain versions (cuBLAS products) sum float32
 terms in different orders; rtol 2e-5 with an atol of 2e-5 of the largest
 magnitude.  Repeats must be bit-identical: the kernels use no atomics.  On
 a full occupancy mask the block-sparse K4 must equal the dense K1 bit for
-bit (same tile code, same order).
+bit (same tile code, same order).  The graph-construction kernels K8 and
+K9 hold squared distances to 1e-5·(‖x_i‖² + ‖y_j‖²), the scale of the
+float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal the
+plain version's except at such near ties, and exactly on integer inputs.
 """
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from repro_torch.core.metabatch import (block_layout,  # noqa: E402
                                         layout_from_occupancy)
 from repro_torch.kernels import graph_reg as gr  # noqa: E402
 from repro_torch.kernels import graph_reg_bsp as bsp  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, pairwise, ref  # noqa: E402
 from repro_torch.kernels.tuning import TileSpec  # noqa: E402
 
 GAMMA, KAPPA = 0.8, 1e-2
@@ -235,3 +238,118 @@ def test_block_sparse_refusals_on_the_card(cuda):
         ops.graph_regularizer_blocksparse(
             logp.to(cuda), W.to(cuda), 1.0, 0.0,
             layout=[a.to(cuda) for a in arrays], tiles=TileSpec(bi=64, bc=8))
+
+
+D2_RTOL = 1e-5
+
+
+def _knn_inputs(N, M, D, seed=0, integer=False):
+    """y (M, D) and x = its first N rows (so exclude_self means the same
+    row); integer-valued rows with duplicates give exact ties."""
+    rng = np.random.default_rng(seed + N + M + D)
+    if integer:
+        y = rng.integers(0, 3, size=(M, D)).astype(np.float32)
+        y[M // 2:M // 2 + N // 4] = y[:N // 4]
+    else:
+        y = rng.normal(size=(M, D)).astype(np.float32)
+    y = torch.tensor(y)
+    return y[:N].contiguous(), y
+
+
+def _check_knn(x, y, k, got, want):
+    """d2 within D2_RTOL of the scale; an index may differ only where the
+    two candidates' plain d2 are that close (a near tie)."""
+    (d2, idx), (pd, pi) = got, want
+    nx, ny = (x * x).sum(1), (y * y).sum(1)
+    scale = nx[:, None] + torch.maximum(ny[idx.long()], ny[pi.long()])
+    assert bool(((d2 - pd).abs() <= D2_RTOL * scale).all())
+    r, c = (idx != pi).nonzero(as_tuple=True)
+    full = ref._sq_dists(x, y)
+    alt = full[r, idx[r, c].long()]
+    assert bool(((alt - pd[r, c]).abs() <= D2_RTOL * scale[r, c]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,D,k,ex", [(40, 40, 16, 5, True),
+                                        (130, 257, 100, 10, False),
+                                        (33, 65, 7, 3, False),
+                                        (300, 700, 64, 32, True),
+                                        (1000, 1000, 351, 10, True)])
+def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
+    x, y = (t.to(cuda) for t in _knn_inputs(N, M, D))
+    before = pairwise.knn_topk.launches
+    a = pairwise.knn_topk(x, y, k, exclude_self=ex)
+    b = ops.knn_topk(x, y, k, exclude_self=ex)
+    torch.cuda.synchronize()
+    assert pairwise.knn_topk.launches == before + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].dtype == torch.float32 and a[1].dtype == torch.int32
+    _check_knn(x, y, k, a, ref.knn_topk_ref(x, y, k, exclude_self=ex))
+    if ex:
+        rows = torch.arange(N, device=cuda)[:, None]
+        assert not bool((a[1] == rows).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ex", [False, True])
+def test_knn_topk_exact_ties_go_to_the_lowest_index(cuda, ex):
+    x, y = (t.to(cuda) for t in _knn_inputs(150, 300, 4, integer=True))
+    d2, idx = pairwise.knn_topk(x, y, 12, exclude_self=ex)
+    pd, pi = ref.knn_topk_ref(x, y, 12, exclude_self=ex)
+    assert torch.equal(d2, pd) and torch.equal(idx, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,D", [(32, 32, 16), (64, 64, 351),
+                                   (130, 70, 64), (33, 257, 100),
+                                   (128, 128, 256)])
+def test_rbf_affinity_matches_plain_version(cuda, N, M, D):
+    rng = np.random.default_rng(N + M + D)
+    x = torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32).to(cuda)
+    y = torch.tensor(rng.normal(size=(M, D)), dtype=torch.float32).to(cuda)
+    sigma = 2.0
+    a, b = pairwise.rbf_affinity(x, y, sigma), ops.rbf_affinity(x, y, sigma)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = ref.rbf_affinity_ref(x, y, sigma)
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    tol = 2e-5 + want * torch.sqrt(D2_RTOL * scale) / (2 * sigma * sigma)
+    assert bool(((a - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(200, 8), (257, 39), (1000, 39)])
+def test_pairwise_cross_term_matches_plain_version_and_k1(cuda, B, C):
+    logp, W = _problem(B, C)
+    logp, W = logp.to(cuda), W.to(cuda)
+    a, b = gr.reg_pairwise(logp, W), gr.reg_pairwise(logp, W)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a.cpu().numpy(), ref.graph_reg_pairwise_ref(logp, W).cpu().numpy())
+    k1 = gr.reg_forward(logp[None], W[None], 1.0, 0.0, 0.0)[0]
+    assert torch.equal(a, k1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        lp = logp.detach().to(dev).clone().requires_grad_(True)
+        w = W.detach().to(dev).clone().requires_grad_(True)
+        val = ops.graph_reg_pairwise(lp, w)
+        val.backward()
+        out[dev.type] = (val.item(), lp.grad.cpu().numpy(),
+                         w.grad.cpu().numpy())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_construction_kernels_refuse_pinned_tiles(cuda):
+    x = torch.randn(64, 8, device=cuda)
+    with pytest.raises(ValueError, match="fixed block shapes"):
+        pairwise.knn_topk(x, x, 3, tiles=TileSpec(bi=32))
+    with pytest.raises(ValueError, match="fixed block shapes"):
+        pairwise.rbf_affinity(x, x, 1.0, tiles=TileSpec(bd=16))
+    logp, W = _problem(64, 8)
+    with pytest.raises(ValueError, match="fixed block shapes"):
+        ops.graph_reg_pairwise(logp.to(cuda), W.to(cuda),
+                               tiles=TileSpec(bi=64))
+    with pytest.raises(ValueError, match="K_MAX"):
+        pairwise.knn_topk(x, x, pairwise.K_MAX + 1)

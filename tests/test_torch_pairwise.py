@@ -1,0 +1,278 @@
+"""The port's graph-construction kernels (K8, K9), the bare cross term (K10)
+and the device graph path, against the reference.
+
+Each test feeds the same numpy inputs, made from a seed, to the JAX
+function and to the port; on the CPU the port's wrappers run their plain
+versions, the reference's Pallas kernels run in interpret mode.
+
+Tolerances:
+
+* K8 (streaming top-k): d2 within rtol 1e-4, atol 1e-5, as the
+  reference's own kernel test; indices equal except where the two picks
+  are a near tie (their float64 distances lie within that tolerance of
+  each other: float32 sums in another order may pick either).  On
+  integer-valued inputs with duplicates every distance is exact, and the
+  indices must equal ``lax.top_k``'s (ties to the lowest index).
+* K9 (RBF block): rtol 1e-5, atol 1e-6, as the reference's kernel test.
+* K10 (bare cross term): rtol 3e-5, as the reference's kernel test; its
+  gradients against ``jax.grad`` of the reference's oracle at rtol 1e-5.
+* Graph builders: sigma within rel 1e-6, W within rtol 1e-5, atol 1e-6;
+  the edge sets equal.
+* ``Experiment`` with ``construction="device"``: the same graph and plan,
+  and per-epoch losses within rtol 1e-5 (``tests/test_torch_trainer.py``).
+"""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.core.affinity as jaff  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.graph_reg import graph_reg_pairwise_pallas  # noqa: E402
+from repro.kernels.pairwise import (knn_topk_pallas,  # noqa: E402
+                                    rbf_affinity_pallas)
+from repro.online import refresh as jrefresh  # noqa: E402
+import repro_torch.core.affinity as taff  # noqa: E402
+from repro_torch.kernels import graph_reg as gr  # noqa: E402
+from repro_torch.kernels import ops, pairwise, ref  # noqa: E402
+from repro_torch.online import refresh as trefresh  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _xy(N, M, D, seed=0):
+    rng = np.random.default_rng(seed + 7 * N + M + D)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    y = x if N == M else rng.normal(size=(M, D)).astype(np.float32)
+    return x, y
+
+
+def _tie_data(N, M, D, seed=0):
+    """Integer-valued rows with duplicates: exact distances, many ties."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 3, size=(M, D)).astype(np.float32)
+    y[M // 2:M // 2 + N // 4] = y[:N // 4]
+    return y[:N].copy(), y
+
+
+def _assert_idx_equal_but_near_ties(x, y, got, want, want_d2, rtol, atol):
+    """Indices equal, except where the two picks' float64 distances lie
+    within the d2 tolerance of each other."""
+    r, c = np.nonzero(got != want)
+    if len(r):
+        x64, y64 = x.astype(np.float64), y.astype(np.float64)
+        d_got = ((x64[r] - y64[got[r, c]]) ** 2).sum(1)
+        d_want = ((x64[r] - y64[want[r, c]]) ** 2).sum(1)
+        assert np.all(np.abs(d_got - d_want)
+                      <= atol + rtol * np.abs(want_d2[r, c]))
+
+
+# ------------------------------------------------------------- K8 top-k
+@pytest.mark.parametrize("N,M,D,k", [(40, 40, 16, 5), (130, 257, 100, 10),
+                                     (33, 65, 7, 3)])
+def test_knn_topk_matches_reference_kernel(N, M, D, k):
+    x, y = _xy(N, M, D)
+    ex = N == M
+    jd, ji = knn_topk_pallas(jnp.asarray(x), jnp.asarray(y), k,
+                             exclude_self=ex, bi=32, bj=64, bd=32,
+                             interpret=True)
+    td, ti = ops.knn_topk(torch.tensor(x), torch.tensor(y), k,
+                          exclude_self=ex)
+    assert td.dtype == torch.float32 and ti.dtype == torch.int32
+    assert td.shape == ti.shape == (N, k)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-5)
+    _assert_idx_equal_but_near_ties(x, y, ti.numpy(), np.asarray(ji),
+                                    np.asarray(jd), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("N,M,ex", [(120, 120, True), (60, 200, False),
+                                    (60, 200, True)])
+def test_knn_topk_exact_ties_match_lax_top_k(N, M, ex):
+    x, y = _tie_data(N, M, 4)
+    if ex and N == M:
+        y = x
+    jd, ji = jref.knn_topk_ref(jnp.asarray(x), jnp.asarray(y), 11,
+                               exclude_self=ex)
+    td, ti = pairwise.knn_topk(torch.tensor(x), torch.tensor(y), 11,
+                               exclude_self=ex)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 10_000])
+@pytest.mark.parametrize("ties", [False, True])
+def test_streamed_plain_version_equals_dense_oracle(chunk, ties):
+    x, y = _tie_data(90, 150, 5) if ties else _xy(90, 150, 20)
+    for a, b, ex in ((x, y, False), (x, x, True), (x, y, True)):
+        a, b = torch.tensor(a), torch.tensor(b)
+        sd, si = ref.knn_topk_stream_ref(a, b, 9, exclude_self=ex,
+                                         chunk=chunk)
+        dd, di = ref.knn_topk_ref(a, b, 9, exclude_self=ex)
+        assert torch.equal(sd, dd) and torch.equal(si, di)
+
+
+def test_knn_topk_refusals():
+    x = torch.tensor(_xy(40, 40, 6)[0])
+    with pytest.raises(ValueError, match="k must be"):
+        ops.knn_topk(x, x, 40, exclude_self=True)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.knn_topk(x, x, 0)
+    with pytest.raises(ValueError, match="K_MAX"):
+        ops.knn_topk(x, x, pairwise.K_MAX + 1)
+    with pytest.raises(ValueError, match="one device"):
+        pairwise.knn_topk(x, torch.empty(40, 6, device="meta"), 3)
+    with pytest.raises(ValueError, match="one device"):
+        pairwise.rbf_affinity(x, torch.empty(40, 6, device="meta"), 1.0)
+    with pytest.raises(ValueError, match="backend"):
+        taff.knn_edges(x.numpy(), 3, backend="gpu")
+
+
+def test_k_max_is_the_kernels_limit():
+    src = (ROOT / pairwise.SOURCE).read_text()
+    assert int(re.search(r"kKMax = (\d+);", src).group(1)) == pairwise.K_MAX
+
+
+# ------------------------------------------------------------- K9 RBF
+@pytest.mark.parametrize("N,M,D", [(32, 32, 16), (64, 64, 351),
+                                   (130, 70, 64), (33, 257, 100),
+                                   (128, 128, 256)])
+def test_rbf_affinity_matches_reference_kernel(N, M, D):
+    rng = np.random.default_rng(N + M + D)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    y = rng.normal(size=(M, D)).astype(np.float32)
+    want = rbf_affinity_pallas(jnp.asarray(x), jnp.asarray(y), 2.0,
+                               interpret=True)
+    got = ops.rbf_affinity(torch.tensor(x), torch.tensor(y), 2.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ------------------------------------------------------------- K10 cross term
+def _logp_w(B, C, seed=0):
+    rng = np.random.default_rng(seed + B + C)
+    logits = rng.normal(size=(B, C)).astype(np.float32) * 2.0
+    logp = np.asarray(jax.nn.log_softmax(jnp.asarray(logits)))
+    W = (np.abs(rng.normal(size=(B, B))) * (rng.random((B, B)) < 0.2))
+    return logp, W.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,C", [(16, 32), (64, 39), (130, 17), (33, 100)])
+def test_pairwise_cross_term_matches_reference_kernel(B, C):
+    logp, W = _logp_w(B, C)
+    want = graph_reg_pairwise_pallas(jnp.asarray(logp), jnp.asarray(W),
+                                     interpret=True)
+    got = ops.graph_reg_pairwise(torch.tensor(logp), torch.tensor(W))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=3e-5)
+    assert float(gr.reg_pairwise(torch.tensor(logp), torch.tensor(W))) == \
+        float(got)
+
+
+@pytest.mark.parametrize("B,C", [(48, 39), (33, 10)])
+def test_pairwise_cross_term_gradients_match_reference(B, C):
+    logp, W = _logp_w(B, C, seed=1)
+    jg = jax.grad(jref.graph_reg_pairwise_ref, argnums=(0, 1))(
+        jnp.asarray(logp), jnp.asarray(W))
+    lp = torch.tensor(logp, requires_grad=True)
+    w = torch.tensor(W, requires_grad=True)
+    ops.graph_reg_pairwise(lp, w).backward()
+    for got, want in zip((lp.grad, w.grad), jg):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+# ------------------------------------------------------------- graph builders
+def _assert_same_graph(tg, jg):
+    assert tg.sigma == pytest.approx(jg.sigma, rel=1e-6)
+    assert tg.k == jg.k
+    np.testing.assert_array_equal(tg.W.indptr, jg.W.indptr)
+    np.testing.assert_array_equal(tg.W.indices, jg.W.indices)
+    np.testing.assert_allclose(tg.W.toarray(), jg.W.toarray(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,D", [(120, 16), (300, 40)])
+def test_device_affinity_graph_matches_reference(n, D):
+    X = np.random.default_rng(n).normal(size=(n, D)).astype(np.float32)
+    jg = jaff.build_affinity_graph(X, k=5, backend="device")
+    tg = taff.build_affinity_graph(X, k=5, backend="device", device="cpu")
+    _assert_same_graph(tg, jg)
+    # The host backend of the port is untouched by the device argument.
+    th = taff.build_affinity_graph(X, k=5, device="cpu")
+    assert (th.W != jaff.build_affinity_graph(X, k=5).W).nnz == 0
+
+
+@pytest.mark.parametrize("bandwidth", ["global", "per_node"])
+def test_embedding_knn_graph_matches_reference(bandwidth):
+    E = np.random.default_rng(3).normal(size=(150, 12)).astype(np.float32)
+    jg = jrefresh.embedding_knn_graph(E, k=6, backend="device",
+                                      bandwidth=bandwidth)
+    tg = trefresh.embedding_knn_graph(E, k=6, backend="device",
+                                      bandwidth=bandwidth, device="cpu")
+    _assert_same_graph(tg, jg)
+    th = trefresh.embedding_knn_graph(E, k=6, bandwidth=bandwidth)
+    assert trefresh.edge_churn(th, tg) == 0.0
+    assert trefresh.edge_set(tg) == jrefresh.edge_set(jg)
+    d2, idx = trefresh.embedding_topk_device(torch.tensor(E), 6)
+    jd, ji = jrefresh.embedding_topk_device(jnp.asarray(E), 6)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="bandwidth"):
+        trefresh.embedding_knn_graph(E, bandwidth="learned")
+
+
+# ------------------------------------------------------------- the slice
+def test_experiment_with_device_graph_matches_reference(monkeypatch):
+    """Two epochs of ``Experiment`` with ``construction="device"`` on the
+    CPU (plain K8, then the fused regularizer) against the reference's
+    ``Experiment`` from the same config document and initial params,
+    dropout 0."""
+    import repro.train.trainer as jtrainer
+    import repro_torch.train.trainer as ttrainer
+    from repro.api import Experiment as JExperiment
+    from repro.api import ExperimentConfig as JConfig
+    from repro.models.dnn import init_dnn as jinit
+    from repro_torch.api import (BatchConfig, DataConfig, Experiment,
+                                 ExperimentConfig, GraphConfig, TrainConfig)
+    from repro_torch.convert import to_torch
+
+    cfg = ExperimentConfig(
+        data=DataConfig(n=1200, n_classes=8, input_dim=16, manifold_dim=4),
+        graph=GraphConfig(construction="device"),
+        train=TrainConfig(hidden_dim=32, n_hidden=2, n_epochs=2,
+                          dropout=0.0),
+        batch=BatchConfig(batch_size=128))
+    inits = []
+
+    def capture(*a, **k):
+        inits.append(jax.device_get(jinit(*a, **k)))
+        return inits[-1]
+
+    monkeypatch.setattr(jtrainer, "init_dnn", capture)
+    jexp = JExperiment(JConfig.from_dict(cfg.to_dict()))
+    jres = jexp.run()
+    monkeypatch.setattr(ttrainer, "init_dnn",
+                        lambda *a, device=None, **k: to_torch(inits[0],
+                                                              device))
+    pairwise.knn_topk.launches = 0
+    texp = Experiment(cfg, device="cpu")
+    tres = texp.run()
+    assert pairwise.knn_topk.launches == 0        # plain version on the CPU
+    _assert_same_graph(texp.graph, jexp.graph)
+    assert len(texp.plan.meta_batches) == len(jexp.plan.meta_batches)
+    for a, b in zip(texp.plan.meta_batches, jexp.plan.meta_batches):
+        np.testing.assert_array_equal(a, b)
+    assert len(tres.history) == len(jres.history) == 2
+    for trow, jrow in zip(tres.history, jres.history):
+        for key in ("loss/total", "loss/supervised", "loss/graph",
+                    "loss/l2"):
+            np.testing.assert_allclose(trow[key], jrow[key], rtol=1e-5)
+        assert abs(trow["eval/acc"] - jrow["eval/acc"]) <= 0.01

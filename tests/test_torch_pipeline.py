@@ -97,6 +97,17 @@ def test_config_round_trip_and_shared_documents():
 
 
 def test_device_graph_construction_raises_until_ported():
+    """The device backend (the streaming top-k K8, its plain version on the
+    CPU) builds the reference's device graph; without a GPU, asking it for
+    ``device="cuda"`` raises rather than dropping to the CPU."""
     X = np.random.default_rng(0).normal(size=(50, 4)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="top-k"):
-        tcore.build_affinity_graph(X, k=5, backend="device")
+    tg = tcore.build_affinity_graph(X, k=5, backend="device", device="cpu")
+    jg = jcore.build_affinity_graph(X, k=5, backend="device")
+    assert tg.sigma == pytest.approx(jg.sigma, rel=1e-6)
+    np.testing.assert_array_equal(tg.W.indices, jg.W.indices)
+    np.testing.assert_array_equal(tg.W.indptr, jg.W.indptr)
+    np.testing.assert_allclose(tg.W.data, jg.W.data, rtol=1e-5, atol=1e-6)
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            tcore.build_affinity_graph(X, k=5, backend="device")
