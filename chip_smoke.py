@@ -59,7 +59,20 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
    launch gaps);
-11. the ``{"kernels": [...]}`` line, then the result line.
+11. the LM serve path (``python -m repro_torch.serve.serve_lm``): K11 at
+   the prefill's shape, q (4, 2048, 12, 128) against k, v (4, 2048, 2,
+   128), in bf16 and f32, and at a ragged T = 1000 and a Tq < Tk case,
+   each held against its plain version, repeated bit for bit and timed
+   beside it and beside ``scaled_dot_product_attention`` (the library
+   column only); then ``qwen2-1.5b`` at full width, 2 layers, f32, on the
+   card against the CPU (prefill logits and cache, 4 greedy decode
+   steps); then the full model (28 layers, bf16, weights from a seed on
+   the card), batch 4, prompt 2048, 32 greedy decode steps, cache 2080,
+   through ``serve_lm``'s functions: counts at 0 just before the prefill
+   (K11 exactly 28 times, nothing else) and again before the decode (no
+   kernel at all), logits finite, prefill ms, decode ms/token, tok/s and
+   peak device memory;
+12. the ``{"kernels": [...]}`` line, then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -76,10 +89,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet: HBM bandwidth and f32 rate outside the tensor cores
-# (the kernels are plain FMA loops in float32).
+# H100 SXM data sheet: HBM bandwidth, the f32 rate outside the tensor cores
+# and the dense bf16 tensor-core rate (the least time for the work on these
+# inputs' type, whatever the kernel uses).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 REPLACES = {
     "graph_reg_fwd": "src/repro/kernels/graph_reg.py:145 _fused_reg_forward "
@@ -103,6 +118,10 @@ REPLACES = {
     "graph_reg_pairwise": "src/repro/kernels/graph_reg.py:214 "
                           "graph_reg_pairwise_pallas (kernel "
                           "_graph_reg_kernel :73, call :241)",
+    "flash_attention": "src/repro/kernels/flash_attention.py:69 "
+                       "flash_attention_fwd_pallas (kernel _flash_fwd_kernel "
+                       ":29, call :95; GQA wrapper flash_attention_gqa_pallas "
+                       ":117)",
 }
 #: K8 and K9 against their plain versions: |Δd2| ≤ D2_RTOL·(‖x_i‖² +
 #: ‖y_j‖²).  d2 = ‖x‖² − 2·x·y + ‖y‖² in float32 loses up to ~1.2e-6 of
@@ -144,9 +163,10 @@ def compare(name: str, got, want) -> dict:
     return rec
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -866,6 +886,250 @@ def w_grad_path(W_path, gamma: float, kappa: float,
     return counts
 
 
+#: K11 against its plain version on the same key tiles: float32 within the
+#: reference test's atol; bfloat16 within one bf16 ulp of the output's
+#: scale, |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the output
+#: at the same points but sum in float32 in other orders, so a rounding
+#: may fall the other way).
+ATTN_F32_ATOL = 3e-5
+ATTN_TOL_RULE = ("f32: |Δ| ≤ 3e-5; bf16: |Δ| ≤ 2^-8·max|want| + "
+                 "2^-7·|want|")
+#: Full-width serve on the card against the CPU, float32: |Δ| ≤
+#: SERVE_RTOL·max|want| on logits and cache.  cuBLAS and the CPU's BLAS
+#: sum the d_model- and d_ff-long products in other orders (~1e-6
+#: relative each), through 2 layers and the 151,936-wide head.
+SERVE_RTOL = 1e-4
+
+
+def attn_pairs(Tq: int, Tk: int) -> int:
+    """(query, key) pairs of one causal head, query row t at Tk − Tq + t."""
+    return Tq * (Tk - Tq + 1) + Tq * (Tq - 1) // 2
+
+
+def flash_attention_phase() -> dict:
+    """K11 at the serve path's prefill shape in bf16 (the path's dtype) and
+    f32, at a ragged T and with Tq < Tk; returns the records by case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench import time_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, T, H, KV, hd = 4, 2048, 12, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    records = {}
+    for label, Tq, Tk, dtype in (("path bf16", T, T, torch.bfloat16),
+                                 ("path f32", T, T, torch.float32),
+                                 ("ragged bf16", 1000, 1000, torch.bfloat16),
+                                 ("Tq<Tk bf16", 512, T, torch.bfloat16)):
+        q, k, v = (torch.randn(B, t, h, hd, generator=gen, device="cuda")
+                   .to(dtype) for t, h in ((Tq, H), (Tk, KV), (Tk, KV)))
+
+        def kern():
+            return fa.flash_attention_gqa(q, k, v, causal=True)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=True,
+                                           block_k=fa.BLOCK_K)
+
+        a, b, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        where = (f"flash_attention [{label}: q {tuple(q.shape)}, k/v "
+                 f"{tuple(k.shape)}]")
+        check(torch.equal(a, b), f"{where}: two launches differ")
+        err = (a.float() - want.float()).abs()
+        if dtype == torch.float32:
+            tol = torch.full_like(err, ATTN_F32_ATOL)
+        else:
+            w = want.float().abs()
+            tol = 2.0 ** -8 * w.max() + 2.0 ** -7 * w
+        over = float((err / tol).max())
+        print(f"{where}: max_abs_err={float(err.max()):.3e} "
+              f"err/tol={over:.3f} ({ATTN_TOL_RULE})")
+        check(math.isfinite(over) and over <= 1.0,
+              f"{where} disagrees with its plain version")
+        rec = {"max_abs_err": float(err.max()), "tol": float(tol.max()),
+               "tol_rule": ATTN_TOL_RULE, "err_over_tol": over,
+               "ms": time_ms(kern, n=10, warmup=2),
+               "plain_ms": time_ms(plain, n=3, warmup=1), "library_ms": None}
+        if Tq == Tk:
+            # The library column: SDPA on (B, H, T, hd) views of the same
+            # tensors (its causal mask is the same one when Tq == Tk).
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            rec["library_ms"] = time_ms(sdpa, n=10, warmup=2)
+            rec["note"] = ("library_ms is torch.nn.functional.scaled_dot_"
+                           "product_attention(is_causal=True, enable_gqa="
+                           "True), timed only; max |SDPA − K11| "
+                           f"{float((sdpa().transpose(1, 2) - a).abs().max())}")
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        rec["bound"] = bound_ms(
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            4.0 * hd * B * H * attn_pairs(Tq, Tk), rate)
+        print(f"{where}: {rec['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+              f"SDPA {rec['library_ms']} ms; bound {rec['bound'][0]:.5f} ms "
+              f"({rec['bound'][1]})")
+        records[label] = rec
+    return records
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def serve_parity_phase() -> None:
+    """qwen2-1.5b at full width, 2 layers, float32: prefill logits and cache
+    and 4 greedy decode steps on the card against the CPU, from one set of
+    params.  Both devices are fed the CPU's token at each step; a token may
+    differ only where the CPU's top-2 logit gap is under the tolerance."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import serve_lm
+    from repro_torch.serve.decode import sample_tokens
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2,
+                              dtype="float32")
+    B, T, steps = 2, 256, 4
+    cuda = torch.device("cuda")
+    params = {"cuda": serve_lm.load_model(cfg, seed=5, device=cuda)}
+    params["cpu"] = to_torch(params["cuda"], "cpu")
+    prompts = serve_lm.make_prompts(cfg, B, T, seed=5, device=cuda).cpu()
+    logits, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        gr.reset_launch_counts()
+        out, caches[dev] = serve_lm.prefill(params[dev], cfg,
+                                            prompts.to(dev), steps)
+        logits[dev] = out["logits"].cpu()
+        if dev == "cuda":
+            counts = gr.launch_counts()
+            check(counts == {n: cfg.n_layers * (n == "flash_attention")
+                             for n in counts},
+                  f"serve parity prefill launched {counts}")
+
+    def close(what, got, want):
+        got, want = got.cpu().float(), want.float()
+        tol = SERVE_RTOL * float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= tol, f"serve parity: {what} differs by {err} > {tol}")
+        return err, tol
+
+    worst = {"prefill logits": close("prefill logits", logits["cuda"],
+                                     logits["cpu"])}
+    for f in ("k", "v"):
+        worst[f"cache {f}"] = close(f"cache {f}",
+                                    getattr(caches["cuda"]["layers"][0], f),
+                                    getattr(caches["cpu"]["layers"][0], f))
+    for f in ("positions", "valid"):
+        check(torch.equal(getattr(caches["cuda"]["layers"][0], f).cpu(),
+                          getattr(caches["cpu"]["layers"][0], f)),
+              f"serve parity: cache {f} differs")
+    cur, flips = prompts[:, -1:], 0
+    for s in range(steps):
+        pos = torch.full((B,), T + s - 1, dtype=torch.int32)
+        lg = {dev: tf.decode_step(params[dev], cfg, caches[dev], cur.to(dev),
+                                  pos.to(dev))[0].cpu() for dev in logits}
+        err, tol = close(f"decode step {s} logits", lg["cuda"], lg["cpu"])
+        worst[f"decode step {s}"] = (err, tol)
+        tc, tg = sample_tokens(lg["cpu"]), sample_tokens(lg["cuda"])
+        top2 = torch.topk(lg["cpu"][:, -1], 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = (tc != tg)[:, 0]
+        check(bool((gap[differ] <= tol).all()),
+              f"decode step {s}: greedy tokens {tg.tolist()} on the card vs "
+              f"{tc.tolist()} on the CPU away from a near tie")
+        flips += int(differ.sum())
+        cur = tc
+    print(f"serve parity (qwen2-1.5b full width, {cfg.n_layers} layers, f32, "
+          f"B={B}, T={T}, {steps} greedy steps, card vs CPU, |Δ| ≤ "
+          f"{SERVE_RTOL:g}·max|want|): " + ", ".join(
+              f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in worst.items())
+          + f"; {flips} greedy tokens differ (near ties only)")
+
+
+def serve_phase() -> dict:
+    """The full model through ``serve_lm``'s functions: prefill (K11 exactly
+    n_layers times, nothing else), then greedy decode (no kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import serve_lm
+
+    cfg = get_config("qwen2-1.5b")
+    B, T, steps = 4, 2048, 32
+    cuda = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, load_s = sync_time(
+        lambda: serve_lm.load_model(cfg, seed=0, device=cuda))
+    weights = torch.cuda.memory_allocated() - base
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} params drawn, "
+          f"param_count() says {cfg.param_count()}")
+    prompts = serve_lm.make_prompts(cfg, B, T, seed=0, device=cuda)
+    warm, warm_s = sync_time(lambda: serve_lm.prefill(params, cfg, prompts,
+                                                      steps))
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    (out, cache), prefill_s = sync_time(
+        lambda: serve_lm.prefill(params, cfg, prompts, steps))
+    counts = gr.launch_counts()
+    check(counts == {n: cfg.n_layers * (n == "flash_attention")
+                     for n in counts},
+          f"the prefill launched {counts}, not K11 {cfg.n_layers} times and "
+          f"nothing else")
+    logits = out["logits"]
+    check(tuple(logits.shape) == (B, T, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16, f"prefill logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    peak_prefill = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    del out, logits
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
+        params, cfg, cache, prompts, steps, temperature=0.0))
+    last, _ = tf.decode_step(params, cfg, cache, toks[:, -1:], torch.full(
+        (B,), T + steps - 1, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    dcounts = gr.launch_counts()
+    check(not any(dcounts.values()), f"the decode launched {dcounts}")
+    check(bool(torch.isfinite(last).all()), "non-finite decode logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a decoded token out of the vocabulary")
+    peak_decode = torch.cuda.max_memory_allocated() - base
+    rec = {"counts": counts, "prefill_ms": 1e3 * prefill_s,
+           "first_prefill_ms": 1e3 * warm_s, "load_s": load_s,
+           "decode_ms_per_token": 1e3 * decode_s / steps,
+           "tok_per_s": B * steps / decode_s, "weights_gb": weights / 1e9,
+           "peak_prefill_gb": peak_prefill / 1e9,
+           "peak_decode_gb": peak_decode / 1e9}
+    print(f"serve qwen2-1.5b (full width, {cfg.n_layers} layers, bf16, "
+          f"{n_params / 1e9:.3f}e9 params drawn in {load_s:.2f}s): batch {B}, "
+          f"prompt {T}, cache {T + steps}: prefill {rec['prefill_ms']:.3f} ms "
+          f"(first call {rec['first_prefill_ms']:.3f} ms), launches {counts}; "
+          f"decode {steps} greedy steps {rec['decode_ms_per_token']:.3f} "
+          f"ms/token, {rec['tok_per_s']:.1f} tok/s, launches {dcounts}; "
+          f"device memory: weights {rec['weights_gb']:.3f} GB, peak over the "
+          f"prefill {rec['peak_prefill_gb']:.3f} GB, over the decode "
+          f"{rec['peak_decode_gb']:.3f} GB")
+    del params, cache
+    return rec
+
+
 def print_step(label: str, step: dict) -> None:
     print(f"{label} step breakdown: step between CUDA events, back to back "
           f"(includes host launch gaps) {step['step_ms_events']:.3f} ms, "
@@ -954,13 +1218,25 @@ def main() -> int:
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 
-    from repro_torch.kernels import graph_reg, graph_reg_bsp, pairwise
+    attn = flash_attention_phase()
+    records["flash_attention"] = attn["path bf16"]
+    serve_parity_phase()
+    serve = serve_phase()
+    print(f"serve prefill: K11 {attn['path bf16']['ms']:.4f} ms × "
+          f"{serve['counts']['flash_attention']} launches = "
+          f"{attn['path bf16']['ms'] * serve['counts']['flash_attention']:.3f}"
+          f" ms of the {serve['prefill_ms']:.3f} ms prefill (kernel phase "
+          f"time × launches)")
+
+    from repro_torch.kernels import (flash_attention, graph_reg,
+                                     graph_reg_bsp, pairwise)
     kernels = []
     for name, rec in records.items():
         b_ms, b_by = rec["bound"]
         # K3 and K7 count on their W-gradient paths (training launches them
         # 0 times, checked above), K8 on the device graph build, K9 and K10
-        # on their ops entries; the others on their training paths.
+        # on their ops entries, K11 on the serve prefill; the others on
+        # their training paths.
         path, counts = {
             "graph_reg_bwd_dw": ("w_grad", w_grad),
             "graph_reg_bsp_dw": ("w_grad_blocksparse", w_grad_bsp),
@@ -968,10 +1244,11 @@ def main() -> int:
             "rbf_affinity": ("ops.rbf_affinity", ops_counts["rbf_affinity"]),
             "graph_reg_pairwise": ("ops.graph_reg_pairwise",
                                    ops_counts["graph_reg_pairwise"]),
+            "flash_attention": ("serve_prefill", serve["counts"]),
         }.get(name, ("train", dense["counts"]) if name in graph_reg.WRAPPERS
               else ("train_blocksparse", sparse["counts"]))
         source = next(mod.SOURCE for mod in (graph_reg, graph_reg_bsp,
-                                              pairwise)
+                                              pairwise, flash_attention)
                       if name in mod.WRAPPERS)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,16 +1,23 @@
-"""Carry parameters and optimizer state between the two packages.
+"""Carry parameters, optimizer state and decode caches between the two
+packages.
 
-``to_torch(params_np, device)`` turns the reference's params or AdaGrad
-state (numpy leaves) into the port's; ``to_numpy`` turns them back.
+``to_torch(tree, device)`` turns the reference's params, AdaGrad state or
+decode cache (numpy leaves) into the port's; ``to_numpy`` turns them back.
 
 The reference keeps its pytrees as nests of dicts and lists with array
 leaves — params ``{"layers": [{"w": (in, out), "b": (out,)}]}``, AdaGrad
 state ``{"accum": <params nest>}`` — and the port keeps the same nests with
-tensor leaves, so a conversion is a leaf-by-leaf copy.  Give the reference
-side as numpy arrays (``jax.device_get`` of its pytree); this module never
-imports JAX.
+tensor leaves, so a conversion is a leaf-by-leaf copy.  A dataclass node
+is carried field by field; the reference's ``KVCache`` becomes the port's
+:class:`~repro_torch.models.layers.attention.KVCache`.  bfloat16 arrays
+(``ml_dtypes.bfloat16``, what numpy holds for a JAX bf16 array) become
+``torch.bfloat16`` tensors bit for bit, through a 16-bit integer view, and
+back.  Give the reference side as numpy arrays (``jax.device_get`` of its
+pytree); this module never imports JAX.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,26 +25,50 @@ import torch
 __all__ = ["to_torch", "to_numpy"]
 
 
+def _fields(tree, convert) -> dict:
+    return {f.name: convert(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)}
+
+
+def _is_dataclass_node(tree) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
+
 def to_torch(tree, device: str | torch.device = "cpu"):
-    """Nest of numpy arrays (or tensors) -> same nest of float32-preserving
+    """Nest of numpy arrays (or tensors) -> same nest of dtype-preserving
     tensors on ``device``; always copies, so the result owns its storage."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
+    if _is_dataclass_node(tree):
+        from .models.layers.attention import KVCache
+        cls = KVCache if type(tree).__name__ == "KVCache" else type(tree)
+        return cls(**_fields(tree, lambda v: to_torch(v, device)))
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device, copy=True)
     if isinstance(tree, (int, float)):
         return tree
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(tree):
-    """Nest of tensors -> same nest of numpy arrays (on the host)."""
+    """Nest of tensors -> same nest of numpy arrays (on the host) that own
+    their storage; bfloat16 tensors become ``ml_dtypes.bfloat16`` arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
+    if _is_dataclass_node(tree):
+        return type(tree)(**_fields(tree, to_numpy))
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
     return np.asarray(tree)

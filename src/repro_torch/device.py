@@ -7,7 +7,9 @@ runs only when the caller asks for ``device="cpu"``.
 
 The reference multiplies float32 inputs in full float32.  PyTorch would
 use TF32 for cuDNN convolutions (and, if a user flipped it, for matmuls);
-resolving a CUDA device pins both off.
+resolving a CUDA device pins both off.  It also pins off cuBLAS's reduced
+precision reduction in bfloat16 GEMMs, so they sum in float32 like the
+reference's float32-accumulating bf16 einsums.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         # Full float32 products: no TF32 in matmuls or cuDNN.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 GEMMs reduce in float32.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         return dev
     if dev.type == "cpu":
         return dev

@@ -1,0 +1,112 @@
+"""Hopper kernel K11: grouped-query attention forward (flash attention).
+
+``flash_attention_gqa(q, k, v, causal=...)`` takes the reference's layout,
+q (B, Tq, H, hd) against k, v (B, Tk, KV, hd), with H a multiple of KV and
+query row t at absolute position Tk − Tq + t, and returns (B, Tq, H, hd)
+in q's dtype.  It scales q by hd^-0.5 in q's own dtype, as the reference
+does before its kernel, then launches ``csrc/flash_attention.cu`` for CUDA
+tensors; CPU tensors go to the plain version
+:func:`repro_torch.kernels.ref.flash_attention_ref` over the same key
+tiles, and mixed devices raise.  A CUDA tensor never reaches the plain
+version.
+
+Source note (bound on an H100 SXM at the serve path's shape, q (4, 2048,
+12, 128) and k, v (4, 2048, 2, 128) in bf16, causal): K11 replaces
+``repro/kernels/flash_attention.py:flash_attention_fwd_pallas`` /
+``_flash_fwd_kernel`` and its GQA wrapper ``flash_attention_gqa_pallas``.
+2·B·H·T²·hd = 5.15e10 flops, 0.052 ms at the 989 TFLOP/s bf16
+tensor-core peak, against 58.7 MB of q, k, v and o (0.018 ms): bound by
+operations.  The Pallas grid keeps the online-softmax state in VMEM across
+an ordered kv axis; here one block owns a 64-row query block of one head
+and loops over the key tiles itself, stopping at the diagonal (exact: the
+tiles past it are no-ops bit for bit), and reads KV head h // (H / KV) in
+place of the wrapper's ``jnp.repeat``.  A plain float32 FMA loop, no
+tensor cores: agreement first, speed is later work.
+
+Head dims 16, 32, 64 and 128 and dtypes float32 and bfloat16 are taken, on
+both devices; anything else raises.  The wrapper counts its launches in
+``flash_attention_gqa.launches``; :func:`repro_torch.kernels.graph_reg.
+launch_counts` reports them with the other kernels'.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, ref
+from .graph_reg import _on_cpu, _raise_on, _stream
+
+__all__ = ["flash_attention_gqa", "HEAD_DIMS", "BLOCK_K", "WRAPPERS",
+           "SOURCE"]
+
+SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+
+#: Head dims the kernel is compiled for.
+HEAD_DIMS = (16, 32, 64, 128)
+#: Keys per tile (``kBK`` in the source); the CPU path's plain version
+#: walks the same tiles.
+BLOCK_K = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, Tq, H, hd) and k, v (B, Tk, KV, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Tq, H, hd = q.shape
+    Bk, Tk, KV, hdk = k.shape
+    if Bk != B or hdk != hd or H % KV != 0:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch "
+                         f"and head dim must match and H a multiple of KV")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_gqa: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k and v must share one dtype of "
+                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if causal and Tq > Tk:
+        raise ValueError(f"causal attention needs Tq <= Tk, got Tq={Tq}, "
+                         f"Tk={Tk}")
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """K11: softmax(q·kᵀ/√hd)·v per head, causal by absolute position."""
+    _check(q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       block_k=BLOCK_K)
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    qs = ref.scale_queries(q).contiguous()
+    k, v = k.contiguous(), v.contiguous()
+    out = torch.empty_like(qs)
+    if B == 0 or Tq == 0:
+        return out
+    rc = _lib().flash_attention_fwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
+        H, KV, hd, int(causal), _DTYPES[q.dtype], _stream(q))
+    _raise_on(rc, "flash_attention_fwd")
+    flash_attention_gqa.launches += 1
+    return out
+
+
+WRAPPERS = {"flash_attention": flash_attention_gqa}
+for _fn in WRAPPERS.values():
+    _fn.launches = 0

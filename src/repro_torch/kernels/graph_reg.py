@@ -46,8 +46,8 @@ All four are plain FMA loops in f32 (no TF32, no tensor cores): the first
 aim is agreement with the reference, speed is later work.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``; :func:`launch_counts`
 reports them together with those of the block-sparse kernels K4–K7
-(:mod:`.graph_reg_bsp`) and the graph-construction kernels K8–K9
-(:mod:`.pairwise`).
+(:mod:`.graph_reg_bsp`), the graph-construction kernels K8–K9
+(:mod:`.pairwise`) and the attention kernel K11 (:mod:`.flash_attention`).
 """
 from __future__ import annotations
 
@@ -209,12 +209,14 @@ for _fn in WRAPPERS.values():
 
 
 def _all_wrappers() -> dict:
-    from . import graph_reg_bsp, pairwise   # they reuse this module's helpers
-    return {**WRAPPERS, **graph_reg_bsp.WRAPPERS, **pairwise.WRAPPERS}
+    # they reuse this module's helpers
+    from . import flash_attention, graph_reg_bsp, pairwise
+    return {**WRAPPERS, **graph_reg_bsp.WRAPPERS, **pairwise.WRAPPERS,
+            **flash_attention.WRAPPERS}
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset, K1-K10."""
+    """Kernel launches per wrapper since the last reset, K1-K11."""
     return {name: fn.launches for name, fn in _all_wrappers().items()}
 
 

@@ -31,6 +31,10 @@ of the reference's ``ops`` entries of those names; they take no
 The ``"pallas"`` registry entry keeps routing the cross term through K1
 with (1, 0, 0), as the reference's does.
 
+:func:`flash_attention_gqa` is the attention forward (K11) of the serve
+path's prefill.  It is forward only and raises on inputs that require a
+gradient: the backward comes with the training slice.
+
 ``"auto"`` is the fused entry (the block-sparse one when a layout is
 given) on every device: each wrapper in :mod:`.graph_reg` and
 :mod:`.graph_reg_bsp` launches its Hopper kernel for CUDA tensors and runs
@@ -42,7 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import graph_reg, graph_reg_bsp
+from . import flash_attention, graph_reg, graph_reg_bsp
 from .pairwise import knn_topk, rbf_affinity
 from .tuning import TileSpec, refuse_pinned
 
@@ -50,7 +54,7 @@ __all__ = ["GraphReg", "GraphRegBlockSparse", "GraphRegPairwise",
            "graph_reg_cross_vjp", "graph_reg_pairwise",
            "graph_regularizer_fused", "graph_regularizer_blocksparse",
            "graph_regularizer_auto", "knn_topk", "rbf_affinity",
-           "DEFAULT_BT"]
+           "flash_attention_gqa", "DEFAULT_BT"]
 
 #: Tile edge of a layout given as bare arrays with no pinned ``tiles.bi``
 #: (the reference's table default).
@@ -307,3 +311,16 @@ def graph_regularizer_auto(
 graph_regularizer_auto.full_regularizer = True
 graph_regularizer_auto.accepts_tiles = True
 graph_regularizer_auto.accepts_layout = True
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention forward through K11: q (B, Tq, H, hd), k, v (B, Tk, KV,
+    hd) -> (B, Tq, H, hd), query row t at position Tk − Tq + t.  Forward
+    only: it raises if any input requires a gradient."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "flash_attention_gqa is forward only: its backward (the "
+            "reference's _flash_bwd_tiles) is ported with the LM training "
+            "slice (ROADMAP.md §1 item 3)")
+    return flash_attention.flash_attention_gqa(q, k, v, causal=causal)

@@ -28,6 +28,13 @@ streams column chunks against a running (N, k) state, so the CPU path
 never holds an N×M matrix either.  Both order each row by (d2, index),
 ties to the lowest index, as the reference's ``lax.top_k`` does
 (``torch.topk`` promises no order among ties, so they sort stably).
+
+The attention version (K11) takes the reference's layout, q (B, Tq, H, hd)
+against k, v (B, Tk, KV, hd), and repeats the arithmetic of its Pallas
+kernel: q scaled by hd^-0.5 in q's own dtype, products summed in float32,
+an online softmax over key tiles with NEG_INF = −1e30, p rounded to v's
+dtype before P·V, the denominator clamped at 1e-30, the result cast to q's
+dtype.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ __all__ = ["graph_reg_pairwise_ref", "graph_regularizer_ref",
            "rbf_affinity_ref", "knn_topk_ref", "knn_topk_stream_ref",
            "reg_forward_ref", "reg_bwd_dlogp_ref", "reg_bwd_dw_ref",
            "bsp_forward_ref", "bsp_bwd_bterm_ref", "bsp_bwd_dlogp_ref",
+           "flash_attention_ref", "scale_queries", "NEG_INF",
            "bsp_bwd_dw_ref"]
 
 
@@ -230,3 +238,55 @@ def bsp_bwd_dw_ref(logp, occ, g, bt: int, gc: float, ge: float) -> torch.Tensor:
     B = logp.shape[-2]
     live = (occ == 1).repeat_interleave(bt, -2).repeat_interleave(bt, -1)
     return torch.where(live[..., :B, :B], reg_bwd_dw_ref(logp, g, gc, ge), 0.0)
+
+
+#: The reference's mask value (``repro/kernels/flash_attention.py``).
+NEG_INF = -1e30
+
+
+def scale_queries(q: torch.Tensor) -> torch.Tensor:
+    """q·hd^-0.5 in q's own dtype: the scale is rounded to that dtype first,
+    as a weakly typed Python scalar is in the reference."""
+    return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int | None = None,
+                        block_k: int = 64,
+                        causal_skip: bool = True) -> torch.Tensor:
+    """K11: attention forward over key tiles of ``block_k``, q row t at
+    absolute position ``q_offset + t`` (default Tk − Tq) and key j at j.
+    Head h reads KV head h // (H / KV).  ``causal_skip``
+    stops at the last tile that holds a key at or before the last query:
+    the tiles after it are masked whole, so skipping them changes no bit
+    (p = 0 and α = 1 on such a tile)."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    off = Tk - Tq if q_offset is None else q_offset
+    qs = scale_queries(q).float().reshape(B, Tq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    qpos = off + torch.arange(Tq, device=q.device)
+    m = torch.full((B, Tq, KV, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((B, Tq, KV, G, hd), dtype=torch.float32,
+                      device=q.device)
+    end = min(Tk, off + Tq) if causal and causal_skip else Tk
+    for j0 in range(0, end, block_k):
+        j1 = min(j0 + block_k, Tk)
+        s = torch.einsum("bqkgd,bskd->bqkgs", qs, kf[:, j0:j1])
+        if causal:
+            kpos = torch.arange(j0, j1, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        lsum = lsum * alpha + p.sum(-1)
+        pv = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype).float(),
+                          vf[:, j0:j1])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(lsum, 1e-30)[..., None]
+    return out.reshape(B, Tq, H, hd).to(q.dtype)

@@ -1,0 +1,131 @@
+"""Batched serving: prefill a batch of prompts, then decode token by token.
+
+    PYTHONPATH=src python -m repro_torch.serve.serve_lm
+    PYTHONPATH=src python -m repro_torch.serve.serve_lm --device cpu --reduced
+
+The port's counterpart of ``examples/serve_lm.py``.  It serves an
+architecture of :mod:`repro_torch.configs` (default ``qwen2-1.5b``) at its
+full width on the card, with weights drawn from ``--seed`` (no checkpoint
+is loaded); ``--reduced`` serves the CPU-sized variant the reference demo
+always uses.  The prefill runs every causal self-attention on K11; the
+decode loop then feeds the last prompt token at position ``prompt_len − 1``
+and each sampled token after it, as the reference demo does, against a
+cache of ``prompt_len + steps`` slots.  Prints the prefill's ms, the
+decode's ms per token and tokens per second.  ``--device`` defaults to
+``cuda`` and fails without a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..device import resolve_device
+from ..models import transformer as tf
+from ..models.config import ModelConfig
+from .decode import serve_step
+
+
+def load_model(cfg: ModelConfig, *, seed: int,
+               device: torch.device) -> dict:
+    """Params of ``cfg`` drawn on ``device`` from a generator seeded with
+    ``seed``."""
+    return tf.init_params(cfg,
+                          torch.Generator(device=device).manual_seed(seed))
+
+
+def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, *,
+                 seed: int, device: torch.device) -> torch.Tensor:
+    """(batch, prompt_len) token ids, uniform over the vocabulary."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device=device)
+
+
+def prefill(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
+            steps: int):
+    """The prompts' logits and the cache, ``prompt_len + steps`` slots."""
+    return tf.prefill(params, cfg, prompts,
+                      cache_len=prompts.shape[1] + steps)
+
+
+def decode(params: dict, cfg: ModelConfig, cache: dict,
+           prompts: torch.Tensor, steps: int, *, temperature: float,
+           generator: torch.Generator | None = None):
+    """``steps`` calls of ``serve_step`` after the prefill -> ((B, steps)
+    tokens, cache)."""
+    B, T = prompts.shape
+    cur, toks = prompts[:, -1:], []
+    for s in range(steps):
+        pos = torch.full((B,), T + s - 1, dtype=torch.int32,
+                         device=prompts.device)
+        cur, cache = serve_step(params, cfg, cache, cur, pos, generator,
+                                temperature=temperature)
+        toks.append(cur)
+    return torch.cat(toks, dim=1), cache
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--temperature", type=float, default=0.8,
+                    help="0 for greedy decoding")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the CPU-sized variant (ModelConfig.reduced)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    print(f"serving {cfg.name} ({cfg.param_count() / 1e6:.1f}M params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) on "
+          f"{device}")
+    params = load_model(cfg, seed=args.seed, device=device)
+    prompts = make_prompts(cfg, args.batch, args.prompt_len, seed=args.seed,
+                           device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    _, cache = prefill(params, cfg, prompts, args.steps)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    t0 = time.perf_counter()
+    out, _ = decode(params, cfg, cache, prompts, args.steps,
+                    temperature=args.temperature, generator=gen)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    stats = {"prefill_ms": 1e3 * prefill_s,
+             "decode_ms_per_token": 1e3 * decode_s / max(args.steps, 1),
+             "tok_per_s": args.batch * args.steps / decode_s}
+    print(f"prefill: batch={args.batch} len={args.prompt_len} "
+          f"{stats['prefill_ms']:.3f} ms")
+    print(f"decode: {args.steps} tokens/seq, {stats['decode_ms_per_token']:.3f}"
+          f" ms/token, {stats['tok_per_s']:.1f} tok/s")
+    if device.type == "cuda":
+        stats["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        print(f"peak device memory {stats['peak_mem_gb']:.3f} GB on "
+              f"{torch.cuda.get_device_name(device)}")
+    for b in range(args.batch):
+        print(f"  seq{b}: {out[b].tolist()}")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

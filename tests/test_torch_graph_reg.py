@@ -208,9 +208,11 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
     x = torch.tensor(logp)
     ops.knn_topk(x, x, 3, exclude_self=True)
     ops.rbf_affinity(x, x, 1.0)
+    q = torch.zeros(1, 8, 2, 16)
+    ops.flash_attention_gqa(q, q[:, :, :1], q[:, :, :1])
     assert gr.launch_counts() == {
         name: 0 for name in ("graph_reg_fwd", "graph_reg_bwd_dlogp",
                              "graph_reg_bwd_dw", "graph_reg_bsp_fwd",
                              "graph_reg_bsp_bterm", "graph_reg_bsp_dlogp",
                              "graph_reg_bsp_dw", "graph_reg_pairwise",
-                             "knn_topk", "rbf_affinity")}
+                             "knn_topk", "rbf_affinity", "flash_attention")}

@@ -14,7 +14,13 @@ bit (same tile code, same order).  The graph-construction kernels K8 and
 K9 hold squared distances to 1e-5·(‖x_i‖² + ‖y_j‖²), the scale of the
 float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal the
 plain version's except at such near ties, and exactly on integer inputs.
+The attention kernel K11 is held against its plain version on the same key
+tiles at atol 3e-5 in float32, and in bfloat16 at |Δ| ≤ 2^-8·max|want| +
+2^-7·|want| (both round p and the output to bfloat16 at the same points;
+the float32 sums run in other orders, so a rounding may fall the other
+way).  A reduced qwen2 prefill on the card matches the CPU's.
 """
+
 import numpy as np
 import pytest
 
@@ -23,6 +29,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.metabatch import (block_layout,  # noqa: E402
                                         layout_from_occupancy)
 from repro_torch.kernels import graph_reg as gr  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_reg_bsp as bsp  # noqa: E402
 from repro_torch.kernels import ops, pairwise, ref  # noqa: E402
 from repro_torch.kernels.tuning import TileSpec  # noqa: E402
@@ -353,3 +360,95 @@ def test_graph_construction_kernels_refuse_pinned_tiles(cuda):
                                tiles=TileSpec(bi=64))
     with pytest.raises(ValueError, match="K_MAX"):
         pairwise.knn_topk(x, x, pairwise.K_MAX + 1)
+
+
+def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed + Tq + hd)
+    Tk = Tq if Tk is None else Tk
+    return [torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+            .to(dtype) for shape in ((B, Tq, H, hd), (B, Tk, KV, hd),
+                                     (B, Tk, KV, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal",
+                         [(2, 64, 64, 4, 2, 32, True),
+                          (1, 100, 100, 4, 4, 16, True),
+                          (2, 48, 48, 8, 2, 64, True),
+                          (1, 130, 130, 12, 2, 128, True),
+                          (1, 40, 100, 12, 2, 128, True),
+                          (2, 100, 100, 8, 2, 64, False),
+                          (1, 1000, 1000, 12, 2, 128, True)])
+def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
+                                               KV, hd, causal):
+    q, k, v = (t.to(cuda) for t in _attn_inputs(B, Tq, H, KV, hd, Tk, dtype))
+    a = fa.flash_attention_gqa(q, k, v, causal=causal)
+    b = fa.flash_attention_gqa(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   block_k=fa.BLOCK_K)
+    torch.cuda.synchronize()
+    assert a.dtype == dtype and a.shape == q.shape
+    assert torch.equal(a, b)
+    got, want = a.float(), want.float()
+    if dtype == torch.float32:
+        tol = torch.full_like(want, 3e-5)
+    else:
+        tol = 2.0 ** -8 * want.abs().max() + 2.0 ** -7 * want.abs()
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_refusals_and_counts_on_the_card(cuda):
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 32, 4, 2, 32))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_gqa(q[..., :24].contiguous(),
+                               k[..., :24].contiguous(),
+                               v[..., :24].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_gqa(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_gqa(q, k.cpu(), v)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.flash_attention_gqa(q.requires_grad_(True), k, v)
+    gr.reset_launch_counts()
+    ops.flash_attention_gqa(q.detach(), k, v)
+    torch.cuda.synchronize()
+    counts = gr.launch_counts()
+    assert counts == {**{name: 0 for name in counts}, "flash_attention": 1}
+
+
+@pytest.mark.cuda
+def test_resolve_device_pins_bf16_reduction_off(cuda):
+    from repro_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+@pytest.mark.cuda
+def test_reduced_prefill_on_the_card_matches_cpu(cuda):
+    """qwen2-1.5b reduced (f32): prefill logits and cache on the card
+    against the CPU path from the same params, K11 once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    resolve_device("cuda")
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(1))
+    out_cpu, cache_cpu = tf.prefill(params, cfg, toks, cache_len=104)
+    gr.reset_launch_counts()
+    out, cache = tf.prefill(to_torch(params, cuda), cfg, toks.to(cuda),
+                            cache_len=104)
+    torch.cuda.synchronize()
+    assert gr.launch_counts()["flash_attention"] == cfg.n_layers
+    np.testing.assert_allclose(out["logits"].cpu().numpy(),
+                               out_cpu["logits"].numpy(), atol=1e-4)
+    for f in ("k", "v"):
+        np.testing.assert_allclose(
+            getattr(cache["layers"][0], f).cpu().numpy(),
+            getattr(cache_cpu["layers"][0], f).numpy(), atol=1e-4)
