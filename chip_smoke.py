@@ -7,7 +7,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source under ``src/repro_torch/csrc`` from this
-   checkout, one ``nvcc`` per source, all started together;
+   checkout, one ``nvcc`` per source, all started together; K11's
+   tensor-core kernels must report no spills (``-Xptxas -v``) and the
+   library must hold ``HGMMA`` (tensor-core) instructions;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
    padded batch size P of the main path; then the device graph build:
@@ -61,17 +63,19 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    launch gaps);
 11. the LM serve path (``python -m repro_torch.serve.serve_lm``): K11 at
    the prefill's shape, q (4, 2048, 12, 128) against k, v (4, 2048, 2,
-   128), in bf16 and f32, and at a ragged T = 1000 and a Tq < Tk case,
-   each held against its plain version, repeated bit for bit and timed
-   beside it and beside ``scaled_dot_product_attention`` (the library
-   column only); then ``qwen2-1.5b`` at full width, 2 layers, f32, on the
-   card against the CPU (prefill logits and cache, 4 greedy decode
-   steps); then the full model (28 layers, bf16, weights from a seed on
-   the card), batch 4, prompt 2048, 32 greedy decode steps, cache 2080,
-   through ``serve_lm``'s functions: counts at 0 just before the prefill
-   (K11 exactly 28 times, nothing else) and again before the decode (no
-   kernel at all), logits finite, prefill ms, decode ms/token, tok/s and
-   peak device memory;
+   128), in bf16 (tensor-core route) and f32 (FMA route), and at a ragged
+   T = 1000 and a Tq < Tk case, each labelled with its route and held
+   against its plain version on the route's key tiles, repeated bit for
+   bit and timed beside it and, in turns, beside
+   ``scaled_dot_product_attention`` (the library column only), with the
+   path case's TFLOP/s and share of its bound; then ``qwen2-1.5b`` at
+   full width, 2 layers, f32, on the card against the CPU (prefill logits
+   and cache, 4 greedy decode steps); then the full model (28 layers,
+   bf16, weights from a seed on the card), batch 4, prompt 2048, 32
+   greedy decode steps, cache 2080, through ``serve_lm``'s functions:
+   counts at 0 just before the prefill (K11 exactly 28 times, nothing
+   else) and again before the decode (no kernel at all), logits finite,
+   prefill ms, decode ms/token, tok/s and peak device memory;
 12. the ``{"kernels": [...]}`` line, then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
@@ -901,14 +905,65 @@ ATTN_TOL_RULE = ("f32: |Δ| ≤ 3e-5; bf16: |Δ| ≤ 2^-8·max|want| + "
 SERVE_RTOL = 1e-4
 
 
+#: The full prefill with K11 on the FMA kernel (64-key tiles, no tensor
+#: cores), B 4 × T 2048, second call, on an NVIDIA H100 80GB HBM3 at a
+#: 700.00 W power limit (two runs; PERF.md names them).
+PREFILL_MS_FMA_ROUTE = (145.607, 145.923)
+
+
 def attn_pairs(Tq: int, Tk: int) -> int:
     """(query, key) pairs of one causal head, query row t at Tk − Tq + t."""
     return Tq * (Tk - Tq + 1) + Tq * (Tq - 1) // 2
 
 
+def flash_attention_build_report() -> dict:
+    """The compiler's report for the tensor-core kernels of
+    ``flash_attention.cu`` (registers, shared memory, spills; no spill is
+    allowed) and the count of tensor-core ``HGMMA`` instructions in the
+    built library (``cuobjdump -sass``), which must not be 0."""
+    import os
+    import re
+    from repro_torch.kernels import build
+    report = build.REPORTS["flash_attention"]
+    rec = {}
+    for entry in re.split(r"ptxas info\s+: Compiling entry function ", report):
+        if "flash_fwd_wgmma_kernel" not in entry:
+            continue
+        hd = int(re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", entry).group(1))
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill", entry)]
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        rec[hd] = {"registers": regs, "spill_bytes": sum(spill)}
+        check(len(spill) == 2 and sum(spill) == 0,
+              f"the tensor-core K11 kernel (hd {hd}) spills: {entry[:400]}")
+    check(sorted(rec) == [64, 128], f"no compiler report for the "
+          f"tensor-core K11 kernels at hd 64 and 128: {report[-2000:]}")
+    lib = build.library_path("flash_attention")
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    rec["hgmma"] = len(re.findall(r"\bHGMMA\.", sass))
+    rec["tma_loads"] = len(re.findall(r"\bUTMALDG\b", sass))
+    check(rec["hgmma"] > 0, "the built K11 library holds no HGMMA instruction")
+    smem = {hd: fa_smem(hd) for hd in (64, 128)}
+    print("flash_attention tensor-core kernels (-Xptxas -v): " + "; ".join(
+        f"hd {hd}: {rec[hd]['registers']} registers, {smem[hd]} bytes of "
+        f"dynamic shared memory, {rec[hd]['spill_bytes']} bytes spilled"
+        for hd in (64, 128)) + f"; {rec['hgmma']} HGMMA and "
+          f"{rec['tma_loads']} UTMALDG instructions in the library")
+    return rec
+
+
+def fa_smem(hd: int) -> int:
+    """Dynamic shared memory of the tensor-core K11 kernel: Q and two (K,
+    V) stages of 128 rows × hd bf16, three mbarriers, 1024 bytes of
+    alignment (``smem_bytes`` in flash_attention_wgmma.cuh)."""
+    return 5 * 128 * hd * 2 + 64 + 1024
+
+
 def flash_attention_phase() -> dict:
-    """K11 at the serve path's prefill shape in bf16 (the path's dtype) and
-    f32, at a ragged T and with Tq < Tk; returns the records by case."""
+    """K11 at the serve path's prefill shape in bf16 (the path's dtype,
+    tensor-core route) and f32 (FMA route), at a ragged T and with Tq < Tk;
+    returns the records by case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.bench import time_ms
@@ -924,18 +979,18 @@ def flash_attention_phase() -> dict:
                                  ("Tq<Tk bf16", 512, T, torch.bfloat16)):
         q, k, v = (torch.randn(B, t, h, hd, generator=gen, device="cuda")
                    .to(dtype) for t, h in ((Tq, H), (Tk, KV), (Tk, KV)))
+        route, bk = fa.route(dtype, hd), fa.block_k(dtype, hd)
 
         def kern():
             return fa.flash_attention_gqa(q, k, v, causal=True)
 
         def plain():
-            return ref.flash_attention_ref(q, k, v, causal=True,
-                                           block_k=fa.BLOCK_K)
+            return ref.flash_attention_ref(q, k, v, causal=True, block_k=bk)
 
         a, b, want = kern(), kern(), plain()
         torch.cuda.synchronize()
-        where = (f"flash_attention [{label}: q {tuple(q.shape)}, k/v "
-                 f"{tuple(k.shape)}]")
+        where = (f"flash_attention [{label}, {route} route, {bk}-key tiles: "
+                 f"q {tuple(q.shape)}, k/v {tuple(k.shape)}]")
         check(torch.equal(a, b), f"{where}: two launches differ")
         err = (a.float() - want.float()).abs()
         if dtype == torch.float32:
@@ -950,30 +1005,50 @@ def flash_attention_phase() -> dict:
               f"{where} disagrees with its plain version")
         rec = {"max_abs_err": float(err.max()), "tol": float(tol.max()),
                "tol_rule": ATTN_TOL_RULE, "err_over_tol": over,
-               "ms": time_ms(kern, n=10, warmup=2),
+               "kernel_route": route, "block_k": bk,
                "plain_ms": time_ms(plain, n=3, warmup=1), "library_ms": None}
         if Tq == Tk:
             # The library column: SDPA on (B, H, T, hd) views of the same
-            # tensors (its causal mask is the same one when Tq == Tk).
+            # tensors (its causal mask is the same one when Tq == Tk),
+            # timed in turns with the kernel.
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
             def sdpa():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
 
-            rec["library_ms"] = time_ms(sdpa, n=10, warmup=2)
+            rounds = [(time_ms(kern, n=20, warmup=3),
+                       time_ms(sdpa, n=20, warmup=3)) for _ in range(2)]
+            rec["ms_rounds"] = [r[0] for r in rounds]
+            rec["library_ms_rounds"] = [r[1] for r in rounds]
+            rec["ms"] = sum(rec["ms_rounds"]) / len(rounds)
+            rec["library_ms"] = sum(rec["library_ms_rounds"]) / len(rounds)
             rec["note"] = ("library_ms is torch.nn.functional.scaled_dot_"
                            "product_attention(is_causal=True, enable_gqa="
-                           "True), timed only; max |SDPA − K11| "
+                           "True), timed only, in turns with the kernel; "
+                           "max |SDPA − K11| "
                            f"{float((sdpa().transpose(1, 2) - a).abs().max())}")
+        else:
+            rec["ms"] = time_ms(kern, n=20, warmup=3)
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        flops = 4.0 * hd * B * H * attn_pairs(Tq, Tk)
         rec["bound"] = bound_ms(
             q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
-            4.0 * hd * B * H * attn_pairs(Tq, Tk), rate)
-        print(f"{where}: {rec['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
-              f"SDPA {rec['library_ms']} ms; bound {rec['bound'][0]:.5f} ms "
-              f"({rec['bound'][1]})")
+            flops, rate)
+        rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+        rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+        print(f"{where}: {rec['ms']:.4f} ms (rounds "
+              f"{rec.get('ms_rounds')}); plain {rec['plain_ms']:.4f} ms; "
+              f"SDPA {rec['library_ms']} ms (rounds "
+              f"{rec.get('library_ms_rounds')}); bound {rec['bound'][0]:.5f}"
+              f" ms ({rec['bound'][1]}); {rec['tflop_per_s']:.1f} TFLOP/s, "
+              f"{100 * rec['share_of_bound']:.1f} % of the bound")
         records[label] = rec
+    path = records["path bf16"]
+    check(path["kernel_route"] == "wgmma",
+          f"the path's K11 runs the {path['kernel_route']} route")
+    print(f"flash_attention [path bf16]: {path['ms'] / path['library_ms']:.3f}"
+          f"× SDPA's time in the same call")
     return records
 
 
@@ -1120,8 +1195,11 @@ def serve_phase() -> dict:
     print(f"serve qwen2-1.5b (full width, {cfg.n_layers} layers, bf16, "
           f"{n_params / 1e9:.3f}e9 params drawn in {load_s:.2f}s): batch {B}, "
           f"prompt {T}, cache {T + steps}: prefill {rec['prefill_ms']:.3f} ms "
-          f"(first call {rec['first_prefill_ms']:.3f} ms), launches {counts}; "
-          f"decode {steps} greedy steps {rec['decode_ms_per_token']:.3f} "
+          f"(with K11 on the FMA kernel: {PREFILL_MS_FMA_ROUTE[0]:.3f}–"
+          f"{PREFILL_MS_FMA_ROUTE[1]:.3f} ms on an H100 80GB HBM3 at 700.00 "
+          f"W; first call {rec['first_prefill_ms']:.3f} ms), launches "
+          f"{counts}; decode {steps} greedy steps "
+          f"{rec['decode_ms_per_token']:.3f} "
           f"ms/token, {rec['tok_per_s']:.1f} tok/s, launches {dcounts}; "
           f"device memory: weights {rec['weights_gb']:.3f} GB, peak over the "
           f"prefill {rec['peak_prefill_gb']:.3f} GB, over the decode "
@@ -1163,6 +1241,7 @@ def main() -> int:
     resolve_device("cuda")   # pins TF32 off for every product below
 
     build_all()
+    fa_build = flash_attention_build_report()
     t0 = time.time()
     exp = Experiment(paper_config(), device="cuda").build()
     P = exp.pipeline.__self__.pad
@@ -1260,6 +1339,14 @@ def main() -> int:
             "ms": rec["ms"], "kernel_ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": rec.get("library_ms"),
+            **({"kernel_route": rec["kernel_route"],
+                "block_k": rec["block_k"],
+                "tflop_per_s": rec["tflop_per_s"],
+                "share_of_bound": rec["share_of_bound"],
+                "registers": fa_build[128]["registers"],
+                "spill_bytes": fa_build[128]["spill_bytes"],
+                "hgmma_instructions": fa_build["hgmma"]}
+               if name == "flash_attention" else {}),
             **({"note": rec["note"]} if "note" in rec else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

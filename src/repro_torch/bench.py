@@ -77,7 +77,7 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
 def _group(name: str) -> str:
     if any(k in name for k in REG_KERNELS):
         return "graph_reg_kernels"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_attention"
     low = name.lower()
     if any(k in low for k in ("gemm", "cutlass", "matmul", "xmma", "nvjet")):

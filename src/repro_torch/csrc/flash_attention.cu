@@ -11,6 +11,12 @@
 // kernel never materialises the repeat of k and v that the Pallas wrapper
 // builds.  T is float or __nv_bfloat16; hd is 16, 32, 64 or 128.
 //
+// Two routes, chosen by flash_attention_fwd from dtype and hd: bfloat16
+// with hd 64 or 128 runs the tensor-core kernel of
+// flash_attention_wgmma.cuh (wgmma tiles fed by TMA, softmax in
+// registers, 128-key tiles); float32 (held to atol 3e-5, so no TF32) and
+// bfloat16 with hd 16 or 32 run the FMA kernel below (64-key tiles).
+//
 // K11 replaces repro/kernels/flash_attention.py:flash_attention_fwd_pallas
 // (_flash_fwd_kernel), with its GQA wrapper flash_attention_gqa_pallas.
 // Its arithmetic is the reference's: s = q.k summed in float32, masked to
@@ -36,8 +42,8 @@
 // Bound on an H100 at the serve path's shape (B 4, T 2048, H 12, KV 2,
 // hd 128, causal, bf16): 2*B*H*T^2*hd = 5.15e10 flops (0.052 ms at the
 // 989 TFLOP/s bf16 tensor-core peak) against 58.7 MB of q, k, v and o
-// (0.018 ms): bound by operations.  This first version is a plain float32
-// FMA loop (no tensor cores, no TMA): thread (ty, tx) of a 16 x 16 block
+// (0.018 ms): bound by operations.  The FMA kernel is a plain float32
+// loop (no tensor cores, no TMA): thread (ty, tx) of a 16 x 16 block
 // owns rows ty + 16r (r < 4) of both the 64 x 64 score tile and the
 // 64 x hd output tile, so the online-softmax rescale needs no exchange;
 // row max and row sum are reduced across the 16 lanes that share a row.
@@ -46,6 +52,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -244,6 +252,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The FMA route: float32 at every hd, bfloat16 at hd 16 and 32.
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
                 int Tq, int Tk, int H, int KV, int hd, int causal,
@@ -251,24 +260,35 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
     switch (hd) {
         case 16: return launch<T, 16>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
         case 32: return launch<T, 32>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
-        case 64: return launch<T, 64>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
-        case 128: return launch<T, 128>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
-        default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if constexpr (sizeof(T) == 4) {
+        switch (hd) {
+            case 64: return launch<T, 64>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
+            case 128: return launch<T, 128>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
+        }
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o share it).
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o share it).  bfloat16 with hd
+// 64 or 128 takes the tensor-core route (flash_attention_wgmma.cuh), whose
+// pointers must be 16-byte aligned; everything else the FMA kernel.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Tq, int Tk, int H, int KV, int hd,
                         int causal, int dtype, void* stream) {
     if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0 ||
-        B * H > 65535 || (causal && Tq > Tk))
+        (causal && Tq > Tk))
         return static_cast<int>(cudaErrorInvalidValue);
     const auto s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1 && hd == 64)
+        return k11_wgmma::launch<64>(q, k, v, o, B, Tq, Tk, H, KV, causal, s);
+    if (dtype == 1 && hd == 128)
+        return k11_wgmma::launch<128>(q, k, v, o, B, Tq, Tk, H, KV, causal, s);
+    if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0)
         return dispatch_hd<float>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, s);
     if (dtype == 1)

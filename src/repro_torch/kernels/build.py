@@ -22,8 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "NVCC_FLAGS", "build_dir", "find_nvcc", "library_path",
-           "build", "load"]
+__all__ = ["CSRC", "NVCC_FLAGS", "REPORTS", "build_dir", "find_nvcc",
+           "library_path", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -31,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: The compiler's report (``-Xptxas -v``) of each verbose build, by name.
+REPORTS: dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -62,7 +64,8 @@ def build(name: str, *, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
 
     ``verbose`` adds ``-Xptxas -v`` and returns with the compiler's report
-    printed (registers, shared memory and spills of each kernel).
+    printed (registers, shared memory and spills of each kernel) and kept
+    in ``REPORTS[name]``.
     """
     out = library_path(name)
     if out.exists() and not verbose:
@@ -75,6 +78,7 @@ def build(name: str, *, verbose: bool = False) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     if verbose:
+        REPORTS[name] = proc.stderr
         print(proc.stderr, end="")
     os.replace(tmp, out)
     return out

@@ -7,8 +7,16 @@ in q's dtype.  It scales q by hd^-0.5 in q's own dtype, as the reference
 does before its kernel, then launches ``csrc/flash_attention.cu`` for CUDA
 tensors; CPU tensors go to the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref` over the same key
-tiles, and mixed devices raise.  A CUDA tensor never reaches the plain
-version.
+tiles (:func:`block_k`), and mixed devices raise.  A CUDA tensor never
+reaches the plain version.
+
+Two routes (:func:`route`): bfloat16 with head dim 64 or 128 runs on the
+tensor cores (``csrc/flash_attention_wgmma.cuh``: wgmma tiles fed by the
+TMA, the softmax in registers, 128-key tiles), and needs every pointer and
+row stride on a 16-byte boundary (the TMA's rule); float32, held to atol
+3e-5 and so kept off TF32, and bfloat16 with head dim 16 or 32 run a
+float32 FMA loop over 64-key tiles.  A tensor-core call that cannot build
+or launch raises; it never falls back to the FMA kernel.
 
 Source note (bound on an H100 SXM at the serve path's shape, q (4, 2048,
 12, 128) and k, v (4, 2048, 2, 128) in bf16, causal): K11 replaces
@@ -16,12 +24,13 @@ Source note (bound on an H100 SXM at the serve path's shape, q (4, 2048,
 ``_flash_fwd_kernel`` and its GQA wrapper ``flash_attention_gqa_pallas``.
 2·B·H·T²·hd = 5.15e10 flops, 0.052 ms at the 989 TFLOP/s bf16
 tensor-core peak, against 58.7 MB of q, k, v and o (0.018 ms): bound by
-operations.  The Pallas grid keeps the online-softmax state in VMEM across
-an ordered kv axis; here one block owns a 64-row query block of one head
-and loops over the key tiles itself, stopping at the diagonal (exact: the
-tiles past it are no-ops bit for bit), and reads KV head h // (H / KV) in
-place of the wrapper's ``jnp.repeat``.  A plain float32 FMA loop, no
-tensor cores: agreement first, speed is later work.
+operations, so the serve path's route runs both products on the tensor
+cores.  The Pallas grid keeps the online-softmax state in VMEM across an
+ordered kv axis; here one block owns a query block of one head (128 rows
+on the tensor cores, 64 on the FMA route) and loops over the key tiles
+itself, stopping at the diagonal (exact: the tiles past it are no-ops bit
+for bit), and reads KV head h // (H / KV) in place of the wrapper's
+``jnp.repeat``.
 
 Head dims 16, 32, 64 and 128 and dtypes float32 and bfloat16 are taken, on
 both devices; anything else raises.  The wrapper counts its launches in
@@ -38,17 +47,35 @@ import torch
 from . import build, ref
 from .graph_reg import _on_cpu, _raise_on, _stream
 
-__all__ = ["flash_attention_gqa", "HEAD_DIMS", "BLOCK_K", "WRAPPERS",
-           "SOURCE"]
+__all__ = ["flash_attention_gqa", "route", "block_k", "HEAD_DIMS",
+           "WRAPPERS", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
 #: Head dims the kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
-#: Keys per tile (``kBK`` in the source); the CPU path's plain version
-#: walks the same tiles.
-BLOCK_K = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Keys per tile of each route (``kBK`` in the sources).
+_BLOCK_K = {"wgmma": 128, "fma": 64}
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """``"wgmma"`` (tensor cores) for bfloat16 at head dim 64 or 128,
+    ``"fma"`` for float32 and for bfloat16 at head dim 16 or 32; raises on
+    what the kernel does not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_gqa: dtype {dtype} not in "
+                        f"{list(_DTYPES)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_gqa: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and hd >= 64 else "fma"
+
+
+def block_k(dtype: torch.dtype, hd: int) -> int:
+    """Keys per tile of :func:`route`'s kernel; the CPU path's plain
+    version walks the same tiles."""
+    return _BLOCK_K[route(dtype, hd)]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,32 +100,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Bk != B or hdk != hd or H % KV != 0:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch "
                          f"and head dim must match and H a multiple of KV")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_gqa: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
-        raise TypeError(f"q, k and v must share one dtype of "
-                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    route(q.dtype, hd)  # raises on a dtype or head dim the kernel lacks
     if causal and Tq > Tk:
         raise ValueError(f"causal attention needs Tq <= Tk, got Tq={Tq}, "
                          f"Tk={Tk}")
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """The TMA reads from 16-byte boundaries: every pointer and row stride
+    a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        strides = [st * t.element_size() for st in t.stride()[:-1]]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(
+                f"flash_attention_gqa: {name} must start on a 16-byte "
+                f"boundary with row strides a multiple of 16 bytes for the "
+                f"tensor-core route, got address {t.data_ptr():#x} and "
+                f"strides {strides} bytes")
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """K11: softmax(q·kᵀ/√hd)·v per head, causal by absolute position."""
     _check(q, k, v, causal)
+    B, Tq, H, hd = q.shape
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       block_k=BLOCK_K)
-    B, Tq, H, hd = q.shape
+                                       block_k=block_k(q.dtype, hd))
     Tk, KV = k.shape[1], k.shape[2]
     qs = ref.scale_queries(q).contiguous()
     k, v = k.contiguous(), v.contiguous()
     out = torch.empty_like(qs)
     if B == 0 or Tq == 0:
         return out
+    if route(q.dtype, hd) == "wgmma":
+        _check_tma(qs=qs, k=k, v=v, out=out)
     rc = _lib().flash_attention_fwd(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
         H, KV, hd, int(causal), _DTYPES[q.dtype], _stream(q))

@@ -1,10 +1,12 @@
 """K11 (attention forward) of the port against the JAX package, on the CPU.
 
 On CPU tensors ``ops.flash_attention_gqa`` runs the kernel's plain version
-(``ref.flash_attention_ref`` over the kernel's 64-key tiles).  The same
-numpy inputs go through the reference's Pallas kernel in interpret mode
-(``flash_attention_gqa_pallas``, ``flash_attention_fwd_pallas``) and its
-O(T²) oracle ``reference_attention``.
+(``ref.flash_attention_ref`` over the key tiles of the route the card
+would take: 128 keys for bfloat16 at head dim 64 or 128, 64 otherwise).
+The same numpy inputs go through the reference's Pallas kernel in
+interpret mode (``flash_attention_gqa_pallas``,
+``flash_attention_fwd_pallas``) and its O(T²) oracle
+``reference_attention``.
 
 Tolerances: float32 atol 3e-5, the reference test's own
 (``tests/test_kernels.py``).  bfloat16 against the Pallas kernel on the
@@ -97,10 +99,14 @@ def test_matches_reference_attention(causal, Tq, Tk):
 
 
 @pytest.mark.parametrize("B,T,H,KV,hd", [(2, 64, 4, 2, 32),
-                                         (1, 130, 12, 2, 128)])
+                                         (1, 130, 12, 2, 128),
+                                         (2, 200, 8, 2, 64)])
 def test_bf16_matches_pallas_kernel_on_the_same_tiles(B, T, H, KV, hd):
+    """Both routes' key tiles: 64 keys (FMA route, hd 32) and 128 keys
+    (tensor-core route, hd 64 and 128) in the Pallas kernel too."""
     q, k, v = _qkv(B, T, H, KV, hd, seed=1)
-    bk = fa.BLOCK_K
+    bk = fa.block_k(torch.bfloat16, hd)
+    assert bk == (128 if hd >= 64 else 64)
     want = np.asarray(flash_attention_gqa_pallas(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
         bq=64, bk=bk, interpret=True)).astype(np.float32)
@@ -110,6 +116,45 @@ def test_bf16_matches_pallas_kernel_on_the_same_tiles(B, T, H, KV, hd):
     assert np.abs(got - _port(q, k, v)).max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 32),
+                                      (torch.float32, 128)])
+def test_cpu_path_walks_the_routes_key_tiles(dtype, hd):
+    """The CPU path is the plain version on ``block_k(dtype, hd)``, bit for
+    bit; in bfloat16 another tile size rounds p elsewhere."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(1, 300, 4, 2, hd, seed=3))
+    got = ops.flash_attention_gqa(q, k, v)
+    bk = fa.block_k(dtype, hd)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, block_k=bk))
+    if dtype == torch.bfloat16:
+        other = ref.flash_attention_ref(q, k, v, block_k=192 - bk)
+        assert not torch.equal(got, other)
+
+
+def test_route_and_block_k():
+    assert fa.route(torch.bfloat16, 128) == "wgmma"
+    assert fa.route(torch.bfloat16, 64) == "wgmma"
+    for dtype, hd in ((torch.bfloat16, 32), (torch.bfloat16, 16),
+                      (torch.float32, 128), (torch.float32, 16)):
+        assert fa.route(dtype, hd) == "fma"
+        assert fa.block_k(dtype, hd) == 64
+    assert fa.block_k(torch.bfloat16, 128) == 128
+
+
+@pytest.mark.parametrize("dtype,hd,err", [(torch.float16, 128, TypeError),
+                                          (torch.float64, 64, TypeError),
+                                          (torch.bfloat16, 48, ValueError),
+                                          (torch.float32, 256, ValueError)])
+def test_route_and_block_k_refuse_what_the_kernel_does_not_take(dtype, hd,
+                                                                err):
+    with pytest.raises(err):
+        fa.route(dtype, hd)
+    with pytest.raises(err):
+        fa.block_k(dtype, hd)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Tq,Tk", [(200, 200), (70, 200)])
 def test_causal_skip_is_exact(dtype, Tq, Tk):
@@ -117,9 +162,12 @@ def test_causal_skip_is_exact(dtype, Tq, Tk):
     p = 0 and α = 1."""
     q, k, v = (torch.from_numpy(a).to(dtype)
                for a in _qkv(1, Tq, 4, 2, 32, Tk=Tk, seed=2))
-    skip = ref.flash_attention_ref(q, k, v, causal=True, causal_skip=True)
-    full = ref.flash_attention_ref(q, k, v, causal=True, causal_skip=False)
-    assert torch.equal(skip, full)
+    for bk in (64, 128):   # both routes' key tiles
+        skip = ref.flash_attention_ref(q, k, v, causal=True, block_k=bk,
+                                       causal_skip=True)
+        full = ref.flash_attention_ref(q, k, v, causal=True, block_k=bk,
+                                       causal_skip=False)
+        assert torch.equal(skip, full)
 
 
 def test_scale_is_rounded_to_q_dtype():

@@ -15,10 +15,12 @@ K9 hold squared distances to 1e-5·(‖x_i‖² + ‖y_j‖²), the scale of the
 float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal the
 plain version's except at such near ties, and exactly on integer inputs.
 The attention kernel K11 is held against its plain version on the same key
-tiles at atol 3e-5 in float32, and in bfloat16 at |Δ| ≤ 2^-8·max|want| +
-2^-7·|want| (both round p and the output to bfloat16 at the same points;
-the float32 sums run in other orders, so a rounding may fall the other
-way).  A reduced qwen2 prefill on the card matches the CPU's.
+tiles (``fa.block_k``: 128 keys on the tensor-core route, bfloat16 at head
+dim 64 or 128; 64 on the FMA route) at atol 3e-5 in float32, and in
+bfloat16 at |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the
+output to bfloat16 at the same points; the float32 sums run in other
+orders, and the tensor cores take exp from ex2.approx, so a rounding may
+fall the other way).  A reduced qwen2 prefill on the card matches the CPU's.
 """
 
 import numpy as np
@@ -379,14 +381,24 @@ def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):
                           (1, 130, 130, 12, 2, 128, True),
                           (1, 40, 100, 12, 2, 128, True),
                           (2, 100, 100, 8, 2, 64, False),
-                          (1, 1000, 1000, 12, 2, 128, True)])
+                          (1, 1000, 1000, 12, 2, 128, True),
+                          (1, 512, 2048, 12, 2, 128, True),
+                          (1, 40, 100, 8, 2, 64, True),
+                          (1, 1000, 1000, 8, 1, 64, True),
+                          (2, 130, 300, 12, 2, 128, False),
+                          (12, 256, 256, 12, 2, 128, True)])
 def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
                                                KV, hd, causal):
+    """bfloat16 at hd 64 and 128 runs the tensor-core route: ragged Tq = Tk
+    (130, 1000), Tq < Tk (40 against 100, offset 60; 512 against 2048,
+    the kernel phase's case), non-causal with a ragged Tk, and B·H = 144
+    (more blocks a query row than the card's 132 SMs); the other cases run
+    the FMA route."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Tq, H, KV, hd, Tk, dtype))
     a = fa.flash_attention_gqa(q, k, v, causal=causal)
     b = fa.flash_attention_gqa(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal,
-                                   block_k=fa.BLOCK_K)
+                                   block_k=fa.block_k(dtype, hd))
     torch.cuda.synchronize()
     assert a.dtype == dtype and a.shape == q.shape
     assert torch.equal(a, b)
@@ -397,6 +409,43 @@ def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
         tol = 2.0 ** -8 * want.abs().max() + 2.0 ** -7 * want.abs()
     assert bool(((got - want).abs() <= tol).all()), \
         float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes(cuda):
+    """The serve path's shape (bf16, hd 128) takes the tensor cores; each
+    route's launch counts once and gives the same bits twice."""
+    assert fa.route(torch.bfloat16, 128) == "wgmma"
+    assert fa.block_k(torch.bfloat16, 128) == 128
+    for dtype, hd in ((torch.bfloat16, 128), (torch.bfloat16, 64),
+                      (torch.bfloat16, 32), (torch.float32, 128)):
+        q, k, v = (t.to(cuda) for t in _attn_inputs(1, 200, 4, 2, hd,
+                                                    dtype=dtype))
+        gr.reset_launch_counts()
+        a = fa.flash_attention_gqa(q, k, v)
+        assert gr.launch_counts()["flash_attention"] == 1
+        assert torch.equal(a, fa.flash_attention_gqa(q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_misaligned_view(cuda):
+    """The tensor-core route loads through the TMA: a view that starts off
+    a 16-byte boundary raises instead of launching (or falling back)."""
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 64, 4, 2, 128,
+                                                dtype=torch.bfloat16))
+    flat = torch.empty(k.numel() + 8, dtype=k.dtype, device=cuda)
+    k_off = flat[1:1 + k.numel()].view(k.shape).copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16
+    gr.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_gqa(q, k_off, v)
+    assert gr.launch_counts()["flash_attention"] == 0
+    # The FMA route reads element by element and takes the same view.
+    f32 = [t.float() for t in (q, k, v)]
+    k_f32 = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    k_f32.copy_(f32[1])
+    torch.testing.assert_close(fa.flash_attention_gqa(f32[0], k_f32, f32[2]),
+                               fa.flash_attention_gqa(*f32), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
