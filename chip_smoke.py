@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
+
+``--against DIR`` also builds K3's and K5's C entry points from another
+checkout's sources (DIR, e.g. the parent commit unpacked with ``git
+archive``) and times them in turns with this checkout's on the same
+inputs (phase 5).  Every kernel time below is the device time of one call
+from a CUDA graph of back-to-back calls (``bench.graph_ms``), the kernel,
+its plain version and the library call (where there is one) two rounds
+in turns; the wrappers are given p = exp(logp), as the training path
+gives it.
 
 Phases, each fatal on failure (nothing is caught and swallowed):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source under ``src/repro_torch/csrc`` from this
    checkout, one ``nvcc`` per source, all started together; K11's
-   tensor-core kernels must report no spills (``-Xptxas -v``) and the
+   tensor-core kernels and the redesigned K3 and K5 must report no
+   spills (``-Xptxas -v``, registers and shared memory printed) and the
    library must hold ``HGMMA`` (tensor-core) instructions;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
@@ -19,23 +29,27 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    device memory over the call (no N×N buffer), its seconds split into
    H2D, K8 and the host's sigma/CSR beside the host search's, and its
    graph held against the host graph (sigma within rel 1e-5, edge churn
-   ≤ 1e-3, every differing edge at a near-tie row);
+   ≤ 1e-3, every differing edge at a near-tie row), and the two graphs'
+   weights compared on their common edges (max |Δw| and relative Δw);
 4. kernels: K1, K2 and K3 at the path's shape (k=1, B=P, C=39, γ=1,
    κ=1e-4, g=1/B, W a real padded affinity block), at the same shape with
    γ=0.8, κ=1e-2 and g=0.5 (so the κ and degree terms are not lost under
    the tolerance), and at a ragged shape (B=1000), each held against its
    plain PyTorch version on the card, run twice for bit-identical repeats,
-   and timed with CUDA events beside its plain version and, for K3, one
-   PyTorch call computing the same function;
+   and timed beside its plain version; K3 also beside one PyTorch call
+   computing the same function (``addmm``);
 5. block-sparse kernels K4–K7 the same way, on the path's block and the
    layout ``block_layout(W, 128)`` gives it (with both scalar sets), on a
    ragged B=1000, bt=64 random symmetric tile mask, on a mask with an
-   empty tile row, and on a full mask, where K4 must equal K1 bit for bit
-   and K5∘K6 and K7 are also held against K2 and K3; K5 is timed beside
-   ``torch.bmm(W.mT, p)``;
-   K8 (streaming top-k) on the whole corpus against the dense plain
-   version (|Δd2| ≤ 1e-5·(‖x_i‖² + ‖y_j‖²), indices equal except at near
-   ties), K9 (RBF block) on the path's meta-batch rows with the graph's
+   empty tile row, and on a full mask, where K4 must equal K1, K5∘K6 K2
+   and K7 K3 bit for bit; K5 is timed beside ``torch.bmm(W.mT, p)`` as
+   K3 beside ``addmm``; the redesigned K3 and K5 also at k = 2, ragged B
+   (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
+   a full mask at bt = 32, C = 128 (a 36,864-tile list); with
+   ``--against`` K3 and K5 built from DIR, which must give the same bits;
+   K8 (streaming top-k) on the whole corpus at k = 10 (the path's) and
+   k = 40 against the dense plain version (|Δd2| ≤ 1e-5·(‖x_i‖² +
+   ‖y_j‖²), indices equal except at near ties), K9 (RBF block) on the path's meta-batch rows with the graph's
    sigma, K10 (bare cross term) on the path's block and a ragged one; each
    repeated bit for bit and timed beside its plain version and, for K8
    and K9, a PyTorch call (``mm`` and ``cdist``, which compute only the
@@ -53,7 +67,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    gradient, at the same shape), which must launch K1, K2 and K3 once;
 8. the block-sparse main path: the same epoch with
    ``BatchConfig(layout_bt=128)`` on the same corpus, graph and plan; K4,
-   K5 and K6 must launch once per step and no other kernel; then its
+   K5 and K6 must launch once per step and no other kernel, and its
+   ``loss/total`` must equal the dense epoch's bit for bit; then its
    W-gradient path, which must launch K4, K5, K6 and K7 once;
 9. one epoch on the device-built graph: K1 and K2 once per step, K8 and
    every other kernel 0 times;
@@ -320,6 +335,17 @@ def graph_build_phase(exp) -> dict:
     print(f"device vs host graph: same edge structure {same}, max |ΔW| on "
           f"it {dw:.3e}; same meta-batch plan {plan_same}; padded batch P "
           f"{exp_dev.pipeline.__self__.pad} (host {exp.pipeline.__self__.pad})")
+    # The weights on the edges both graphs hold (ROADMAP §3 item 2).
+    ch, cd = g_host.W.tocoo(), g_dev.W.tocoo()
+    _, ih, idv = np.intersect1d(ch.row.astype(np.int64) * n + ch.col,
+                                cd.row.astype(np.int64) * n + cd.col,
+                                return_indices=True)
+    wh, wd = ch.data[ih].astype(np.float64), cd.data[idv].astype(np.float64)
+    dabs = np.abs(wd - wh)
+    print(f"device vs host graph weights on {len(ih)} common edges: max "
+          f"|Δw| {dabs.max():.3e}, max relative Δw "
+          f"{(dabs / np.maximum(np.abs(wh), 1e-300)).max():.3e}, mean |Δw| {dabs.mean():.3e} "
+          f"(host weights {wh.min():.3e}..{wh.max():.3e})")
     check(rel <= 1e-5, f"device sigma differs from host sigma by rel {rel}")
     check(churn <= 1e-3, f"device graph churn {churn} against the host graph")
     check(not bad, f"differing edges away from near ties: {bad[:10]}")
@@ -327,11 +353,12 @@ def graph_build_phase(exp) -> dict:
             "host_s": host_s, "graph_s": graph_s, "k8_s": k8_s}
 
 
-def knn_kernel_phase(X, k: int) -> dict:
-    """K8 on the whole corpus against the dense plain version."""
+def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
+    """K8 on the whole corpus against the dense plain version; timed
+    beside it unless ``with_times`` is False."""
     import numpy as np
     import torch
-    from repro_torch.bench import time_ms
+    from repro_torch.bench import graph_ms
     from repro_torch.kernels import pairwise, ref
 
     x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
@@ -371,17 +398,18 @@ def knn_kernel_phase(X, k: int) -> dict:
           f"ties, in {len(set(mis_r.tolist()))} rows")
     check(math.isfinite(over) and over <= 1.0,
           "knn_topk disagrees with its plain version")
-    ms = time_ms(kern, n=5, warmup=1)
-    plain_ms = time_ms(plain, n=3, warmup=1)
-    mm_ms = time_ms(lambda: torch.mm(x, x.T), n=5, warmup=1)
-    print(f"knn_topk: {ms:.3f} ms; plain (dense matrix + stable sort) "
-          f"{plain_ms:.3f} ms; no PyTorch call computes the top-k without "
-          f"the N×N matrix: torch.mm(x, x.T) alone takes {mm_ms:.3f} ms")
+    if not with_times:
+        return {}
+    times = timed(kern, plain)
+    mm_ms = graph_ms(lambda: torch.mm(x, x.T))
+    print(f"knn_topk: {times['ms']:.3f} ms; plain (dense matrix + stable "
+          f"sort) {times['plain_ms']:.3f} ms; no PyTorch call computes the "
+          f"top-k without the N×N matrix: torch.mm(x, x.T) alone takes "
+          f"{mm_ms:.3f} ms")
     return {"max_abs_err": float(err.max()), "tol": D2_RTOL,
             "tol_rule": f"|Δd2| ≤ tol·(‖x_i‖²+‖y_j‖²); indices equal but "
                         f"at near ties ({len(mis_r)} here)",
-            "err_over_tol": over, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,
+            "err_over_tol": over, **times,
             "note": f"no PyTorch call computes it without the N×N matrix; "
                     f"torch.mm(x, x.T) alone {mm_ms} ms",
             "bound": bound_ms(4.0 * (N * D + N + 2 * N * k),
@@ -392,7 +420,6 @@ def rbf_kernel_phase(X, sigma: float) -> dict:
     """K9 on the path's meta-batch rows (x = y) with the graph's sigma."""
     import numpy as np
     import torch
-    from repro_torch.bench import time_ms
     from repro_torch.kernels import pairwise, ref
 
     x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
@@ -427,9 +454,8 @@ def rbf_kernel_phase(X, sigma: float) -> dict:
                                    f"‖y_j‖²))/(2σ²)",
                        "note": "library_ms is torch.cdist(x, x): the "
                                "distances only, no RBF",
-                       "err_over_tol": over, "ms": time_ms(kern),
-                       "plain_ms": time_ms(plain),
-                       "library_ms": time_ms(lambda: torch.cdist(x, x)),
+                       "err_over_tol": over,
+                       **timed(kern, plain, lambda: torch.cdist(x, x)),
                        "bound": bound_ms(4.0 * (n * D + n + n * n),
                                          2.0 * n * n * D + 6.0 * n * n)}
     print(f"rbf_affinity: {records['ms']:.4f} ms; library torch.cdist(x, x) "
@@ -442,7 +468,6 @@ def pairwise_reg_phase(W_path) -> dict:
     and against K1 at (1, 0, 0)."""
     import numpy as np
     import torch
-    from repro_torch.bench import time_ms
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import ref
 
@@ -454,9 +479,10 @@ def pairwise_reg_phase(W_path) -> dict:
         B, C = W_np.shape[0], 39
         logp, W, _ = kernel_inputs(B, C, W_np, seed=B + 2)
         logp, W = logp[0], W[0]
+        p = torch.exp(logp)
 
         def kern():
-            return gr.reg_pairwise(logp, W)
+            return gr.reg_pairwise(logp, W, p=p)
 
         def plain():
             return ref.graph_reg_pairwise_ref(logp, W)
@@ -471,8 +497,7 @@ def pairwise_reg_phase(W_path) -> dict:
               f"(1, 0, 0) {k1.item()!r}, bit-identical {torch.equal(a, k1)}")
         if label == "path":
             s_flops = 2.0 * B * B * C
-            records = dict(rec, ms=time_ms(kern), plain_ms=time_ms(plain),
-                           library_ms=None,
+            records = dict(rec, **timed(kern, plain),
                            bound=bound_ms(4.0 * (B * B + 2 * B * C + 1),
                                           s_flops + 2.0 * B * B))
     return records
@@ -493,12 +518,29 @@ def ops_path(name: str, fn) -> dict:
     return counts
 
 
+def timed(kern, plain, library=None, rounds: int = 2) -> dict:
+    """Device time of a kernel's wrapper (as the path calls it), of its
+    plain version and, where there is one, of one PyTorch call for the
+    same function: each from a CUDA graph of back-to-back calls
+    (``bench.graph_ms``, no host time between launches), ``rounds``
+    rounds in turns, averaged.  Every row of the kernels line is timed
+    so."""
+    from repro_torch.bench import graph_ms
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
+    runs = {key: [] for key, fn in fns.items() if fn is not None}
+    for _ in range(rounds):
+        for key in runs:
+            runs[key].append(graph_ms(fns[key]))
+    return {"library_ms": None,
+            **{key: sum(v) / len(v) for key, v in runs.items()},
+            "rounds": runs}
+
+
 def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
     """Check, repeat and time K1-K3; return the per-kernel records at the
     path's shape."""
     import numpy as np
     import torch
-    from repro_torch.bench import time_ms
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import ref
 
@@ -515,26 +557,33 @@ def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
         B = W_np.shape[0]
         logp, W, g = kernel_inputs(B, C, W_np, seed=B, g=g_val)
         ge = gc
+        # The wrappers are given p, as the autograd Functions give it.
+        pk = torch.exp(logp)
+        # One PyTorch call for K3's function: addmm of P·logPᵀ onto ge·H
+        # broadcast, scaled by -g (g is a known float here).
+        H = -(pk[0] * logp[0]).sum(-1, keepdim=True).expand(B, B)
+        gv = float(g[0])
         runs = {
             "graph_reg_fwd": (
-                lambda: gr.reg_forward(logp, W, gc, kap, ge),
-                lambda: ref.reg_forward_ref(logp, W, gc, kap, ge)),
+                lambda: gr.reg_forward(logp, W, gc, kap, ge, p=pk),
+                lambda: ref.reg_forward_ref(logp, W, gc, kap, ge), None),
             "graph_reg_bwd_dlogp": (
-                lambda: gr.reg_bwd_dlogp(logp, W, g, gc, kap, ge),
-                lambda: ref.reg_bwd_dlogp_ref(logp, W, g, gc, kap, ge)),
+                lambda: gr.reg_bwd_dlogp(logp, W, g, gc, kap, ge, p=pk),
+                lambda: ref.reg_bwd_dlogp_ref(logp, W, g, gc, kap, ge), None),
             "graph_reg_bwd_dw": (
-                lambda: gr.reg_bwd_dw(logp, g, gc, ge),
-                lambda: ref.reg_bwd_dw_ref(logp, g, gc, ge)),
+                lambda: gr.reg_bwd_dw(logp, g, gc, ge, p=pk),
+                lambda: ref.reg_bwd_dw_ref(logp, g, gc, ge),
+                lambda: torch.addmm(H, pk[0], logp[0].T, beta=-gv * ge,
+                                    alpha=-gv * gc)),
         }
-        for name, (kern, plain) in runs.items():
+        for name, (kern, plain, library) in runs.items():
             a, b, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             check(torch.equal(a, b), f"{name} [{label} B={B}]: two launches "
                   "on the same inputs differ")
             rec = compare(f"{name} [{label} B={B} C={C}]", a, want)
             if label == "path":
-                records[name] = dict(rec, ms=time_ms(kern),
-                                     plain_ms=time_ms(plain))
+                records[name] = dict(rec, **timed(kern, plain, library))
         if label == "path":
             # K3 through the autograd Function with W requiring a gradient.
             Wg = W.clone().requires_grad_(True)
@@ -546,14 +595,7 @@ def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                   "K3 did not launch through the autograd Function")
             compare("graph_reg_bwd_dw [path, through the autograd Function]",
                     Wg.grad, ref.reg_bwd_dw_ref(logp, g, gc, ge))
-            # One PyTorch call for K3's function: addmm of P·logPᵀ onto
-            # ge·H broadcast, scaled by -g (g is a known float here).
-            p = torch.exp(logp[0])
-            H = -(p * logp[0]).sum(-1, keepdim=True).expand(B, B)
-            gv = 1.0 / B
-            records["graph_reg_bwd_dw"]["library_ms"] = time_ms(
-                lambda: torch.addmm(H, p, logp[0].T, beta=-gv * ge,
-                                    alpha=-gv * gc))
+            records["graph_reg_bwd_dw"]["library"] = "torch.addmm"
             f4 = 4.0
             s_flops = 2.0 * B * B * C
             records["graph_reg_fwd"]["bound"] = bound_ms(
@@ -600,7 +642,6 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
     path's shape and layout."""
     import numpy as np
     import torch
-    from repro_torch.bench import time_ms
     from repro_torch.core.metabatch import block_layout, layout_from_occupancy
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import graph_reg_bsp as bsp
@@ -628,37 +669,39 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
         ge = gc
         p = torch.exp(logp)
         bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt)
+        # The wrappers are given p, as the autograd Function gives it;
+        # one PyTorch call for K5's function is the dense Wᵀ·P.
         runs = {
             "graph_reg_bsp_fwd": (
                 lambda: bsp.bsp_forward(logp, W, rows, cols, valid, bt, gc,
-                                        kap, ge),
+                                        kap, ge, p=p),
                 lambda: ref.bsp_forward_ref(logp, W, rows, cols, valid, bt,
-                                            gc, kap, ge)),
+                                            gc, kap, ge), None),
             "graph_reg_bsp_bterm": (
-                lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
+                lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt,
+                                          p=p),
                 lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid,
-                                              bt)),
+                                              bt),
+                lambda: torch.bmm(W.mT, p)),
             "graph_reg_bsp_dlogp": (
                 lambda: bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid,
-                                          g, bt, gc, kap, ge),
+                                          g, bt, gc, kap, ge, p=p),
                 lambda: ref.bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols,
-                                              valid, g, bt, gc, kap, ge)),
+                                              valid, g, bt, gc, kap, ge), None),
             "graph_reg_bsp_dw": (
-                lambda: bsp.bsp_bwd_dw(logp, occ, g, bt, gc, ge),
-                lambda: ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge)),
+                lambda: bsp.bsp_bwd_dw(logp, occ, g, bt, gc, ge, p=p),
+                lambda: ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge), None),
         }
         where = (f"{label} B={B} C={C} bt={bt} "
                  f"{lay.n_active}/{lay.nt ** 2} tiles")
-        for name, (kern, plain) in runs.items():
+        for name, (kern, plain, library) in runs.items():
             a, b, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             check(torch.equal(a, b), f"{name} [{where}]: two launches on the "
                   "same inputs differ")
             rec = compare(f"{name} [{where}]", a, want)
             if label == "path":
-                records[name] = dict(rec, ms=time_ms(kern),
-                                     plain_ms=time_ms(plain),
-                                     library_ms=None)
+                records[name] = dict(rec, **timed(kern, plain, library))
         dW = runs["graph_reg_bsp_dw"][0]()
         live = occ.repeat_interleave(bt, -2).repeat_interleave(bt, -1)
         check(bool((dW[live[..., :B, :B] == 0] == 0).all()),
@@ -674,15 +717,16 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                 rows, cols, valid, g, bt, gc, kap, ge)
             k2 = gr.reg_bwd_dlogp(logp, W, g, gc, kap, ge)
             k7, k3 = dW, gr.reg_bwd_dw(logp, g, gc, ge)
-            compare("K5∘K6 against K2 [full mask]", k56, k2)
-            compare("K7 against K3 [full mask]", k7, k3)
-            print(f"full mask: K5∘K6 bit-identical to K2: "
-                  f"{torch.equal(k56, k2)}; K7 bit-identical to K3: "
-                  f"{torch.equal(k7, k3)}")
+            check(torch.equal(k56, k2), "K5∘K6 is not K2 bit for bit on "
+                  "the full mask")
+            check(torch.equal(k7, k3), "K7 is not K3 bit for bit on the "
+                  "full mask")
+            print("full mask: K5∘K6 == K2 and K7 == K3 bit for bit")
         if label == "path":
-            # One PyTorch call for K5's function: the dense Wᵀ·P.
-            records["graph_reg_bsp_bterm"]["library_ms"] = time_ms(
-                lambda: torch.bmm(W.mT, p))
+            records["graph_reg_bsp_bterm"].update(
+                library="torch.bmm(W.mT, p)",
+                dynamic_smem_bytes=bsp.bterm_smem_bytes(B, C, lay.list_len,
+                                                        bt))
             n_el, T, nt = active_entries(lay, B), lay.list_len, lay.nt
             s_flops = 2.0 * n_el * C
             f4 = 4.0
@@ -700,6 +744,76 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
             print(f"path layout: bt={bt}, {lay.n_active} of {nt * nt} tiles "
                   f"occupied, list length {T}, {n_el} entries of W in them")
     return records
+
+
+def redesign_cases_phase(P: int) -> int:
+    """The redesigned K3 and K5 beyond the path's shape: k = 2 workers,
+    ragged B (1000, and 1001 for rows that are not 16-byte multiples), C
+    in {1, 39, 100}, K5 at bt in {32, 64, 128} on random symmetric tile
+    masks and on a full mask at bt = 32, C = 128, B = 6144; each against
+    its plain version and repeated bit for bit.
+    Returns the number of cases."""
+    import numpy as np
+    import torch
+    from repro_torch.core.metabatch import block_layout
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import graph_reg_bsp as bsp
+    from repro_torch.kernels import ref
+
+    def logp_of(k, B, C, seed):
+        rng = np.random.default_rng(seed)
+        return torch.log_softmax(torch.from_numpy((2.0 * rng.standard_normal(
+            (k, B, C))).astype(np.float32)).cuda(), -1).contiguous()
+
+    def run(where, kern, plain):
+        a, b, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{where}: two launches differ")
+        compare(where, a, want)
+
+    n = 0
+    for k, B, C in ((2, 1000, 1), (2, 1000, 39), (2, 1000, 100),
+                    (2, P, 39), (1, 1001, 39)):
+        logp = logp_of(k, B, C, seed=B + C)
+        g = torch.tensor([0.5, -2.0][:k], device="cuda")
+        run(f"graph_reg_bwd_dw [k={k} B={B} C={C}]",
+            lambda: gr.reg_bwd_dw(logp, g, 0.8, 0.8),
+            lambda: ref.reg_bwd_dw_ref(logp, g, 0.8, 0.8))
+        n += 1
+    for bt in (32, 64, 128):
+        for k, B, C in ((2, 1000, 1), (2, 1000, 39), (2, 1000, 100),
+                        (1, 1001, 39)):
+            Ws = [masked_block(B, bt, seed=bt + C + z, density=0.25,
+                               empty_line=z if z else None)
+                  for z in range(k)]
+            T = max(block_layout(w, bt).list_len for w in Ws)
+            lays = [block_layout(w, bt, list_len=T).arrays() for w in Ws]
+            crows, ccols, cvalid = (torch.from_numpy(np.stack(
+                [lay[i] for lay in lays])).cuda() for i in (3, 4, 5))
+            W = torch.from_numpy(np.stack(Ws)).cuda()
+            logp = logp_of(k, B, C, seed=B + bt + C)
+            run(f"graph_reg_bsp_bterm [k={k} B={B} C={C} bt={bt}]",
+                lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
+                lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid,
+                                              bt))
+            n += 1
+    # A long list: a full mask at bt = 32 and C = 128 lists 36,864 tiles;
+    # K5's shared memory holds one strip's 192, not the list.
+    B, C, bt = 6144, 128, 32
+    lay = block_layout(masked_block(B, bt, seed=7, density=2.0), bt)
+    crows, ccols, cvalid = (torch.from_numpy(a)[None].cuda()
+                            for a in lay.arrays()[3:6])
+    W = torch.from_numpy(masked_block(B, bt, seed=7, density=2.0))[None].cuda()
+    logp = logp_of(1, B, C, seed=B + C)
+    smem = bsp.bterm_smem_bytes(B, C, lay.list_len, bt)
+    run(f"graph_reg_bsp_bterm [full mask B={B} C={C} bt={bt}, list length "
+        f"{lay.list_len}, {smem} bytes of shared memory]",
+        lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
+        lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt))
+    n += 1
+    print(f"redesigned K3 and K5: {n} further cases within tolerance and "
+          f"repeated bit for bit")
+    return n
 
 
 def small_step_parity(layout_bt: int | None = None) -> None:
@@ -916,6 +1030,54 @@ def attn_pairs(Tq: int, Tk: int) -> int:
     return Tq * (Tk - Tq + 1) + Tq * (Tq - 1) // 2
 
 
+def ptxas_entries(name: str) -> list[tuple[str, dict]]:
+    """(mangled kernel name, registers / spill bytes / static shared
+    memory) of every entry function in ``csrc/<name>.cu``'s compiler report
+    (``-Xptxas -v``)."""
+    import re
+    from repro_torch.kernels import build
+    out = []
+    for entry in re.split(r"ptxas info\s+: Compiling entry function ",
+                          build.REPORTS[name])[1:]:
+        kernel = entry.split("'")[1]
+        spill = re.search(rf"Function properties for {re.escape(kernel)}\s+"
+                          r"\d+ bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        check(spill is not None and regs is not None,
+              f"no register or spill report for {kernel}: {entry[:400]}")
+        out.append((kernel, {"registers": int(regs.group(1)),
+                             "spill_bytes": int(spill.group(1))
+                             + int(spill.group(2)),
+                             "static_smem_bytes": int(smem.group(1))
+                             if smem else 0}))
+    return out
+
+
+#: The redesigned K3 and K5: wrapper name -> (source, kernel).
+REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dw"),
+              "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_bterm")}
+
+
+def redesign_build_report() -> dict:
+    """Registers, spills and shared memory of the redesigned K3 and K5
+    (``-Xptxas -v``); no spill is allowed."""
+    import re
+    rec = {}
+    for wrapper, (src, kernel) in REDESIGNED.items():
+        hits = [r for name, r in ptxas_entries(src)
+                if re.search(rf"\d{kernel}E", name)]
+        check(len(hits) == 1, f"{len(hits)} compiler reports for {kernel} "
+              f"in {src}.cu")
+        rec[wrapper] = r = hits[0]
+        check(r["spill_bytes"] == 0, f"{kernel} spills: {r}")
+        print(f"{kernel} (-Xptxas -v): {r['registers']} registers, "
+              f"{r['static_smem_bytes']} bytes of static shared memory, "
+              f"{r['spill_bytes']} bytes spilled")
+    return rec
+
+
 def flash_attention_build_report() -> dict:
     """The compiler's report for the tensor-core kernels of
     ``flash_attention.cu`` (registers, shared memory, spills; no spill is
@@ -924,19 +1086,19 @@ def flash_attention_build_report() -> dict:
     import os
     import re
     from repro_torch.kernels import build
-    report = build.REPORTS["flash_attention"]
     rec = {}
-    for entry in re.split(r"ptxas info\s+: Compiling entry function ", report):
-        if "flash_fwd_wgmma_kernel" not in entry:
+    for kernel, r in ptxas_entries("flash_attention"):
+        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", kernel)
+        if m is None:
             continue
-        hd = int(re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", entry).group(1))
-        spill = [int(x) for x in re.findall(r"(\d+) bytes spill", entry)]
-        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
-        rec[hd] = {"registers": regs, "spill_bytes": sum(spill)}
-        check(len(spill) == 2 and sum(spill) == 0,
-              f"the tensor-core K11 kernel (hd {hd}) spills: {entry[:400]}")
+        hd = int(m.group(1))
+        rec[hd] = {"registers": r["registers"],
+                   "spill_bytes": r["spill_bytes"]}
+        check(r["spill_bytes"] == 0,
+              f"the tensor-core K11 kernel (hd {hd}) spills: {r}")
     check(sorted(rec) == [64, 128], f"no compiler report for the "
-          f"tensor-core K11 kernels at hd 64 and 128: {report[-2000:]}")
+          f"tensor-core K11 kernels at hd 64 and 128: "
+          f"{build.REPORTS['flash_attention'][-2000:]}")
     lib = build.library_path("flash_attention")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
@@ -966,7 +1128,6 @@ def flash_attention_phase() -> dict:
     returns the records by case."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.bench import time_ms
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1005,8 +1166,7 @@ def flash_attention_phase() -> dict:
               f"{where} disagrees with its plain version")
         rec = {"max_abs_err": float(err.max()), "tol": float(tol.max()),
                "tol_rule": ATTN_TOL_RULE, "err_over_tol": over,
-               "kernel_route": route, "block_k": bk,
-               "plain_ms": time_ms(plain, n=3, warmup=1), "library_ms": None}
+               "kernel_route": route, "block_k": bk}
         if Tq == Tk:
             # The library column: SDPA on (B, H, T, hd) views of the same
             # tensors (its causal mask is the same one when Tq == Tk),
@@ -1017,19 +1177,14 @@ def flash_attention_phase() -> dict:
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
 
-            rounds = [(time_ms(kern, n=20, warmup=3),
-                       time_ms(sdpa, n=20, warmup=3)) for _ in range(2)]
-            rec["ms_rounds"] = [r[0] for r in rounds]
-            rec["library_ms_rounds"] = [r[1] for r in rounds]
-            rec["ms"] = sum(rec["ms_rounds"]) / len(rounds)
-            rec["library_ms"] = sum(rec["library_ms_rounds"]) / len(rounds)
+            rec.update(timed(kern, plain, sdpa))
             rec["note"] = ("library_ms is torch.nn.functional.scaled_dot_"
                            "product_attention(is_causal=True, enable_gqa="
                            "True), timed only, in turns with the kernel; "
                            "max |SDPA − K11| "
                            f"{float((sdpa().transpose(1, 2) - a).abs().max())}")
         else:
-            rec["ms"] = time_ms(kern, n=20, warmup=3)
+            rec.update(timed(kern, plain))
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         flops = 4.0 * hd * B * H * attn_pairs(Tq, Tk)
         rec["bound"] = bound_ms(
@@ -1037,10 +1192,9 @@ def flash_attention_phase() -> dict:
             flops, rate)
         rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
         rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
-        print(f"{where}: {rec['ms']:.4f} ms (rounds "
-              f"{rec.get('ms_rounds')}); plain {rec['plain_ms']:.4f} ms; "
-              f"SDPA {rec['library_ms']} ms (rounds "
-              f"{rec.get('library_ms_rounds')}); bound {rec['bound'][0]:.5f}"
+        print(f"{where}: {rec['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+              f"SDPA {rec['library_ms']} ms (rounds {rec['rounds']}); bound "
+              f"{rec['bound'][0]:.5f}"
               f" ms ({rec['bound'][1]}); {rec['tflop_per_s']:.1f} TFLOP/s, "
               f"{100 * rec['share_of_bound']:.1f} % of the bound")
         records[label] = rec
@@ -1215,7 +1369,94 @@ def print_step(label: str, step: dict) -> None:
           f"staging (pinned copy + H2D) {step['host_staging_ms']:.3f} ms")
 
 
+def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
+    """The redesigned K3 and K5 in turns with the same C entry points built
+    from another checkout's sources (``--against DIR``, e.g. the parent
+    commit unpacked with ``git archive``): the same wrapper and inputs as
+    the kernels line's rows, each from a CUDA graph (``bench.graph_ms``),
+    two rounds in turns; the two builds' outputs must agree bit for bit
+    (the redesign keeps every sum's order)."""
+    import ctypes
+    import numpy as np
+    import torch
+    from repro_torch.bench import graph_ms
+    from repro_torch.core.metabatch import block_layout
+    from repro_torch.kernels import build
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import graph_reg_bsp as bsp
+
+    out_dir = build.build_dir() / "against"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    entries = {"graph_reg": (gr, "graph_reg_bwd_dw"),
+               "graph_reg_bsp": (bsp, "graph_reg_bsp_bterm")}
+
+    def compile_one(src: str) -> Path:
+        lib = out_dir / f"lib{src}.so"
+        proc = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(root / "src" / "repro_torch" / "csrc" / f"{src}.cu")],
+            capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed on {root}'s {src}.cu:\n"
+              f"{proc.stderr}")
+        return lib
+
+    with concurrent.futures.ThreadPoolExecutor(len(entries)) as pool:
+        paths = dict(zip(entries, pool.map(compile_one, entries)))
+    libs = {}
+    for src, (module, fn_name) in entries.items():
+        lib = ctypes.CDLL(str(paths[src]))
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(module._SIGNATURES[fn_name])
+        fn.restype = ctypes.c_int
+        libs[src] = lib
+
+    B, C = W_path.shape[0], 39
+    logp3, _, g3 = kernel_inputs(B, C, W_path, seed=B)
+    p3 = torch.exp(logp3)
+    logp5, W5, _ = kernel_inputs(B, C, W_path, seed=B + 1)
+    p5 = torch.exp(logp5)
+    lay = block_layout(W_path, LAYOUT_BT)
+    crows, ccols, cvalid = (torch.from_numpy(a)[None].cuda()
+                            for a in lay.arrays()[3:6])
+    calls = {"graph_reg": lambda: gr.reg_bwd_dw(logp3, g3, gamma, gamma,
+                                                p=p3),
+             "graph_reg_bsp": lambda: bsp.bsp_bwd_bterm(
+                 logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5)}
+    records = {}
+    for src, (module, fn_name) in entries.items():
+        own = module._lib
+
+        def run_other(fn=calls[src], module=module, lib=libs[src], own=own):
+            module._lib = lambda: lib
+            try:
+                return fn()
+            finally:
+                module._lib = own
+
+        this, other = calls[src](), run_other()
+        torch.cuda.synchronize()
+        check(torch.equal(this, other), f"{fn_name}: this checkout's kernel "
+              f"and {root}'s differ")
+        rounds = {"ms": [], "against_ms": []}
+        for _ in range(2):
+            rounds["ms"].append(graph_ms(calls[src]))
+            rounds["against_ms"].append(graph_ms(run_other))
+        rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+        rec["rounds"] = rounds
+        print(f"{fn_name} [path, CUDA graphs, in turns]: this checkout "
+              f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
+              f"(rounds {rounds}); outputs equal bit for bit")
+        records[fn_name] = rec
+    return records
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, default=None, metavar="DIR",
+                    help="also time the redesigned K3 and K5 in turns with "
+                         "the same entry points built from DIR's sources")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1242,6 +1483,7 @@ def main() -> int:
 
     build_all()
     fa_build = flash_attention_build_report()
+    redesign_build = redesign_build_report()
     t0 = time.time()
     exp = Experiment(paper_config(), device="cuda").build()
     P = exp.pipeline.__self__.pad
@@ -1253,7 +1495,12 @@ def main() -> int:
     W_path = real_block(exp, P)
     records = kernel_phase(W_path, obj.gamma, obj.kappa)
     records.update(bsp_kernel_phase(W_path, obj.gamma, obj.kappa))
+    redesign_cases_phase(P)
+    against = ({} if args.against is None else
+               against_phase(args.against.resolve(), W_path, obj.gamma,
+                             obj.kappa))
     records["knn_topk"] = knn_kernel_phase(exp.corpus.X, exp.config.graph.k)
+    knn_kernel_phase(exp.corpus.X, 40, with_times=False)   # lists past one warp
     rows_x = exp.corpus.X[block_rows(exp, P)]
     records["rbf_affinity"] = rbf_kernel_phase(rows_x, exp.graph.sigma)
     records["graph_reg_pairwise"] = pairwise_reg_phase(W_path)
@@ -1285,6 +1532,10 @@ def main() -> int:
           f"{sparse['row']['loss/total']!r}; eval/acc: dense "
           f"{dense['row']['eval/acc']!r}, block-sparse "
           f"{sparse['row']['eval/acc']!r}")
+    # Exact occupancy skips only exact zeros, and K4-K6 sum in K1's and
+    # K2's order: the epoch's loss is the dense one bit for bit.
+    check(sparse["row"]["loss/total"] == dense["row"]["loss/total"],
+          "the block-sparse epoch's loss/total is not the dense one's")
     w_grad_bsp = w_grad_path(W_path, obj.gamma, obj.kappa,
                              layout_bt=LAYOUT_BT)
     dev_graph = train_phase(graph["exp"], ("graph_reg_fwd",
@@ -1306,6 +1557,19 @@ def main() -> int:
           f"{attn['path bf16']['ms'] * serve['counts']['flash_attention']:.3f}"
           f" ms of the {serve['prefill_ms']:.3f} ms prefill (kernel phase "
           f"time × launches)")
+
+    for name in REDESIGNED:
+        rec = records[name]
+        rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+        print(f"{name} (redesigned): {rec['ms']:.5f} ms against "
+              f"{rec['library']} {rec['library_ms']:.5f} ms in the same "
+              f"call; bound {rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
+              f"{100 * rec['share_of_bound']:.1f} % of it; "
+              f"{redesign_build[name]['registers']} registers, "
+              f"{redesign_build[name]['spill_bytes']} bytes spilled")
+    print(f"graph_reg_bsp_bterm dynamic shared memory at the path's shape "
+          f"(from the library): "
+          f"{records['graph_reg_bsp_bterm']['dynamic_smem_bytes']} bytes")
 
     from repro_torch.kernels import (flash_attention, graph_reg,
                                      graph_reg_bsp, pairwise)
@@ -1338,7 +1602,7 @@ def main() -> int:
             "err_over_tol": rec["err_over_tol"],
             "ms": rec["ms"], "kernel_ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": rec.get("library_ms"),
+            "library_ms": rec["library_ms"], "rounds": rec["rounds"],
             **({"kernel_route": rec["kernel_route"],
                 "block_k": rec["block_k"],
                 "tflop_per_s": rec["tflop_per_s"],
@@ -1347,6 +1611,13 @@ def main() -> int:
                 "spill_bytes": fa_build[128]["spill_bytes"],
                 "hgmma_instructions": fa_build["hgmma"]}
                if name == "flash_attention" else {}),
+            **({**redesign_build[name], "library": rec["library"],
+                "share_of_bound": rec["share_of_bound"],
+                **({"dynamic_smem_bytes": rec["dynamic_smem_bytes"]}
+                   if "dynamic_smem_bytes" in rec else {}),
+                **({"against": {"dir": str(args.against),
+                                **against[name]}} if against else {})}
+               if name in redesign_build else {}),
             **({"note": rec["note"]} if "note" in rec else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -113,9 +113,9 @@ class Experiment:
                 partitioner=PARTITIONER.get(cfg.partition.method),
                 coarsen_to=cfg.partition.coarsen_to)
         factory = PIPELINE.get(cfg.batch.pipeline)
-        # The static meta-batch pipeline never replans, so no replan
-        # supervisor is needed (supervisor=None); the stream pipeline then
-        # degrades to a kept plan on its first failed replan.
+        # The stream pipeline retries a failed replan under the replan
+        # supervisor, as in the reference; fault injection belongs to the
+        # engine-extras slice (``train_dnn_ssl`` refuses an injector).
         self.pipeline = factory(
             self.corpus, self.graph, self.plan,
             batch_size=cfg.batch.batch_size,
@@ -130,12 +130,26 @@ class Experiment:
             coarsen_to=cfg.partition.coarsen_to,
             shuffle_blocks=cfg.batch.shuffle_blocks,
             hierarchy_cache=self._hierarchy_cache(),
-            supervisor=None,
+            supervisor=self._replan_supervisor(),
             fault_injector=None,
             record_indices=False,
             layout_bt=cfg.batch.layout_bt)
         self._built = True
         return self
+
+    def _replan_supervisor(self):
+        """The reference's supervisor for the stream's replan builder:
+        ``None`` when retries are configured off (the stream then degrades
+        on the first failure), else retries with backoff and the
+        ``replan_hang_timeout`` watchdog."""
+        r = self.config.resilience
+        if r.max_retries <= 0:
+            return None
+        from repro_torch.resilience.supervisor import RetryPolicy, Supervisor
+        return Supervisor(RetryPolicy(
+            max_retries=r.max_retries, backoff_base=r.backoff_base,
+            backoff_max=r.backoff_max, hang_timeout=r.replan_hang_timeout,
+            seed=r.seed), name="replan")
 
     def _hierarchy_cache(self):
         """The reference's ``HierarchyCache`` choice for hierarchy-reuse

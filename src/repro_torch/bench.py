@@ -1,5 +1,6 @@
 """Measurements of the port on the GPU: the paper's configuration, kernel
-timing with CUDA events, a profiled training step and a profiled serve.
+timing from CUDA graphs and with CUDA events, a profiled training step and
+a profiled serve.
 
     PYTHONPATH=src python -m repro_torch.bench [--steps 5] [--out DIR]
                                                [--layout-bt 128]
@@ -19,7 +20,8 @@ batch 4, prompt 2048): one prefill and ``--steps`` greedy decode steps,
 device time by group (matmuls, K11, everything else), the device's busy
 share of each window, and the peak device memory of each; the kernel
 table goes to ``DIR/serve_profile.txt``.  Needs a GPU; ``chip_smoke.py``
-imports :func:`paper_config` and :func:`time_ms` from here.
+imports :func:`paper_config`, :func:`time_ms` and :func:`graph_ms` from
+here.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["paper_config", "time_ms", "profile_step", "profile_serve"]
+__all__ = ["paper_config", "time_ms", "graph_ms", "profile_step",
+           "profile_serve"]
 
 #: Names of this package's kernels in a profiler trace: K1–K3 and the
 #: block-sparse K4–K7.
@@ -72,6 +75,42 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int | None = None, reps: int = 3) -> float:
+    """Device time of one ``fn()`` from a CUDA graph of ``n`` back-to-back
+    calls, replayed ``reps`` times between CUDA events: no host time
+    between the launches, so a kernel shorter than its wrapper's Python
+    and launch overhead is timed, not the host.  ``fn`` is warmed up on a
+    side stream first (three calls, the last one timed); ``n`` defaults to
+    the number of calls that fills about 10 ms a replay, 2 to 50.  ``fn``
+    runs ``n + 3`` times, and launch counters advance by as much."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.current_stream().wait_stream(side)
+    if n is None:
+        end.synchronize()
+        n = min(50, max(2, round(10.0 / max(start.elapsed_time(end), 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def _group(name: str) -> str:

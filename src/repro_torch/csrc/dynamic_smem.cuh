@@ -1,0 +1,40 @@
+// Dynamic shared memory past the default allowance, used by K5
+// (graph_reg_bsp.cu) and K8 (pairwise.cu).  A kernel may take 48 KB of
+// shared memory, static and dynamic together, unless it first raises its
+// cudaFuncAttributeMaxDynamicSharedMemorySize on the current device.
+// allow_dynamic_smem<kernel>(bytes) raises it only when a launch needs
+// more than the device allows the kernel now, and keeps that allowance
+// per device, so a launch of a shape that has run before (also one under
+// stream capture) calls no attribute function.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSmemMaxDevices = 64;
+
+template <auto kKernel>
+cudaError_t allow_dynamic_smem(size_t bytes) {
+    static bool known[kSmemMaxDevices];
+    static size_t allowed[kSmemMaxDevices];   // dynamic bytes, per device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kSmemMaxDevices) return cudaErrorInvalidDevice;
+    if (!known[dev]) {
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, kKernel);
+        if (err != cudaSuccess) return err;
+        allowed[dev] = static_cast<size_t>(attr.maxDynamicSharedSizeBytes);
+        known[dev] = true;
+    }
+    if (bytes <= allowed[dev]) return cudaSuccess;
+    err = cudaFuncSetAttribute(kKernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err == cudaSuccess) allowed[dev] = bytes;
+    return err;
+}
+
+}  // namespace

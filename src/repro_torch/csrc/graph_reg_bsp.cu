@@ -24,15 +24,18 @@
 // The TPU kernels walk a list as one ordered grid, find a strip's first and
 // last entries from the neighbouring entries, and keep scratch alive from
 // one grid step to the next.  CUDA blocks run in no order, so here a block
-// owns a 32-row piece of one tile strip (bt must be a multiple of 32),
-// binary-searches its strip's range in the sorted major coordinate, and
-// loops over those entries in list order; entries with valid=0 (sentinels
-// and tail padding) add nothing.  Inside an entry the loops are the dense
-// kernels' (64-column pieces and 16-class chunks for K4, 32-row pieces and
-// 64-class chunks for K5/K6), so on a full mask with bt a multiple of 64
-// every sum runs in the dense kernels' order.  No float atomics: every
-// output element and partial has one writer, and repeats are bit-identical.
+// owns a piece of one tile strip (32 rows for K4, K6 and K7, 8 for K5; bt
+// must be a multiple of 32), binary-searches its strip's range in the
+// sorted major coordinate, and loops over those entries in list order;
+// entries with valid=0 (sentinels and tail padding) add nothing.  Inside
+// an entry the sums run in the dense kernels' order (64-column pieces and
+// 16-class chunks for K4, j increasing for K5 and K6), so on a full mask
+// with bt a multiple of 64 K4 equals K1 and K5∘K6 equals K2 bit for bit.
+// No float atomics: every output element and partial has one writer, and
+// repeats are bit-identical.
 
+#include "cp_async.cuh"
+#include "dynamic_smem.cuh"
 #include "graph_reg_tiles.cuh"
 
 namespace {
@@ -117,72 +120,225 @@ bsp_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
     if (tid == 0) partials[(int64_t)z * gridDim.x + blockIdx.x] = total;
 }
 
-// K5: one block per (32-row piece of the output, worker).  Output rows i
-// are W's columns, so the block walks the column-major list of its column
-// strip and reads each listed W[j, i] piece coalesced along i, transposed
-// in shared memory, as K2 reads W^T.
-__global__ void __launch_bounds__(kThreads)
+// K5: bterm[i, c] = sum_j W[j, i] P[j, c] over the tiles of i's column
+// strip, in list order, j increasing inside a tile: each output starts at
+// +0 and adds one fmaf per j, the order of K2's W^T P.  Every output is a
+// serial chain as long as its strip (up to ~900 j at the path's shape),
+// so the kernel is bound by how fast the warps walk their chains and by
+// the latency of what feeds them, not by HBM (3.9 MB of listed W tiles
+// at the path's shape).  The design:
+//
+// * one block per (8 output rows, class chunk of up to 128, worker):
+//   272 blocks at the path's B = 2176, two per SM, a heavy strip spread
+//   over 16 of them.  A thread owns one row and four classes (C = 39
+//   pads to 40, not to 64); it reads its steps eight at a time, all the
+//   shared-memory reads first, so one read latency covers eight FMAs of
+//   each of its four chains;
+// * warp 0 finds the strip's [lo, hi) with a pivot per lane a round (two
+//   rounds for lists up to ~1,000 entries, where a binary search takes
+//   ~20 dependent loads) and compacts the valid entries' tile rows, in
+//   list order, into shared memory: the pipeline reads no index from
+//   global memory;
+// * the strip's (tile, 32-row piece) sequence streams through a ring of
+//   kBtStages shared-memory stages filled with cp.async (16-byte copies
+//   where rows are 16-byte aligned, 4-byte copies otherwise), so the
+//   loads of the next seven pieces are in flight while one is summed;
+//   rows past a tile's end and columns and classes past B and C are
+//   zero-filled by the copy (src-size 0), with no division in the loops;
+// * W is read once per class chunk (once at C <= 128), 32 bytes per W
+//   row, a whole sector; P rows come from L2.
+//
+// No split of j and no atomics: repeats are bit-identical.
+constexpr int kBtRows = 8;       // output rows (W columns) per block
+constexpr int kBtPiece = 32;     // W rows (j) per pipeline stage
+constexpr int kBtStages = 8;     // depth of the cp.async ring
+constexpr int kBtMaxQuads = 32;  // class chunk: at most 128 classes
+
+// Floats of one ring stage: the W piece (kBtPiece x kBtRows) and the P
+// piece (kBtPiece x 4*quads); a multiple of 4, so every stage and every
+// P row is 16-byte aligned.
+__host__ __device__ __forceinline__ int bterm_stage_floats(int quads) {
+    return kBtPiece * (kBtRows + 4 * quads);
+}
+
+// Entries of a strip's compacted tile list: a layout lists each tile at
+// most once, so a strip holds at most nt valid entries (and at most T).
+__host__ __device__ __forceinline__ int bterm_list_cap(int B, int T, int bt) {
+    return min(T, (B + bt - 1) / bt);
+}
+
+// Run by the first warp (its `lanes` threads, all of the block's if
+// fewer than 32): the entries [lo, hi) of tile line `line` in the list
+// sorted by `major`.  Each round probes `lanes` pivots of the remaining
+// range for both bounds at once and keeps the interval that holds each.
+__device__ __forceinline__ void warp_line_range(const int* __restrict__ major,
+                                                int T, int line, int lanes,
+                                                unsigned mask, int& lo,
+                                                int& hi) {
+    const int lane = threadIdx.x & 31;
+    int a[2] = {0, 0}, b[2] = {T, T};
+    while (b[0] - a[0] > lanes || b[1] - a[1] > lanes) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+            const int n = b[s] - a[s];
+            if (n <= lanes) continue;                 // uniform
+            auto pivot = [&](int t) {
+                return a[s] + static_cast<int>((int64_t)(t + 1) * n /
+                                               (lanes + 1));
+            };
+            const int cnt = __popc(__ballot_sync(
+                mask, major[pivot(lane)] < line + s));
+            const int na = cnt ? pivot(cnt - 1) + 1 : a[s];
+            b[s] = cnt < lanes ? pivot(cnt) : b[s];
+            a[s] = na;
+        }
+    }
+    int res[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+        res[s] = a[s] + __popc(__ballot_sync(
+            mask, a[s] + lane < b[s] && major[a[s] + lane] < line + s));
+    lo = res[0];
+    hi = res[1];
+}
+
+__global__ void __launch_bounds__(kBtRows * kBtMaxQuads)
 bsp_bwd_bterm(const float* __restrict__ P, const float* __restrict__ W,
               const int* __restrict__ crows, const int* __restrict__ ccols,
               const int* __restrict__ cvalid, int B, int C, int T, int bt,
-              float* __restrict__ bterm) {
-    __shared__ float WTs[kBwdCols][kBwdRows + 1];   // W[j, i], j-major
-    __shared__ float Pj[kBwdCols][kClassW + 1];
-    const int z = blockIdx.z, i0 = blockIdx.x * kBwdRows;
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
+              int vec_w, int vec_p, float* __restrict__ bterm) {
+    extern __shared__ __align__(16) float ring[];
+    __shared__ int n_tiles;
+    const int quads = blockDim.x / kBtRows;
+    const int z = blockIdx.z, i0 = blockIdx.x * kBtRows;
+    const int c0 = blockIdx.y * 4 * kBtMaxQuads;
+    const int tid = threadIdx.x, r = tid / quads, q = tid - r * quads;
     const int nt = (B + bt - 1) / bt;
+    const int stage_floats = bterm_stage_floats(quads);
+    // The strip's valid tile rows, in list order.
+    const int cap = bterm_list_cap(B, T, bt);
+    int* jts = reinterpret_cast<int*>(ring + kBtStages * stage_floats);
     P += (int64_t)z * B * C;
     W += (int64_t)z * B * B;
     bterm += (int64_t)z * B * C;
     crows += (int64_t)z * T;
     ccols += (int64_t)z * T;
     cvalid += (int64_t)z * T;
-    int lo, hi;
-    line_range(ccols, T, i0 / bt, lo, hi);
 
-    for (int c0 = 0; c0 < C; c0 += kClassW) {
-        float Bt[4][2] = {};
-        for (int t = lo; t < hi; ++t) {
-            const int jt = crows[t];
-            if (cvalid[t] != 1 || jt < 0 || jt >= nt) continue;
-            const int j1 = min((jt + 1) * bt, B);
-            for (int j0 = jt * bt; j0 < j1; j0 += kBwdCols) {
-                for (int e = tid; e < kBwdCols * kBwdRows; e += kThreads) {
-                    const int jj = e / kBwdRows, ii = e % kBwdRows;
-                    const bool ok = (i0 + ii < B) && (j0 + jj < j1);
-                    WTs[jj][ii] = ok ? W[(int64_t)(j0 + jj) * B + i0 + ii] : 0.f;
-                }
-                for (int e = tid; e < kBwdCols * kClassW; e += kThreads) {
-                    const int jj = e / kClassW, cc = e % kClassW;
-                    const bool ok = (j0 + jj < j1) && (c0 + cc < C);
-                    Pj[jj][cc] = ok ? P[(int64_t)(j0 + jj) * C + c0 + cc] : 0.f;
-                }
-                __syncthreads();
-#pragma unroll 8
-                for (int jj = 0; jj < kBwdCols; ++jj) {
-                    float wt[4], pv[2];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r) wt[r] = WTs[jj][ty + 8 * r];
-#pragma unroll
-                    for (int c = 0; c < 2; ++c) pv[c] = Pj[jj][tx + 32 * c];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 2; ++c)
-                            Bt[r][c] = fmaf(wt[r], pv[c], Bt[r][c]);
-                }
-                __syncthreads();
+    if (tid < 32) {
+        const int lanes = min(32, static_cast<int>(blockDim.x));
+        const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1;
+        const int lane = tid;
+        int lo, hi, n = 0;
+        warp_line_range(ccols, T, i0 / bt, lanes, mask, lo, hi);
+        for (int e0 = lo; e0 < hi; e0 += lanes) {
+            const int e = e0 + lane;
+            const int jt = e < hi ? crows[e] : -1;
+            const bool ok = e < hi && cvalid[e] == 1 && jt >= 0 && jt < nt;
+            const unsigned m = __ballot_sync(mask, ok);
+            const int at = n + __popc(m & ((1u << lane) - 1));
+            if (ok && at < cap) jts[at] = jt;   // more: a tile listed twice
+            n += __popc(m);
+        }
+        if (lane == 0) n_tiles = min(n, cap);
+    }
+    __syncthreads();
+    const int n = n_tiles;
+
+    // The strip's pieces in order: rows [j0, j0 + 32) of the tile that
+    // ends at j1.  Uniform across the block.
+    int u = 0, j0 = 0, j1 = 0;
+    auto next_piece = [&](int& pj0, int& pj1) -> bool {
+        if (j0 >= j1) {
+            if (u >= n) return false;
+            j0 = jts[u++] * bt;
+            j1 = min(j0 + bt, B);
+        }
+        pj0 = j0;
+        pj1 = j1;
+        j0 += kBtPiece;
+        return true;
+    };
+    auto load_piece = [&](int stage, int pj0, int pj1) {
+        float* Ws = ring + stage * stage_floats;     // [kBtPiece][kBtRows]
+        float* Ps = Ws + kBtPiece * kBtRows;         // [kBtPiece][4*quads]
+        if (vec_w) {
+            for (int e = tid; e < kBtPiece * 2; e += blockDim.x) {
+                const int jj = e >> 1, ii = (e & 1) * 4;
+                const bool ok = pj0 + jj < pj1 && i0 + ii < B;
+                cp_async16(Ws + jj * kBtRows + ii,
+                           ok ? W + (int64_t)(pj0 + jj) * B + i0 + ii : W,
+                           ok ? 16 : 0);
+            }
+        } else {
+            for (int e = tid; e < kBtPiece * kBtRows; e += blockDim.x) {
+                const int jj = e >> 3, ii = e & (kBtRows - 1);
+                const bool ok = pj0 + jj < pj1 && i0 + ii < B;
+                cp_async4(Ws + e,
+                          ok ? W + (int64_t)(pj0 + jj) * B + i0 + ii : W,
+                          ok ? 4 : 0);
             }
         }
+        const int cq = c0 + 4 * q;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int i = i0 + ty + 8 * r;
+        for (int m = 0; m < kBtPiece / kBtRows; ++m) {
+            const int jj = r + m * kBtRows;
+            const bool row_ok = pj0 + jj < pj1;
+            const float* src = P + (int64_t)(pj0 + jj) * C + cq;
+            float* dst = Ps + jj * 4 * quads + 4 * q;
+            if (vec_p) {
+                const bool ok = row_ok && cq < C;
+                cp_async16(dst, ok ? src : P, ok ? 16 : 0);
+            } else {
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const int cc = c0 + tx + 32 * c;
-                if (i < B && cc < C) bterm[(int64_t)i * C + cc] = Bt[r][c];
+                for (int e = 0; e < 4; ++e) {
+                    const bool ok = row_ok && cq + e < C;
+                    cp_async4(dst + e, ok ? src + e : P, ok ? 4 : 0);
+                }
             }
         }
+    };
+
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int issued = 0, pj0, pj1;
+    for (int s = 0; s < kBtStages - 1; ++s) {
+        if (next_piece(pj0, pj1)) load_piece(issued++ % kBtStages, pj0, pj1);
+        cp_async_commit();
+    }
+    for (int it = 0; it < issued; ++it) {
+        cp_async_wait<kBtStages - 2>();
+        __syncthreads();   // piece `it` landed; stage (it - 1) % S is free
+        if (next_piece(pj0, pj1)) load_piece(issued++ % kBtStages, pj0, pj1);
+        cp_async_commit();
+        const float* Ws = ring + (it % kBtStages) * stage_floats + r;
+        const float4* Ps = reinterpret_cast<const float4*>(
+            ring + (it % kBtStages) * stage_floats + kBtPiece * kBtRows) + q;
+        // Eight j at a time: every shared-memory read first, into
+        // registers of their own, then the FMAs.
+#pragma unroll
+        for (int j8 = 0; j8 < kBtPiece; j8 += 8) {
+            float w[8];
+            float4 pv[8];
+#pragma unroll
+            for (int v = 0; v < 8; ++v) {
+                w[v] = Ws[(j8 + v) * kBtRows];
+                pv[v] = Ps[(j8 + v) * quads];
+            }
+#pragma unroll
+            for (int v = 0; v < 8; ++v) {
+                acc[0] = fmaf(w[v], pv[v].x, acc[0]);
+                acc[1] = fmaf(w[v], pv[v].y, acc[1]);
+                acc[2] = fmaf(w[v], pv[v].z, acc[2]);
+                acc[3] = fmaf(w[v], pv[v].w, acc[3]);
+            }
+        }
+    }
+    const int i = i0 + r;
+    if (i >= B) return;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * q + e;
+        if (c < C) bterm[(int64_t)i * C + c] = acc[e];
     }
 }
 
@@ -343,16 +499,35 @@ int graph_reg_bsp_fwd(const void* p, const void* logp, const void* W,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Dynamic shared memory of one K5 launch: the cp.async ring (kBtStages
+// stages of 32 W rows x (8 columns + the class chunk)) and the strip's
+// compacted tile list.
+int graph_reg_bsp_bterm_smem(int B, int C, int T, int bt) {
+    const int quads = min((C + 3) / 4, kBtMaxQuads);
+    return static_cast<int>(sizeof(float) * kBtStages *
+                                bterm_stage_floats(quads) +
+                            sizeof(int) * bterm_list_cap(B, T, bt));
+}
+
 int graph_reg_bsp_bterm(const void* p, const void* W, const void* crows,
                         const void* ccols, const void* cvalid, int k, int B,
                         int C, int T, int bt, void* bterm, void* stream) {
     if (bad_tile_edge(bt)) return static_cast<int>(cudaErrorInvalidValue);
-    const int n_strips = (B + kBwdRows - 1) / kBwdRows;
-    bsp_bwd_bterm<<<dim3(n_strips, 1, k), kThreads, 0,
+    const int chunks = (C + 4 * kBtMaxQuads - 1) / (4 * kBtMaxQuads);
+    const int quads = min((C + 3) / 4, kBtMaxQuads);
+    const size_t smem = graph_reg_bsp_bterm_smem(B, C, T, bt);
+    const cudaError_t err = allow_dynamic_smem<bsp_bwd_bterm>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte copies need 16-byte rows: B (resp. C) a multiple of 4 and
+    // an aligned base; the worker strides B*B and B*C then keep it.
+    const int vec_w = B % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+    const int vec_p = C % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    const dim3 grid((B + kBtRows - 1) / kBtRows, chunks, k);
+    bsp_bwd_bterm<<<grid, kBtRows * quads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(W),
         static_cast<const int*>(crows), static_cast<const int*>(ccols),
-        static_cast<const int*>(cvalid), B, C, T, bt,
+        static_cast<const int*>(cvalid), B, C, T, bt, vec_w, vec_p,
         static_cast<float*>(bterm));
     return static_cast<int>(cudaGetLastError());
 }

@@ -32,11 +32,15 @@
 // zero padding replaced by masks at the edges.  Bound by operations at the
 // meta-batch's shape (2*P*P*D flops).
 
+#include "dynamic_smem.cuh"
 #include "graph_reg_tiles.cuh"
 
 namespace {
 
-constexpr int kKMax = 32;   // largest k K8 takes; the wrapper checks it too
+// Largest k K8 takes; the wrapper checks it too.  The block's 32 running
+// lists of k (d2, j) pairs live in dynamic shared memory, 256·k bytes:
+// 64 KB at k = 256, above the 48 KB a launch gets without opting in.
+constexpr int kKMax = 256;
 
 // Thread (ty, tx) of xy_tile holds d2 of rows ty+8r and columns tx+32c of
 // the tile, so warp ty holds all 64 columns of its four rows: it merges
@@ -52,15 +56,16 @@ knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 float* __restrict__ out_d2, int* __restrict__ out_idx) {
     __shared__ float Xs[kChunk][kRows + 1];
     __shared__ float Ys[kChunk][kCols + 1];
-    __shared__ float best_d[kRows][kKMax];
-    __shared__ int best_i[kRows][kKMax];
+    extern __shared__ float lists[];            // best_d then best_i, row-major
+    float* best_d = lists;                      // (kRows, k)
+    int* best_i = reinterpret_cast<int*>(lists + kRows * k);
     const int i0 = blockIdx.x * kRows;
     const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
     const unsigned full = 0xffffffffu;
 
-    for (int e = tid; e < kRows * kKMax; e += kThreads) {
-        best_d[e / kKMax][e % kKMax] = 3.4e38f;
-        best_i[e / kKMax][e % kKMax] = -1;
+    for (int e = tid; e < kRows * k; e += kThreads) {
+        best_d[e] = 3.4e38f;
+        best_i[e] = -1;
     }
     float nxr[4];
 #pragma unroll
@@ -83,8 +88,8 @@ knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         for (int r = 0; r < 4; ++r) {
             const int row = ty + 8 * r, i = i0 + row;
             if (i >= N) continue;                 // uniform across the warp
-            float* bd = best_d[row];
-            int* bi = best_i[row];
+            float* bd = best_d + row * k;
+            int* bi = best_i + row * k;
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
                 const int j = j0 + tx + 32 * c;
@@ -112,9 +117,10 @@ knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
         const int row = ty + 8 * r, i = i0 + row;
-        if (i < N && tx < k) {
-            out_d2[(int64_t)i * k + tx] = best_d[row][tx];
-            out_idx[(int64_t)i * k + tx] = best_i[row][tx];
+        if (i >= N) continue;
+        for (int t = tx; t < k; t += 32) {
+            out_d2[(int64_t)i * k + t] = best_d[row * k + t];
+            out_idx[(int64_t)i * k + t] = best_i[row * k + t];
         }
     }
 }
@@ -158,7 +164,10 @@ int knn_topk(const void* x, const void* y, const void* nx, const void* ny,
     if (k < 1 || k > kKMax || k > M)
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_strips = (N + kRows - 1) / kRows;
-    knn_topk_kernel<<<n_strips, kThreads, 0,
+    const size_t lists = (size_t)kRows * k * (sizeof(float) + sizeof(int));
+    const cudaError_t err = allow_dynamic_smem<knn_topk_kernel>(lists);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    knn_topk_kernel<<<n_strips, kThreads, lists,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(nx), static_cast<const float*>(ny), N, M, D,

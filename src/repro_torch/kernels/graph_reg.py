@@ -32,9 +32,13 @@ f32 without tensor cores):
   W[j, i] as a coalesced tile, transposed in shared memory, for Wᵀ·P.  The
   Pallas wrapper's square re-padding of W becomes edge masks.
 * ``reg_bwd_dw`` — K3, replaces ``_reg_bwd_dw`` / ``_reg_bwd_dw_kernel``.
-  Writes the P×P dW once (18.9 MB, 5.7 µs): bound by bytes.  Output-tiled:
-  each block computes its 32×64 tile of P·logPᵀ over all classes and adds
-  ge·H_i.  Training never asks for it (W carries no gradient).
+  Writes the P×P dW once (18.9 MB, 5.7 µs) and does 2·P²·C flops (5.5
+  µs): bound by bytes, barely.  Output-tiled, redesigned for Hopper: each
+  block computes a 64×128 tile of P·logPᵀ from P and logP rows staged
+  once, class-major, in shared memory (4×8 values a thread), adds ge·H_i
+  (one entropy per row per block) and writes the tile with 16-byte
+  streaming stores.  Its sums are K7's, bit for bit.  Training never asks
+  for it (W carries no gradient).
 
 * ``reg_pairwise`` — K10, replaces ``graph_reg_pairwise_pallas`` /
   ``_graph_reg_kernel``: the bare cross term −Σ W⊙(P·logPᵀ) of one
@@ -42,8 +46,8 @@ f32 without tensor cores):
   degree and entropy terms, with K1's ordered second pass, so it equals
   K1 at (1, 0, 0); same bytes and bound as K1.
 
-All four are plain FMA loops in f32 (no TF32, no tensor cores): the first
-aim is agreement with the reference, speed is later work.  Each wrapper
+All four are FMA loops in f32 (no TF32, no tensor cores, whose sums would
+run in another order).  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``; :func:`launch_counts`
 reports them together with those of the block-sparse kernels K4–K7
 (:mod:`.graph_reg_bsp`), the graph-construction kernels K8–K9

@@ -24,23 +24,29 @@ and 67 TFLOP/s f32 without tensor cores):
   partial; a second launch sums the partials in strip order, as for K1.
 * ``bsp_bwd_bterm`` — K5, replaces ``_bsp_bwd`` pass 1 /
   ``_bsp_bterm_kernel``.  bterm = Wᵀ·P per output column strip over the
-  column-major list, reading each listed W tile transposed through shared
-  memory, as K2 reads Wᵀ.  Same bytes and flops as K4.
+  column-major list, j increasing as in K2's Wᵀ·P.  Same bytes and flops
+  as K4; bound in practice by the latency of each strip's serial sums.
+  Redesigned for Hopper: blocks of 8 output rows (272 at the path's
+  shape), the strip's list range found and compacted into shared memory
+  by one warp, its 32-row pieces of W and P streamed through an 8-stage
+  ``cp.async`` ring, the class chunk sized to C.
 * ``bsp_bwd_dlogp`` — K6, replaces ``_bsp_bwd`` pass 2 /
   ``_bsp_dlogp_kernel``.  W·logP and the degrees over the row-major list,
   folding in K5's bterm (a (k, B, C) buffer; the two launches are ordered
   on one stream).
 * ``bsp_bwd_dw`` — K7, replaces ``_bsp_bwd`` pass 3 / ``_bsp_dw_kernel``.
-  Writes the dense P×P dW (18.9 MB, 5.7 µs): bound by bytes.  K3's blocks,
-  with the S tile computed only where ``occ`` marks a tile occupied and
-  exact zeros written elsewhere.  Training never asks for it.
+  Writes the dense P×P dW (18.9 MB, 5.7 µs): bound by bytes.  32×64
+  blocks on the dense kernels' tile code, with the S tile computed only
+  where ``occ`` marks a tile occupied and exact zeros written elsewhere;
+  its values equal K3's bit for bit.  Training never asks for it.
 
 The kernels take any tile edge bt that is a positive multiple of 32 (a
 32-row block piece must lie in one tile strip); :func:`check_tile_edge`
 raises for any other, naming the rule.  The plain versions take any bt.
 On a full occupancy mask with bt a multiple of 64 the kernels repeat the
-dense kernels' sums in the same order (one copy of the tile code,
-``csrc/graph_reg_tiles.cuh``), so K4 equals K1 bit for bit.  Each wrapper
+dense kernels' sums in the same order, so K4 equals K1 (one copy of the
+tile code, ``csrc/graph_reg_tiles.cuh``), K5∘K6 equals K2 and K7 equals
+K3, bit for bit.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -54,7 +60,7 @@ from . import build, ref
 from .graph_reg import _checked, _dims, _on_cpu, _raise_on, _stream
 
 __all__ = ["bsp_forward", "bsp_bwd_bterm", "bsp_bwd_dlogp", "bsp_bwd_dw",
-           "check_tile_edge", "WRAPPERS", "SOURCE"]
+           "bterm_smem_bytes", "check_tile_edge", "WRAPPERS", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg_bsp.cu"
 
@@ -66,6 +72,7 @@ _SIGNATURES = {
     "graph_reg_bsp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _F, _F, _P, _P, _P),
     "graph_reg_bsp_bterm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "graph_reg_bsp_bterm_smem": (_I, _I, _I, _I),
     "graph_reg_bsp_dlogp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _F, _F, _P, _P),
     "graph_reg_bsp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P),
@@ -89,6 +96,12 @@ def check_tile_edge(bt: int) -> None:
             f"block-sparse kernels: tile edge bt={bt!r} is not a positive "
             f"multiple of 32 (a block owns 32 rows of one tile strip); "
             f"build the layout with such a BatchConfig.layout_bt")
+
+
+def bterm_smem_bytes(B: int, C: int, T: int, bt: int) -> int:
+    """Dynamic shared memory of one K5 launch at (B, C), list length T and
+    tile edge bt, as the launch computes it (builds the library)."""
+    return _lib().graph_reg_bsp_bterm_smem(B, C, T, bt)
 
 
 def _lists(k: int, **lists: torch.Tensor) -> list[int]:

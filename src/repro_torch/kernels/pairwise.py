@@ -21,7 +21,8 @@ tensor cores):
   its rows' distances from registers into a list in shared memory.  No
   N×M buffer exists, on the card or on the CPU path, which streams column
   chunks against a running (N, k) state (``knn_topk_stream_ref``).
-  ``k`` is at most :data:`K_MAX` on both devices.
+  On the card ``k`` is at most :data:`K_MAX` (the lists' shared memory);
+  on the CPU the plain version takes any k the reference takes.
 * ``rbf_affinity`` — K9, replaces ``rbf_affinity_pallas`` /
   ``_pairwise_kernel``.  ``exp(−sqrt(d2)/(2σ²))`` over the dense (N, M)
   block; 2·N·M·D flops: bound by operations at a meta-batch's shape.
@@ -47,9 +48,10 @@ __all__ = ["knn_topk", "rbf_affinity", "K_MAX", "WRAPPERS", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/pairwise.cu"
 
-#: Largest k the streaming top-k takes (``kKMax`` in ``csrc/pairwise.cu``):
-#: each row's running list lives in shared memory, one slot per lane.
-K_MAX = 32
+#: Largest k the streaming top-k kernel takes (``kKMax`` in
+#: ``csrc/pairwise.cu``): a block's 32 running lists of k (d2, index) pairs
+#: live in shared memory, 64 KB at k = 256.  The CPU path has no limit.
+K_MAX = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,11 +100,11 @@ def knn_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
     if not 0 < k <= limit:
         raise ValueError(f"k must be in [1, {limit}] for M={M} candidates "
                          f"(exclude_self={exclude_self}), got {k}")
+    if _on_cpu(x, y):
+        return ref.knn_topk_stream_ref(x, y, k, exclude_self=exclude_self)
     if k > K_MAX:
         raise ValueError(f"knn_topk: k={k} exceeds K_MAX={K_MAX}, the most "
                          f"the streaming top-k kernel keeps per row")
-    if _on_cpu(x, y):
-        return ref.knn_topk_stream_ref(x, y, k, exclude_self=exclude_self)
     refuse_pinned(tiles, "knn_topk")
     x, y, nx, ny = _operands(x, y)
     N, D = x.shape

@@ -88,10 +88,9 @@ def rbf_affinity_ref(x: torch.Tensor, y: torch.Tensor,
 
 def _mask_self(d2: torch.Tensor, col0: int) -> None:
     """Set d2[i, i - col0] to inf, in place, for every row i of the chunk
-    starting at column ``col0``."""
-    stop = min(d2.shape[0], col0 + d2.shape[1])
-    rows = torch.arange(col0, max(col0, stop), device=d2.device)
-    d2[rows, rows - col0] = torch.inf
+    starting at column ``col0`` (the diagonal at offset −col0; a fill, so
+    it can be captured in a CUDA graph)."""
+    d2.diagonal(-col0).fill_(torch.inf)
 
 
 def _smallest(d2: torch.Tensor, idx: torch.Tensor, k: int):

@@ -9,8 +9,8 @@ machine that has only PyTorch:
 Tolerance: the kernels and the plain versions (cuBLAS products) sum float32
 terms in different orders; rtol 2e-5 with an atol of 2e-5 of the largest
 magnitude.  Repeats must be bit-identical: the kernels use no atomics.  On
-a full occupancy mask the block-sparse K4 must equal the dense K1 bit for
-bit (same tile code, same order).  The graph-construction kernels K8 and
+a full occupancy mask the block-sparse K4, K5∘K6 and K7 must equal the
+dense K1, K2 and K3 bit for bit (the same sums in the same order).  The graph-construction kernels K8 and
 K9 hold squared distances to 1e-5·(‖x_i‖² + ‖y_j‖²), the scale of the
 float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal the
 plain version's except at such near ties, and exactly on integer inputs.
@@ -181,11 +181,69 @@ def test_block_sparse_kernels_match_plain_versions(cuda, B, C, bt, empty):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", [(1, 2176, 39), (2, 1000, 1),
+                                   (2, 1000, 39), (2, 1000, 100),
+                                   (1, 1001, 39)])
+def test_dw_kernel_matches_plain_version(cuda, k, B, C):
+    """The redesigned K3 (64 x 128 tiles, swizzled class-major staging,
+    16-byte streaming stores; scalar stores when B % 4 != 0)."""
+    logp = torch.stack([_problem(B, C, seed=s)[0] for s in range(k)])
+    logp = logp.to(cuda)
+    g = torch.tensor([0.5, -2.0][:k], device=cuda)
+    a, b = gr.reg_bwd_dw(logp, g, GAMMA, GAMMA), gr.reg_bwd_dw(logp, g,
+                                                              GAMMA, GAMMA)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a.cpu().numpy(), ref.reg_bwd_dw_ref(logp, g, GAMMA,
+                                               GAMMA).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [32, 64, 128])
+@pytest.mark.parametrize("k,B,C", [(2, 1000, 1), (2, 1000, 39),
+                                   (2, 1000, 100), (1, 1001, 39),
+                                   (1, 2176, 39)])
+def test_bterm_kernel_matches_plain_version(cuda, k, B, C, bt):
+    """The redesigned K5 (8-row blocks, a cp.async ring; 16-byte copies
+    where rows allow, 4-byte copies otherwise)."""
+    logp, W, arrays = _bsp_problem(B, C, bt, k=k, density=0.25,
+                                   empty_line=1)
+    logp, W = logp.to(cuda), W.to(cuda)
+    crows, ccols, cvalid = (a.to(cuda) for a in arrays[3:6])
+    a = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
+    b = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a.cpu().numpy(), ref.bsp_bwd_bterm_ref(
+        logp, W, crows, ccols, cvalid, bt).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_bterm_kernel_takes_a_long_list(cuda):
+    """K5 on a full mask at bt = 32 and C = 128 (the widest class chunk):
+    a 36,864-entry list whose strips hold 192 tiles each.  Its shared
+    memory holds one strip's tiles, not the whole list, so it stays
+    under the card's 227 KB."""
+    B, C, bt = 6144, 128, 32
+    logp, W, arrays = _bsp_problem(B, C, bt, k=1, density=2.0)
+    logp, W = logp.to(cuda), W.to(cuda)
+    crows, ccols, cvalid = (a.to(cuda) for a in arrays[3:6])
+    T = crows.shape[-1]
+    assert T >= (B // bt) ** 2
+    assert bsp.bterm_smem_bytes(B, C, T, bt) <= 227 * 1024
+    a = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
+    b = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a.cpu().numpy(), ref.bsp_bwd_bterm_ref(
+        logp, W, crows, ccols, cvalid, bt).cpu().numpy())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bt", [64, 128])
 def test_block_sparse_full_mask_equals_dense_kernels(cuda, bt):
-    """Full mask: K4 is K1 bit for bit; K5∘K6 and K7 agree with K2 and K3
-    within the tolerance (bit-identical where the compiler emits the same
-    code)."""
+    """Full mask: K4 is K1, K5∘K6 is K2 and K7 is K3, bit for bit (the
+    same sums in the same order, the same epilogues)."""
     logp, W, arrays = _bsp_problem(256, 39, bt, k=2, density=2.0)
     logp, W = logp.to(cuda), W.to(cuda)
     rows, cols, valid, crows, ccols, cvalid, occ = [a.to(cuda)
@@ -196,11 +254,11 @@ def test_block_sparse_full_mask_equals_dense_kernels(cuda, bt):
                                        KAPPA, GAMMA),
                        gr.reg_forward(logp, W, GAMMA, KAPPA, GAMMA))
     bterm = bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt)
-    _close(bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid, g, bt, GAMMA,
-                             KAPPA, GAMMA).cpu().numpy(),
-           gr.reg_bwd_dlogp(logp, W, g, GAMMA, KAPPA, GAMMA).cpu().numpy())
-    _close(bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, GAMMA).cpu().numpy(),
-           gr.reg_bwd_dw(logp, g, GAMMA, GAMMA).cpu().numpy())
+    assert torch.equal(bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid,
+                                         g, bt, GAMMA, KAPPA, GAMMA),
+                       gr.reg_bwd_dlogp(logp, W, g, GAMMA, KAPPA, GAMMA))
+    assert torch.equal(bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, GAMMA),
+                       gr.reg_bwd_dw(logp, g, GAMMA, GAMMA))
 
 
 @pytest.mark.cuda
@@ -283,7 +341,10 @@ def _check_knn(x, y, k, got, want):
                                         (130, 257, 100, 10, False),
                                         (33, 65, 7, 3, False),
                                         (300, 700, 64, 32, True),
-                                        (1000, 1000, 351, 10, True)])
+                                        (1000, 1000, 351, 10, True),
+                                        (300, 700, 64, 40, True),
+                                        (130, 600, 32, 256, False),
+                                        (257, 257, 16, 256, True)])
 def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
     x, y = (t.to(cuda) for t in _knn_inputs(N, M, D))
     before = pairwise.knn_topk.launches
@@ -300,11 +361,12 @@ def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 40])
 @pytest.mark.parametrize("ex", [False, True])
-def test_knn_topk_exact_ties_go_to_the_lowest_index(cuda, ex):
+def test_knn_topk_exact_ties_go_to_the_lowest_index(cuda, ex, k):
     x, y = (t.to(cuda) for t in _knn_inputs(150, 300, 4, integer=True))
-    d2, idx = pairwise.knn_topk(x, y, 12, exclude_self=ex)
-    pd, pi = ref.knn_topk_ref(x, y, 12, exclude_self=ex)
+    d2, idx = pairwise.knn_topk(x, y, k, exclude_self=ex)
+    pd, pi = ref.knn_topk_ref(x, y, k, exclude_self=ex)
     assert torch.equal(d2, pd) and torch.equal(idx, pi)
 
 
@@ -360,8 +422,11 @@ def test_graph_construction_kernels_refuse_pinned_tiles(cuda):
     with pytest.raises(ValueError, match="fixed block shapes"):
         ops.graph_reg_pairwise(logp.to(cuda), W.to(cuda),
                                tiles=TileSpec(bi=64))
+    # More rows than K_MAX + 1, so that K_MAX and not the candidate count
+    # refuses k = K_MAX + 1.
+    big = torch.randn(pairwise.K_MAX + 2, 8, device=cuda)
     with pytest.raises(ValueError, match="K_MAX"):
-        pairwise.knn_topk(x, x, pairwise.K_MAX + 1)
+        pairwise.knn_topk(big, big, pairwise.K_MAX + 1)
 
 
 def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):

@@ -111,3 +111,20 @@ def test_device_graph_construction_raises_until_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             tcore.build_affinity_graph(X, k=5, backend="device")
+
+
+def test_supervisor_copy_is_the_reference_module():
+    """``repro_torch/resilience/supervisor.py`` is the reference's module
+    with ``repro.`` imports rewritten (it has none), and its backoff
+    schedule is the reference's bit for bit."""
+    from pathlib import Path
+
+    import repro.resilience.supervisor as jsup
+    import repro_torch.resilience.supervisor as tsup
+    want = Path(jsup.__file__).read_text().replace("repro.", "repro_torch.")
+    assert Path(tsup.__file__).read_text() == want
+    for kw in ({}, {"seed": 7, "backoff_base": 0.1, "jitter": 0.25}):
+        jp, tp = jsup.RetryPolicy(**kw), tsup.RetryPolicy(**kw)
+        for key in ("replan@1", "prefetch"):
+            assert [tp.delay(key, a) for a in range(6)] == \
+                [jp.delay(key, a) for a in range(6)]

@@ -9,7 +9,9 @@ tensors is the plain version too.  Per-epoch means agree to ~3e-6 relative
 of near-zero gradients); they are held to rtol 1e-5.  The same holds for
 two epochs of ``Experiment`` with block-sparse batches (``layout_bt``).
 """
+import dataclasses
 import json
+import warnings
 
 import jax
 import numpy as np
@@ -181,3 +183,118 @@ def test_engine_stages_prefetch_batches_ahead(prefetch):
     assert seen == [(i, min(n, i + 1 + prefetch)) for i in range(n)]
     with pytest.raises(ValueError, match="prefetch"):
         Engine(step_fn, device=torch.device("cpu"), prefetch=-1)
+
+
+def _stream_config(**resilience):
+    from repro_torch.api import RepartitionConfig
+    return _tiny(batch=BatchConfig(batch_size=96, pipeline="metabatch_stream"),
+                 repartition=RepartitionConfig(every_n_epochs=1),
+                 resilience=ResilienceConfig(**resilience),
+                 train=TrainConfig(hidden_dim=32, n_hidden=2, n_epochs=2,
+                                   dropout=0.0))
+
+
+def _assert_same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if y is None:
+                assert x is None
+                continue
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
+def test_stream_replan_runs_under_the_reference_supervisor(monkeypatch):
+    """``metabatch_stream`` with a replan every epoch and the default
+    resilience: the port's stream holds the reference's replan supervisor,
+    re-plans epoch 1 to the reference's bits, and two epochs of
+    ``Experiment`` agree with the reference's (rtol 1e-5, from the same
+    initial params, dropout 0)."""
+    import repro.train.trainer as jtrainer
+    import repro_torch.train.trainer as ttrainer
+    from repro.api import Experiment as JExperiment
+    from repro.api import ExperimentConfig as JConfig
+    from repro.resilience.supervisor import Supervisor as JSupervisor
+    from repro_torch.convert import to_torch
+    from repro_torch.resilience import Supervisor
+
+    cfg = _stream_config()
+    assert cfg.resilience.max_retries == 3
+    inits = []
+
+    def capture(*a, **k):
+        inits.append(jax.device_get(jinit(*a, **k)))
+        return inits[-1]
+
+    monkeypatch.setattr(jtrainer, "init_dnn", capture)
+    jexp = JExperiment(JConfig.from_dict(cfg.to_dict()))
+    jres = jexp.run()
+    monkeypatch.setattr(ttrainer, "init_dnn",
+                        lambda *a, device=None, **k: to_torch(inits[0],
+                                                              device))
+    texp = Experiment(cfg, device="cpu")
+    tres = texp.run()
+    tstream, jstream = texp.pipeline.stream, jexp.pipeline.stream
+    assert isinstance(jstream.supervisor, JSupervisor)
+    assert isinstance(tstream.supervisor, Supervisor)
+    assert tstream.supervisor.name == "replan"
+    assert tstream.supervisor.policy.max_retries == 3
+    assert tstream.swaps == jstream.swaps == 1
+    assert tstream.plan is not texp.plan
+    _assert_same_batches(list(texp.pipeline(epoch=1, n_epochs=2)),
+                         list(jexp.pipeline(epoch=1, n_epochs=2)))
+    assert len(tres.history) == len(jres.history) == 2
+    for trow, jrow in zip(tres.history, jres.history):
+        for k in ("loss/total", "loss/supervised", "loss/graph", "loss/l2"):
+            np.testing.assert_allclose(trow[k], jrow[k], rtol=1e-5)
+
+
+@pytest.mark.parametrize("max_retries", [3, 0])
+def test_failed_replan_is_retried_as_in_the_reference(monkeypatch,
+                                                      max_retries):
+    """``_synthesize`` fails once in both packages: with retries on (the
+    default) the supervisor retries it and epoch 1 runs the new plan, bit
+    for bit the reference's; with ``max_retries=0`` both keep the old
+    plan."""
+    from repro.api import Experiment as JExperiment
+    from repro.api import ExperimentConfig as JConfig
+    from repro.data import pipeline as jpipe
+    from repro_torch.data import pipeline as tpipe
+
+    cfg = _stream_config(max_retries=max_retries)
+    texp = Experiment(cfg, device="cpu").build()
+    jexp = JExperiment(JConfig.from_dict(cfg.to_dict()),
+                       corpus=texp.corpus, eval_data=texp.eval_data)
+    calls = {}
+    for name, mod in (("port", tpipe), ("reference", jpipe)):
+        real = mod.MetaBatchStream._synthesize
+
+        def flaky(self, epoch, real=real, name=name):
+            calls[name] = calls.get(name, 0) + 1
+            if calls[name] == 1:
+                raise RuntimeError("injected replan failure")
+            return real(self, epoch)
+
+        monkeypatch.setattr(mod.MetaBatchStream, "_synthesize", flaky)
+    jexp.build()
+    epochs = {}
+    for name, exp in (("port", texp), ("reference", jexp)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            list(exp.pipeline(epoch=0, n_epochs=2))
+            epochs[name] = list(exp.pipeline(epoch=1, n_epochs=2))
+    tstream, jstream = texp.pipeline.stream, jexp.pipeline.stream
+    if max_retries:
+        assert calls == {"port": 2, "reference": 2}
+        assert tstream.swaps == jstream.swaps == 1
+        assert [(e["key"], e["attempt"], e["status"])
+                for e in tstream.supervisor.events()] == \
+            [("replan@1", 0, "retrying"), ("replan@1", 1, "recovered")]
+        assert tstream.supervisor.events() == jstream.supervisor.events()
+    else:
+        assert tstream.supervisor is None and jstream.supervisor is None
+        assert calls == {"port": 1, "reference": 1}
+        assert tstream.swaps == jstream.swaps == 0
+        assert tstream.plan is texp.plan
+    _assert_same_batches(epochs["port"], epochs["reference"])
