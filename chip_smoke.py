@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--against DIR]
 
-``--against DIR`` also builds K3's and K5's C entry points from another
-checkout's sources (DIR, e.g. the parent commit unpacked with ``git
-archive``) and times them in turns with this checkout's on the same
-inputs (phase 5).  Every kernel time below is the device time of one call
+``--against DIR`` also builds K1's, K2's, K3's, K5's and K10's C entry
+points from another checkout's sources (DIR, e.g. the parent commit
+unpacked with ``git archive``) and times them in turns with this
+checkout's on the same inputs, outputs equal bit for bit (phase 5).  Every kernel time below is the device time of one call
 from a CUDA graph of back-to-back calls (``bench.graph_ms``), the kernel,
 its plain version and the library call (where there is one) two rounds
 in turns; the wrappers are given p = exp(logp), as the training path
@@ -18,7 +18,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 2. build every CUDA source under ``src/repro_torch/csrc`` from this
    checkout, one ``nvcc`` per source, all started together; K11's
    tensor-core kernels and the redesigned K3 and K5 must report no
-   spills (``-Xptxas -v``, registers and shared memory printed) and the
+   spills, nor may the redesigned K1, K2 and K10 (``-Xptxas -v``,
+   registers and shared memory printed), and the
    library must hold ``HGMMA`` (tensor-core) instructions;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
@@ -46,10 +47,15 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    K3 beside ``addmm``; the redesigned K3 and K5 also at k = 2, ragged B
    (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
-   ``--against`` K3 and K5 built from DIR, which must give the same bits;
-   K8 (streaming top-k) on the whole corpus at k = 10 (the path's) and
-   k = 40 against the dense plain version (|Δd2| ≤ 1e-5·(‖x_i‖² +
-   ‖y_j‖²), indices equal except at near ties), K9 (RBF block) on the path's meta-batch rows with the graph's
+   ``--against`` K1, K2, K3, K5 and K10 built from DIR, which must give
+   the same bits; the redesigned K1 and K2 also at k in {1, 3}, B in
+   {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128}, and K10 == K1 at
+   (1, 0, 0) at B = 1001; K8 (streaming top-k) on the whole corpus at
+   k = 10 (the path's)
+   and k = 40 (shared-memory route), and at k = 300 on 4,000 rows and k =
+   1,000 on 2,000 rows (global route, timed), against the dense plain
+   version (|Δd2| ≤ 1e-5·(‖x_i‖² + ‖y_j‖²), indices equal except at near
+   ties), K9 (RBF block) on the path's meta-batch rows with the graph's
    sigma, K10 (bare cross term) on the path's block and a ragged one; each
    repeated bit for bit and timed beside its plain version and, for K8
    and K9, a PyTorch call (``mm`` and ``cdist``, which compute only the
@@ -71,7 +77,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    ``loss/total`` must equal the dense epoch's bit for bit; then its
    W-gradient path, which must launch K4, K5, K6 and K7 once;
 9. one epoch on the device-built graph: K1 and K2 once per step, K8 and
-   every other kernel 0 times;
+   every other kernel 0 times; then one on the host graph's edges and
+   plan with the device graph's weights, whose loss/total is compared
+   with the device epoch's (a measurement: the weights' round-off alone,
+   or not);
 10. a step breakdown of both paths (``repro_torch.bench.profile_step``
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
@@ -392,7 +401,9 @@ def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
                            idx[mis_r, mis_c].long()[:, None])[:, 0]
         tie = (alt - pd[mis_r, mis_c]).abs() <= D2_RTOL * scale[mis_r, mis_c]
         check(bool(tie.all()), "knn_topk: an index differs away from a tie")
-    print(f"knn_topk [N=M={N} D={D} k={k}]: max_abs_err={float(err.max()):.3e} "
+    print(f"knn_topk [N=M={N} D={D} k={k}, {pairwise.route(k)} route, "
+          f"lists in {pairwise.list_bytes(N, k)} bytes]: "
+          f"max_abs_err={float(err.max()):.3e} "
           f"err/tol={over:.3f} (tol {D2_RTOL:g}·(‖x_i‖²+‖y_j‖²)), "
           f"{len(mis_r)} indices differ from the plain version, all at near "
           f"ties, in {len(set(mis_r.tolist()))} rows")
@@ -406,7 +417,8 @@ def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
           f"sort) {times['plain_ms']:.3f} ms; no PyTorch call computes the "
           f"top-k without the N×N matrix: torch.mm(x, x.T) alone takes "
           f"{mm_ms:.3f} ms")
-    return {"max_abs_err": float(err.max()), "tol": D2_RTOL,
+    return {"route": pairwise.route(k), "max_abs_err": float(err.max()),
+            "tol": D2_RTOL,
             "tol_rule": f"|Δd2| ≤ tol·(‖x_i‖²+‖y_j‖²); indices equal but "
                         f"at near ties ({len(mis_r)} here)",
             "err_over_tol": over, **times,
@@ -495,9 +507,12 @@ def pairwise_reg_phase(W_path) -> dict:
         k1 = gr.reg_forward(logp[None], W[None], 1.0, 0.0, 0.0)[0]
         print(f"graph_reg_pairwise [{label}]: K10 {a.item()!r}, K1 at "
               f"(1, 0, 0) {k1.item()!r}, bit-identical {torch.equal(a, k1)}")
+        check(torch.equal(a, k1), f"K10 is not K1 at (1, 0, 0) bit for bit "
+              f"[{label} B={B}]")
         if label == "path":
             s_flops = 2.0 * B * B * C
             records = dict(rec, **timed(kern, plain),
+                           **gr.launch_plan("graph_reg_fwd", 1, B, C),
                            bound=bound_ms(4.0 * (B * B + 2 * B * C + 1),
                                           s_flops + 2.0 * B * B))
     return records
@@ -598,6 +613,8 @@ def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
             records["graph_reg_bwd_dw"]["library"] = "torch.addmm"
             f4 = 4.0
             s_flops = 2.0 * B * B * C
+            for name in ("graph_reg_fwd", "graph_reg_bwd_dlogp"):
+                records[name].update(gr.launch_plan(name, 1, B, C))
             records["graph_reg_fwd"]["bound"] = bound_ms(
                 f4 * (B * B + B * C + 1), s_flops + 2.0 * B * B + 4.0 * B * C)
             records["graph_reg_bwd_dlogp"]["bound"] = bound_ms(
@@ -747,7 +764,9 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
 
 
 def redesign_cases_phase(P: int) -> int:
-    """The redesigned K3 and K5 beyond the path's shape: k = 2 workers,
+    """The redesigned kernels beyond the path's shape: K1 and K2 at k in
+    {1, 3}, B in {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128}, K10 ==
+    K1 at (1, 0, 0) at B = 1001; K3 and K5 at k = 2 workers,
     ragged B (1000, and 1001 for rows that are not 16-byte multiples), C
     in {1, 39, 100}, K5 at bt in {32, 64, 128} on random symmetric tile
     masks and on a full mask at bt = 32, C = 128, B = 6144; each against
@@ -772,6 +791,31 @@ def redesign_cases_phase(P: int) -> int:
         compare(where, a, want)
 
     n = 0
+    # K1 and K2 (PR 17) at ragged and edge shapes, on a random sparse W
+    # per worker, and K10 == K1 at (1, 0, 0) at B = 1001.
+    for k in (1, 3):
+        for B in (1, 31, 33, 1000, 1001):
+            rng = np.random.default_rng(B + k)
+            W = torch.from_numpy((rng.random((k, B, B), dtype=np.float32) * (
+                rng.random((k, B, B)) < 0.05)).astype(np.float32)).cuda()
+            for C in (1, 39, 100, 128):
+                logp = logp_of(k, B, C, seed=B + C + k)
+                g = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
+                run(f"graph_reg_fwd [k={k} B={B} C={C}]",
+                    lambda: gr.reg_forward(logp, W, 0.8, 1e-2, 0.8),
+                    lambda: ref.reg_forward_ref(logp, W, 0.8, 1e-2, 0.8))
+                run(f"graph_reg_bwd_dlogp [k={k} B={B} C={C}]",
+                    lambda: gr.reg_bwd_dlogp(logp, W, g, 0.8, 1e-2, 0.8),
+                    lambda: ref.reg_bwd_dlogp_ref(logp, W, g, 0.8, 1e-2,
+                                                  0.8))
+                n += 2
+    logp = logp_of(1, 1001, 39, seed=17)[0]
+    W = torch.from_numpy(np.random.default_rng(17).random(
+        (1001, 1001), dtype=np.float32)).cuda()
+    k10 = gr.reg_pairwise(logp, W)
+    check(torch.equal(k10, gr.reg_forward(logp[None], W[None], 1.0, 0.0,
+                                          0.0)[0]),
+          "K10 is not K1 at (1, 0, 0) bit for bit [B=1001]")
     for k, B, C in ((2, 1000, 1), (2, 1000, 39), (2, 1000, 100),
                     (2, P, 39), (1, 1001, 39)):
         logp = logp_of(k, B, C, seed=B + C)
@@ -811,8 +855,8 @@ def redesign_cases_phase(P: int) -> int:
         lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
         lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt))
     n += 1
-    print(f"redesigned K3 and K5: {n} further cases within tolerance and "
-          f"repeated bit for bit")
+    print(f"redesigned K1, K2, K3 and K5: {n} further cases within "
+          f"tolerance and repeated bit for bit")
     return n
 
 
@@ -967,6 +1011,39 @@ def train_phase(exp, kernels: tuple[str, ...], label: str) -> dict:
             "host_ms": 1e3 * timed.host_s / steps, "row": row}
 
 
+def device_weights_phase(exp, exp_dev, dev_row: dict) -> None:
+    """Why the epoch on the device-built graph ends with another loss than
+    the host graph's: one epoch on the host graph's edges and plan with
+    the device graph's weights in place of the host's.  If its loss/total
+    is the device epoch's bit for bit, the weights' round-off is the whole
+    difference.  A measurement, not a check."""
+    import numpy as np
+    from repro_torch.api import Experiment
+    from repro_torch.bench import paper_config
+    from repro_torch.core.affinity import AffinityGraph
+
+    g_host, g_dev = exp.graph, exp_dev.graph
+    same = (np.array_equal(g_host.W.indptr, g_dev.W.indptr)
+            and np.array_equal(g_host.W.indices, g_dev.W.indices))
+    if not same:
+        print("device weights on the host graph: the two graphs' edges "
+              "differ, not measured")
+        return
+    W = g_host.W.copy()
+    W.data = g_dev.W.data.copy()
+    mixed = Experiment(paper_config(), corpus=exp.corpus,
+                       eval_data=exp.eval_data,
+                       graph=AffinityGraph(W=W, k=g_host.k,
+                                           sigma=g_host.sigma),
+                       plan=exp.plan, device="cuda").build()
+    row = train_phase(mixed, ("graph_reg_fwd", "graph_reg_bwd_dlogp"),
+                      "host graph with the device weights")["row"]
+    print(f"host graph's edges and plan with the device graph's weights: "
+          f"loss/total {row['loss/total']!r}, device-graph epoch "
+          f"{dev_row['loss/total']!r}: bit-equal "
+          f"{row['loss/total'] == dev_row['loss/total']}")
+
+
 def w_grad_path(W_path, gamma: float, kappa: float,
                 layout_bt: int | None = None) -> dict:
     """The regularizer's VJP with respect to W (what graph-weight learning
@@ -1055,19 +1132,24 @@ def ptxas_entries(name: str) -> list[tuple[str, dict]]:
     return out
 
 
-#: The redesigned K3 and K5: wrapper name -> (source, kernel).
-REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dw"),
-              "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_bterm")}
+#: The redesigned kernels (K3 and K5 in PR 16; K1, K2 and K10, which
+#: shares K1's template, in PR 17): wrapper name -> (source, the kernel's
+#: name in its mangled symbol, up to the character after it).
+REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
+              "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_btermE"),
+              "graph_reg_fwd": ("graph_reg", "reg_fwd_partialsILb1E"),
+              "graph_reg_bwd_dlogp": ("graph_reg", "reg_bwd_dlogpE"),
+              "graph_reg_pairwise": ("graph_reg", "reg_fwd_partialsILb0E")}
 
 
 def redesign_build_report() -> dict:
-    """Registers, spills and shared memory of the redesigned K3 and K5
-    (``-Xptxas -v``); no spill is allowed."""
+    """Registers, spills and static shared memory of the redesigned
+    kernels (``-Xptxas -v``); no spill is allowed."""
     import re
     rec = {}
     for wrapper, (src, kernel) in REDESIGNED.items():
         hits = [r for name, r in ptxas_entries(src)
-                if re.search(rf"\d{kernel}E", name)]
+                if re.search(rf"\d{kernel}", name)]
         check(len(hits) == 1, f"{len(hits)} compiler reports for {kernel} "
               f"in {src}.cu")
         rec[wrapper] = r = hits[0]
@@ -1370,12 +1452,12 @@ def print_step(label: str, step: dict) -> None:
 
 
 def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
-    """The redesigned K3 and K5 in turns with the same C entry points built
-    from another checkout's sources (``--against DIR``, e.g. the parent
-    commit unpacked with ``git archive``): the same wrapper and inputs as
-    the kernels line's rows, each from a CUDA graph (``bench.graph_ms``),
-    two rounds in turns; the two builds' outputs must agree bit for bit
-    (the redesign keeps every sum's order)."""
+    """The redesigned K1, K2, K3, K5 and K10 in turns with the same C entry
+    points built from another checkout's sources (``--against DIR``, e.g.
+    the parent commit unpacked with ``git archive``): the same wrapper and
+    inputs as the kernels line's rows, each from a CUDA graph
+    (``bench.graph_ms``), two rounds in turns; the two builds' outputs
+    must agree bit for bit (the redesigns keep every sum's order)."""
     import ctypes
     import numpy as np
     import torch
@@ -1387,8 +1469,7 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
 
     out_dir = build.build_dir() / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    entries = {"graph_reg": (gr, "graph_reg_bwd_dw"),
-               "graph_reg_bsp": (bsp, "graph_reg_bsp_bterm")}
+    modules = {"graph_reg": gr, "graph_reg_bsp": bsp}
 
     def compile_one(src: str) -> Path:
         lib = out_dir / f"lib{src}.so"
@@ -1400,46 +1481,57 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
               f"{proc.stderr}")
         return lib
 
-    with concurrent.futures.ThreadPoolExecutor(len(entries)) as pool:
-        paths = dict(zip(entries, pool.map(compile_one, entries)))
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        paths = dict(zip(modules, pool.map(compile_one, modules)))
     libs = {}
-    for src, (module, fn_name) in entries.items():
+    for src, module in modules.items():
         lib = ctypes.CDLL(str(paths[src]))
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(module._SIGNATURES[fn_name])
-        fn.restype = ctypes.c_int
+        for fn_name, args in module._SIGNATURES.items():
+            if hasattr(lib, fn_name):   # entry points the other tree has
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
         libs[src] = lib
 
     B, C = W_path.shape[0], 39
-    logp3, _, g3 = kernel_inputs(B, C, W_path, seed=B)
-    p3 = torch.exp(logp3)
+    logp, W, g = kernel_inputs(B, C, W_path, seed=B)
+    p = torch.exp(logp)
     logp5, W5, _ = kernel_inputs(B, C, W_path, seed=B + 1)
     p5 = torch.exp(logp5)
     lay = block_layout(W_path, LAYOUT_BT)
     crows, ccols, cvalid = (torch.from_numpy(a)[None].cuda()
                             for a in lay.arrays()[3:6])
-    calls = {"graph_reg": lambda: gr.reg_bwd_dw(logp3, g3, gamma, gamma,
-                                                p=p3),
-             "graph_reg_bsp": lambda: bsp.bsp_bwd_bterm(
-                 logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5)}
+    calls = {
+        "graph_reg_fwd": ("graph_reg", lambda: gr.reg_forward(
+            logp, W, gamma, kappa, gamma, p=p)),
+        "graph_reg_bwd_dlogp": ("graph_reg", lambda: gr.reg_bwd_dlogp(
+            logp, W, g, gamma, kappa, gamma, p=p)),
+        "graph_reg_bwd_dw": ("graph_reg", lambda: gr.reg_bwd_dw(
+            logp, g, gamma, gamma, p=p)),
+        "graph_reg_pairwise": ("graph_reg", lambda: gr.reg_pairwise(
+            logp[0], W[0], p=p[0])),
+        "graph_reg_bsp_bterm": ("graph_reg_bsp", lambda: bsp.bsp_bwd_bterm(
+            logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5)),
+    }
     records = {}
-    for src, (module, fn_name) in entries.items():
+    for fn_name, (src, call) in calls.items():
+        module = modules[src]
         own = module._lib
 
-        def run_other(fn=calls[src], module=module, lib=libs[src], own=own):
+        def run_other(fn=call, module=module, lib=libs[src], own=own):
             module._lib = lambda: lib
             try:
                 return fn()
             finally:
                 module._lib = own
 
-        this, other = calls[src](), run_other()
+        this, other = call(), run_other()
         torch.cuda.synchronize()
         check(torch.equal(this, other), f"{fn_name}: this checkout's kernel "
               f"and {root}'s differ")
         rounds = {"ms": [], "against_ms": []}
         for _ in range(2):
-            rounds["ms"].append(graph_ms(calls[src]))
+            rounds["ms"].append(graph_ms(call))
             rounds["against_ms"].append(graph_ms(run_other))
         rec = {key: float(np.mean(v)) for key, v in rounds.items()}
         rec["rounds"] = rounds
@@ -1501,6 +1593,13 @@ def main() -> int:
                              obj.kappa))
     records["knn_topk"] = knn_kernel_phase(exp.corpus.X, exp.config.graph.k)
     knn_kernel_phase(exp.corpus.X, 40, with_times=False)   # lists past one warp
+    # Past K_MAX the lists live in the outputs (the global route).
+    records["knn_topk"]["global_route"] = {
+        f"N={n} k={k}": {key: rec[key] for key in
+                         ("route", "ms", "plain_ms", "rounds",
+                          "max_abs_err", "err_over_tol")}
+        for n, k in ((4000, 300), (2000, 1000))
+        for rec in [knn_kernel_phase(exp.corpus.X[:n], k)]}
     rows_x = exp.corpus.X[block_rows(exp, P)]
     records["rbf_affinity"] = rbf_kernel_phase(rows_x, exp.graph.sigma)
     records["graph_reg_pairwise"] = pairwise_reg_phase(W_path)
@@ -1545,6 +1644,7 @@ def main() -> int:
           f"graph {dev_graph['row']['loss/total']!r}; eval/acc: host graph "
           f"{dense['row']['eval/acc']!r}, device graph "
           f"{dev_graph['row']['eval/acc']!r}")
+    device_weights_phase(exp, graph["exp"], dev_graph["row"])
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 
@@ -1561,12 +1661,17 @@ def main() -> int:
     for name in REDESIGNED:
         rec = records[name]
         rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
-        print(f"{name} (redesigned): {rec['ms']:.5f} ms against "
-              f"{rec['library']} {rec['library_ms']:.5f} ms in the same "
+        lib = (f"{rec['library']} {rec['library_ms']:.5f} ms" if
+               rec["library_ms"] is not None else "no library call")
+        print(f"{name} (redesigned): {rec['ms']:.5f} ms against {lib} and "
+              f"the plain version {rec['plain_ms']:.5f} ms in the same "
               f"call; bound {rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
               f"{100 * rec['share_of_bound']:.1f} % of it; "
               f"{redesign_build[name]['registers']} registers, "
-              f"{redesign_build[name]['spill_bytes']} bytes spilled")
+              f"{redesign_build[name]['spill_bytes']} bytes spilled"
+              + (f", {rec['rows_per_block']} rows a block, "
+                 f"{rec['dynamic_smem_bytes']} bytes of dynamic shared "
+                 f"memory" if "rows_per_block" in rec else ""))
     print(f"graph_reg_bsp_bterm dynamic shared memory at the path's shape "
           f"(from the library): "
           f"{records['graph_reg_bsp_bterm']['dynamic_smem_bytes']} bytes")
@@ -1611,14 +1716,15 @@ def main() -> int:
                 "spill_bytes": fa_build[128]["spill_bytes"],
                 "hgmma_instructions": fa_build["hgmma"]}
                if name == "flash_attention" else {}),
-            **({**redesign_build[name], "library": rec["library"],
+            **({**redesign_build[name], "library": rec.get("library"),
                 "share_of_bound": rec["share_of_bound"],
-                **({"dynamic_smem_bytes": rec["dynamic_smem_bytes"]}
-                   if "dynamic_smem_bytes" in rec else {}),
+                **{key: rec[key] for key in ("dynamic_smem_bytes",
+                                              "rows_per_block") if key in rec},
                 **({"against": {"dir": str(args.against),
                                 **against[name]}} if against else {})}
                if name in redesign_build else {}),
-            **({"note": rec["note"]} if "note" in rec else {})})
+            **{key: rec[key] for key in ("note", "global_route")
+               if key in rec}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 // (graph_reg.cu, K1-K3 and K10) and the block-sparse ones
 // (graph_reg_bsp.cu, K4-K7), and by the graph-construction kernels
 // (pairwise.cu, K8 and K9), whose inner products are the same 32 x 64 tile
-// over the feature axis.  One copy of the tile arithmetic means the
-// block-sparse kernels repeat the dense kernels' sums in the same order, so
-// on a full occupancy mask K4 equals K1 bit for bit.
+// over the feature axis.  The tile arithmetic fixes the order of the sums
+// of K4 (and of K1 before its redesign, which keeps those orders), so on a
+// full occupancy mask K4 equals K1 bit for bit.
 //
 // Padding is done with masks, never with values: rows, columns and classes
 // outside (B, B, C) (features outside (N, M, D)) are loaded as 0 for p,

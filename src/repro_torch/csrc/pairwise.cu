@@ -22,8 +22,9 @@
 // grid walks the column chunks in order and keeps the running top-k in
 // VMEM scratch between grid steps.  CUDA blocks run in no order, so here
 // one block owns a 32-row strip and loops over ALL column chunks itself,
-// in increasing j; the running top-k of each row lives in shared memory and
-// is owned by one warp.  Bound on an H100 by operations: 2*N*M*D flops
+// in increasing j; the running top-k of each row lives in shared memory
+// (k <= kKMax) or in the row's outputs (k > kKMax) and is owned by one
+// warp.  Bound on an H100 by operations: 2*N*M*D flops
 // (4.19 ms at N = M = 20000, D = 351, 67 TFLOP/s f32); no N x M buffer
 // exists anywhere, and no atomics are used, so repeats are bit-identical.
 //
@@ -37,10 +38,17 @@
 
 namespace {
 
-// Largest k K8 takes; the wrapper checks it too.  The block's 32 running
-// lists of k (d2, j) pairs live in dynamic shared memory, 256·k bytes:
-// 64 KB at k = 256, above the 48 KB a launch gets without opting in.
+// Largest k of K8's shared-memory route.  The block's 32 running lists of
+// k (d2, j) pairs live in dynamic shared memory, kRows * k *
+// kListEntryBytes bytes: 64 KB at k = 256, above the 48 KB a launch gets
+// without opting in.  Past it (the global route, any k <= M) each row's
+// list lives in its own row of the outputs, which the wrapper allocates
+// (N * k * kListEntryBytes bytes): the lists need no other workspace and
+// no final copy.  The merge code is the same on both routes: a row's
+// list is owned by one warp, and __syncwarp orders lane 0's inserts
+// before the warp's next reads in either memory.
 constexpr int kKMax = 256;
+constexpr int kListEntryBytes = sizeof(float) + sizeof(int);
 
 // Thread (ty, tx) of xy_tile holds d2 of rows ty+8r and columns tx+32c of
 // the tile, so warp ty holds all 64 columns of its four rows: it merges
@@ -49,6 +57,7 @@ constexpr int kKMax = 256;
 // k-th distance; lane 0 inserts them one by one in increasing j, each
 // after any equal entries.  Visiting j in increasing order with a strict
 // "<" test gives the reference's order: ties go to the lowest index.
+template <bool kGlobalLists>
 __global__ void __launch_bounds__(kThreads)
 knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const float* __restrict__ nx, const float* __restrict__ ny,
@@ -57,15 +66,25 @@ knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     __shared__ float Xs[kChunk][kRows + 1];
     __shared__ float Ys[kChunk][kCols + 1];
     extern __shared__ float lists[];            // best_d then best_i, row-major
-    float* best_d = lists;                      // (kRows, k)
-    int* best_i = reinterpret_cast<int*>(lists + kRows * k);
     const int i0 = blockIdx.x * kRows;
+    // (kRows, k) each, row-major: shared memory, or the outputs' rows.
+    float* best_d = kGlobalLists ? out_d2 + (int64_t)i0 * k : lists;
+    int* best_i = kGlobalLists ? out_idx + (int64_t)i0 * k
+                               : reinterpret_cast<int*>(lists + kRows * k);
     const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
     const unsigned full = 0xffffffffu;
 
-    for (int e = tid; e < kRows * k; e += kThreads) {
-        best_d[e] = 3.4e38f;
-        best_i[e] = -1;
+    if (kGlobalLists) {
+        for (int row = ty; row < kRows && i0 + row < N; row += 8)
+            for (int t = tx; t < k; t += 32) {
+                best_d[row * k + t] = 3.4e38f;
+                best_i[row * k + t] = -1;
+            }
+    } else {
+        for (int e = tid; e < kRows * k; e += kThreads) {
+            best_d[e] = 3.4e38f;
+            best_i[e] = -1;
+        }
     }
     float nxr[4];
 #pragma unroll
@@ -115,7 +134,7 @@ knn_topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         }
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < 4 && !kGlobalLists; ++r) {
         const int row = ty + 8 * r, i = i0 + row;
         if (i >= N) continue;
         for (int t = tx; t < k; t += 32) {
@@ -161,14 +180,21 @@ extern "C" {
 int knn_topk(const void* x, const void* y, const void* nx, const void* ny,
              int N, int M, int D, int k, int exclude_self, void* d2,
              void* idx, void* stream) {
-    if (k < 1 || k > kKMax || k > M)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (k < 1 || k > M) return static_cast<int>(cudaErrorInvalidValue);
     const int n_strips = (N + kRows - 1) / kRows;
-    const size_t lists = (size_t)kRows * k * (sizeof(float) + sizeof(int));
-    const cudaError_t err = allow_dynamic_smem<knn_topk_kernel>(lists);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (k > kKMax) {
+        knn_topk_kernel<true><<<n_strips, kThreads, 0, s>>>(
+            static_cast<const float*>(x), static_cast<const float*>(y),
+            static_cast<const float*>(nx), static_cast<const float*>(ny), N,
+            M, D, k, exclude_self, static_cast<float*>(d2),
+            static_cast<int*>(idx));
+        return static_cast<int>(cudaGetLastError());
+    }
+    const size_t lists = (size_t)kRows * k * kListEntryBytes;
+    const cudaError_t err = allow_dynamic_smem<knn_topk_kernel<false>>(lists);
     if (err != cudaSuccess) return static_cast<int>(err);
-    knn_topk_kernel<<<n_strips, kThreads, lists,
-                      static_cast<cudaStream_t>(stream)>>>(
+    knn_topk_kernel<false><<<n_strips, kThreads, lists, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(nx), static_cast<const float*>(ny), N, M, D,
         k, exclude_self, static_cast<float*>(d2), static_cast<int*>(idx));

@@ -20,17 +20,25 @@ f32 without tensor cores):
   _fused_reg_forward`` / ``_fused_reg_kernel``.  Reads W once (P²·4 B =
   18.9 MB, 5.7 µs) and does 2·P²·C flops for P·logPᵀ (5.5 µs): bound by
   bytes, barely.  The Pallas kernel added every grid step into one (1,1)
-  output, which needs the TPU's ordered grid.  Here each block owns a
-  32-row strip, loops over all column tiles and classes itself, and writes
-  one partial that already holds its strip's (κ + ge·deg_i)·H_i, since the
-  strip holds complete degrees; a second launch sums the partials in strip
-  order.  No atomics, so the result is bit-reproducible.
+  output, which needs the TPU's ordered grid.  Here the sum is split into
+  256 fixed-order chains per 32-row strip, one per thread of the strip
+  kernel it replaces; a chain touches four rows, so each is one warp's,
+  and blocks of 4-row warps are sized to fill every SM once.  Each block
+  streams logP, P and W tiles through a cp.async ring and computes its S
+  tiles with 16-byte shared-memory reads.  Pass 1 writes every chain's
+  value; pass 2 adds each strip's 256 by the old block tree and the
+  strips in order.  No atomics, and the bits are those of the strip
+  kernel.
 * ``reg_bwd_dlogp`` — K2, replaces ``_reg_bwd_dlogp`` /
   ``_reg_bwd_dlogp_kernel``.  Two products with W (W·logP and Wᵀ·P),
-  4·P²·C flops (11 µs): bound by operations.  Each block owns a 32-row
-  strip and loops over j; it reads W[i, j] for W·logP and the degrees and
-  W[j, i] as a coalesced tile, transposed in shared memory, for Wᵀ·P.  The
-  Pallas wrapper's square re-padding of W becomes edge masks.
+  4·P²·C flops (11 µs): bound by operations.  Every output is one fmaf
+  chain over all j, so blocks own rows and all classes (C rounded up to
+  4): a cluster of two blocks per rows, sized to fill every SM once, one
+  summing W·logP and the degrees from 32-j pieces of W's rows and of
+  logP, the other Wᵀ·P from W's columns and P, both through cp.async
+  rings, 2 rows × 4 classes a thread; the second hands its tile to the
+  first through distributed shared memory.  The Pallas wrapper's square
+  re-padding of W becomes edge masks.
 * ``reg_bwd_dw`` — K3, replaces ``_reg_bwd_dw`` / ``_reg_bwd_dw_kernel``.
   Writes the P×P dW once (18.9 MB, 5.7 µs) and does 2·P²·C flops (5.5
   µs): bound by bytes, barely.  Output-tiled, redesigned for Hopper: each
@@ -63,7 +71,7 @@ import torch
 from . import build, ref
 
 __all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "reg_pairwise",
-           "launch_counts", "reset_launch_counts", "SOURCE"]
+           "launch_plan", "launch_counts", "reset_launch_counts", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg.cu"
 
@@ -72,6 +80,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "graph_reg_fwd_n_partials": (_I, _I),
+    "graph_reg_fwd_plan": (_I, _I, _I, _P, _P),
+    "graph_reg_bwd_dlogp_plan": (_I, _I, _I, _P, _P),
     "graph_reg_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     "graph_reg_pairwise": (_P, _P, _P, _I, _I, _P, _P, _P),
     "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P),
@@ -127,6 +137,23 @@ def _dims(logp: torch.Tensor) -> tuple[int, int, int]:
     return tuple(logp.shape)
 
 
+def _padded(k: int, B: int, C: int) -> int:
+    """Floats of a class-padded (k, B, C4) copy, C4 = C rounded up to 4:
+    the kernels' workspace beside their partials or output
+    (``csrc/graph_reg.cu``, ``pad_classes``)."""
+    return k * B * (-(-C // 4) * 4)
+
+
+def launch_plan(name: str, k: int, B: int, C: int) -> dict:
+    """Rows per block and dynamic shared memory (bytes) of one K1 / K10
+    (``"graph_reg_fwd"``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
+    current card, as the library computes them."""
+    rows, smem = ctypes.c_int(), ctypes.c_int()
+    _raise_on(getattr(_lib(), f"{name}_plan")(
+        k, B, C, ctypes.byref(rows), ctypes.byref(smem)), f"{name}_plan")
+    return {"rows_per_block": rows.value, "dynamic_smem_bytes": smem.value}
+
+
 def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
                 ge: float, *, p: torch.Tensor | None = None) -> torch.Tensor:
     """K1: the fused regularizer per worker.  logp (k, B, C), W (k, B, B)
@@ -135,8 +162,9 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
         return ref.reg_forward_ref(logp, W, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    partials = torch.empty(_lib().graph_reg_fwd_n_partials(k, B),
-                           dtype=torch.float32, device=logp.device)
+    partials = torch.empty(_lib().graph_reg_fwd_n_partials(k, B)
+                           + _padded(k, B, C), dtype=torch.float32,
+                           device=logp.device)
     out = torch.empty(k, dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_fwd(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
@@ -158,8 +186,9 @@ def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
                          f"got {tuple(logp.shape)}")
     B, C = logp.shape
     p = torch.exp(logp) if p is None else p
-    partials = torch.empty(_lib().graph_reg_fwd_n_partials(1, B),
-                           dtype=torch.float32, device=logp.device)
+    partials = torch.empty(_lib().graph_reg_fwd_n_partials(1, B)
+                           + _padded(1, B, C), dtype=torch.float32,
+                           device=logp.device)
     out = torch.empty((), dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_pairwise(
         _checked(p, "p", (B, C)), _checked(logp, "logp", (B, C)),
@@ -179,7 +208,11 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
         return ref.reg_bwd_dlogp_ref(logp, W, g, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    out = torch.empty(k, B, C, dtype=torch.float32, device=logp.device)
+    # The output, then (16-byte aligned) the class-padded P and logP.
+    n_out = k * B * C
+    buf = torch.empty(-(-n_out // 4) * 4 + 2 * _padded(k, B, C),
+                      dtype=torch.float32, device=logp.device)
+    out = buf[:n_out].view(k, B, C)
     rc = _lib().graph_reg_bwd_dlogp(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
         _checked(W, "W", (k, B, B)), _checked(g, "g", (k,)), k, B, C, gc,

@@ -21,8 +21,9 @@ tensor cores):
   its rows' distances from registers into a list in shared memory.  No
   N×M buffer exists, on the card or on the CPU path, which streams column
   chunks against a running (N, k) state (``knn_topk_stream_ref``).
-  On the card ``k`` is at most :data:`K_MAX` (the lists' shared memory);
-  on the CPU the plain version takes any k the reference takes.
+  On the card the lists live in shared memory for k ≤ :data:`K_MAX`
+  and, past it, in the rows of the outputs themselves (:func:`route`);
+  the card and the CPU take every k the reference takes.
 * ``rbf_affinity`` — K9, replaces ``rbf_affinity_pallas`` /
   ``_pairwise_kernel``.  ``exp(−sqrt(d2)/(2σ²))`` over the dense (N, M)
   block; 2·N·M·D flops: bound by operations at a meta-batch's shape.
@@ -44,14 +45,34 @@ from . import build, ref
 from .graph_reg import _checked, _on_cpu, _raise_on, _stream
 from .tuning import TileSpec, refuse_pinned
 
-__all__ = ["knn_topk", "rbf_affinity", "K_MAX", "WRAPPERS", "SOURCE"]
+__all__ = ["knn_topk", "rbf_affinity", "K_MAX", "route", "list_bytes",
+           "WRAPPERS", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/pairwise.cu"
 
-#: Largest k the streaming top-k kernel takes (``kKMax`` in
-#: ``csrc/pairwise.cu``): a block's 32 running lists of k (d2, index) pairs
-#: live in shared memory, 64 KB at k = 256.  The CPU path has no limit.
+#: Largest k of the streaming top-k kernel's shared-memory route (``kKMax``
+#: in ``csrc/pairwise.cu``): a block's 32 running lists of k (d2, index)
+#: pairs live in shared memory, 64 KB at k = 256.  Past it the lists live
+#: in the outputs (the global route).
 K_MAX = 256
+#: Rows of a block's lists (``kRows``) and bytes of one list entry
+#: (``kListEntryBytes``: a float d2 and an int index).
+_LIST_ROWS = 32
+_LIST_ENTRY_BYTES = 8
+
+
+def route(k: int) -> str:
+    """Where K8 keeps its running lists for this k: ``"shared"`` (shared
+    memory, k ≤ :data:`K_MAX`) or ``"global"`` (the rows of the (N, k)
+    outputs).  Chosen by k alone; both give the same lists."""
+    return "shared" if k <= K_MAX else "global"
+
+
+def list_bytes(N: int, k: int) -> int:
+    """Bytes that hold K8's running lists: a block's shared memory on the
+    shared route, the N·k outputs the wrapper allocates on the global
+    route."""
+    return (_LIST_ROWS if route(k) == "shared" else N) * k * _LIST_ENTRY_BYTES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,9 +123,6 @@ def knn_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
                          f"(exclude_self={exclude_self}), got {k}")
     if _on_cpu(x, y):
         return ref.knn_topk_stream_ref(x, y, k, exclude_self=exclude_self)
-    if k > K_MAX:
-        raise ValueError(f"knn_topk: k={k} exceeds K_MAX={K_MAX}, the most "
-                         f"the streaming top-k kernel keeps per row")
     refuse_pinned(tiles, "knn_topk")
     x, y, nx, ny = _operands(x, y)
     N, D = x.shape

@@ -61,12 +61,15 @@ def _close(got, want, rtol=2e-5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(200, 8), (200, 39), (257, 70)])
-def test_kernels_match_plain_versions(cuda, B, C):
-    probs = [_problem(B, C, seed=s) for s in range(2)]
+@pytest.mark.parametrize("k,B,C", [(2, 200, 8), (2, 200, 39), (2, 257, 70)]
+                         + [(k, B, C) for k in (1, 3)
+                            for B in (1, 31, 33, 1000, 1001)
+                            for C in (1, 39, 100, 128)])
+def test_kernels_match_plain_versions(cuda, k, B, C):
+    probs = [_problem(B, C, seed=s) for s in range(k)]
     logp = torch.stack([p[0] for p in probs]).to(cuda)
     W = torch.stack([p[1] for p in probs]).to(cuda)
-    g = torch.tensor([0.5, -2.0], device=cuda)
+    g = torch.tensor([0.5, -2.0, 0.25][:k], device=cuda)
     gc, kappa, ge = GAMMA, KAPPA, GAMMA
     pairs = [
         (lambda: gr.reg_forward(logp, W, gc, kappa, ge),
@@ -344,7 +347,9 @@ def _check_knn(x, y, k, got, want):
                                         (1000, 1000, 351, 10, True),
                                         (300, 700, 64, 40, True),
                                         (130, 600, 32, 256, False),
-                                        (257, 257, 16, 256, True)])
+                                        (257, 257, 16, 256, True),
+                                        (600, 600, 32, 300, True),
+                                        (200, 1100, 16, 1000, False)])
 def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
     x, y = (t.to(cuda) for t in _knn_inputs(N, M, D))
     before = pairwise.knn_topk.launches
@@ -361,7 +366,7 @@ def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [12, 40])
+@pytest.mark.parametrize("k", [12, 40, 299])
 @pytest.mark.parametrize("ex", [False, True])
 def test_knn_topk_exact_ties_go_to_the_lowest_index(cuda, ex, k):
     x, y = (t.to(cuda) for t in _knn_inputs(150, 300, 4, integer=True))
@@ -389,7 +394,8 @@ def test_rbf_affinity_matches_plain_version(cuda, N, M, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(200, 8), (257, 39), (1000, 39)])
+@pytest.mark.parametrize("B,C", [(200, 8), (257, 39), (1000, 39),
+                                 (1001, 39)])
 def test_pairwise_cross_term_matches_plain_version_and_k1(cuda, B, C):
     logp, W = _problem(B, C)
     logp, W = logp.to(cuda), W.to(cuda)
@@ -422,11 +428,19 @@ def test_graph_construction_kernels_refuse_pinned_tiles(cuda):
     with pytest.raises(ValueError, match="fixed block shapes"):
         ops.graph_reg_pairwise(logp.to(cuda), W.to(cuda),
                                tiles=TileSpec(bi=64))
-    # More rows than K_MAX + 1, so that K_MAX and not the candidate count
-    # refuses k = K_MAX + 1.
+    # k = M with exclude_self leaves M - 1 candidates: refused, as on the
+    # CPU.
+    with pytest.raises(ValueError, match="k must be in"):
+        pairwise.knn_topk(x, x, 64, exclude_self=True)
+    # Past K_MAX the lists live in the outputs (the global route): the
+    # plain version's lists, bits repeated.
     big = torch.randn(pairwise.K_MAX + 2, 8, device=cuda)
-    with pytest.raises(ValueError, match="K_MAX"):
-        pairwise.knn_topk(big, big, pairwise.K_MAX + 1)
+    k = pairwise.K_MAX + 1
+    assert pairwise.route(k) == "global"
+    a, b = pairwise.knn_topk(big, big, k), pairwise.knn_topk(big, big, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _check_knn(big, big, k, a, ref.knn_topk_ref(big, big, k))
 
 
 def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):

@@ -95,7 +95,7 @@ def test_knn_topk_matches_reference_kernel(N, M, D, k):
 def test_knn_topk_beyond_32_matches_reference_kernel(N, M, D, k):
     """k = 40 and 64: the reference's kernel takes any k ≤ M − 1; on the CPU
     the port's entry runs the plain version, which does too (``K_MAX``
-    bounds only the card's kernel)."""
+    only picks the card's route)."""
     x, y = _xy(N, M, D)
     ex = N == M
     jd, ji = knn_topk_pallas(jnp.asarray(x), jnp.asarray(y), k,
@@ -153,6 +153,25 @@ def test_knn_topk_refusals():
 def test_k_max_is_the_kernels_limit():
     src = (ROOT / pairwise.SOURCE).read_text()
     assert int(re.search(r"kKMax = (\d+);", src).group(1)) == pairwise.K_MAX
+
+
+@pytest.mark.parametrize("k", [1, 10, 256, 257, 300, 1000])
+def test_knn_route_and_list_bytes_follow_the_source(k):
+    """K8 keeps its lists in shared memory up to kKMax and in the outputs
+    past it, by k alone; the bytes that hold them follow the source's
+    constants (kRows rows a block, kListEntryBytes an entry)."""
+    src = (ROOT / pairwise.SOURCE).read_text()
+    tiles = (ROOT / pairwise.SOURCE).with_name("graph_reg_tiles.cuh")
+    k_max = int(re.search(r"kKMax = (\d+);", src).group(1))
+    rows = int(re.search(r"kRows = (\d+);", tiles.read_text()).group(1))
+    assert re.search(r"kListEntryBytes = sizeof\(float\) \+ sizeof\(int\);",
+                     src)
+    assert "if (k > kKMax) {" in src
+    N = 4000
+    route = "shared" if k <= k_max else "global"
+    assert pairwise.route(k) == route
+    assert pairwise.list_bytes(N, k) == (rows if route == "shared" else N) \
+        * k * (4 + 4)
 
 
 # ------------------------------------------------------------- K9 RBF
