@@ -6,8 +6,10 @@
 ``--against DIR`` also builds K1's, K2's, K3's, K5's and K10's C entry
 points from another checkout's sources (DIR, e.g. the parent commit
 unpacked with ``git archive``) and times them in turns with this
-checkout's on the same inputs, outputs equal bit for bit (phase 5).  Every kernel time below is the device time of one call
-from a CUDA graph of back-to-back calls (``bench.graph_ms``), the kernel,
+checkout's on the same inputs, outputs equal bit for bit (phase 5); K1,
+K2 and K10 are also compared bit for bit at two ragged, multi-chunk
+shapes.  Every kernel time below is the device time of one call from a
+CUDA graph of back-to-back calls (``bench.graph_ms``), the kernel,
 its plain version and the library call (where there is one) two rounds
 in turns; the wrappers are given p = exp(logp), as the training path
 gives it.
@@ -48,8 +50,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
    ``--against`` K1, K2, K3, K5 and K10 built from DIR, which must give
-   the same bits; the redesigned K1 and K2 also at k in {1, 3}, B in
-   {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128}, and K10 == K1 at
+   the same bits (K1, K2 and K10 also at k = 3, B = 1001, C = 100 and at
+   B = 1001, C = 200); the redesigned K1 and K2 also at k in {1, 3}, B in
+   {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, and K10 == K1 at
    (1, 0, 0) at B = 1001; K8 (streaming top-k) on the whole corpus at
    k = 10 (the path's)
    and k = 40 (shared-memory route), and at k = 300 on 4,000 rows and k =
@@ -401,8 +404,7 @@ def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
                            idx[mis_r, mis_c].long()[:, None])[:, 0]
         tie = (alt - pd[mis_r, mis_c]).abs() <= D2_RTOL * scale[mis_r, mis_c]
         check(bool(tie.all()), "knn_topk: an index differs away from a tie")
-    print(f"knn_topk [N=M={N} D={D} k={k}, {pairwise.route(k)} route, "
-          f"lists in {pairwise.list_bytes(N, k)} bytes]: "
+    print(f"knn_topk [N=M={N} D={D} k={k}, {pairwise.route(k)} route]: "
           f"max_abs_err={float(err.max()):.3e} "
           f"err/tol={over:.3f} (tol {D2_RTOL:g}·(‖x_i‖²+‖y_j‖²)), "
           f"{len(mis_r)} indices differ from the plain version, all at near "
@@ -763,9 +765,27 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
     return records
 
 
+def random_logp(k: int, B: int, C: int, seed: int):
+    """log-softmax of seeded normal logits, (k, B, C) on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.log_softmax(torch.from_numpy((2.0 * rng.standard_normal(
+        (k, B, C))).astype(np.float32)).cuda(), -1).contiguous()
+
+
+def sparse_w(k: int, B: int, seed: int):
+    """A seeded random (k, B, B) affinity block, 5 % of it nonzero."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((k, B, B), dtype=np.float32) * (
+        rng.random((k, B, B)) < 0.05)).astype(np.float32)).cuda()
+
+
 def redesign_cases_phase(P: int) -> int:
     """The redesigned kernels beyond the path's shape: K1 and K2 at k in
-    {1, 3}, B in {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128}, K10 ==
+    {1, 3}, B in {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, K10 ==
     K1 at (1, 0, 0) at B = 1001; K3 and K5 at k = 2 workers,
     ragged B (1000, and 1001 for rows that are not 16-byte multiples), C
     in {1, 39, 100}, K5 at bt in {32, 64, 128} on random symmetric tile
@@ -779,10 +799,7 @@ def redesign_cases_phase(P: int) -> int:
     from repro_torch.kernels import graph_reg_bsp as bsp
     from repro_torch.kernels import ref
 
-    def logp_of(k, B, C, seed):
-        rng = np.random.default_rng(seed)
-        return torch.log_softmax(torch.from_numpy((2.0 * rng.standard_normal(
-            (k, B, C))).astype(np.float32)).cuda(), -1).contiguous()
+    logp_of = random_logp
 
     def run(where, kern, plain):
         a, b, want = kern(), kern(), plain()
@@ -791,14 +808,13 @@ def redesign_cases_phase(P: int) -> int:
         compare(where, a, want)
 
     n = 0
-    # K1 and K2 (PR 17) at ragged and edge shapes, on a random sparse W
-    # per worker, and K10 == K1 at (1, 0, 0) at B = 1001.
+    # K1 and K2 at ragged and edge shapes, on a random sparse W per
+    # worker (C = 200 takes two of K2's class chunks), and K10 == K1 at
+    # (1, 0, 0) at B = 1001.
     for k in (1, 3):
         for B in (1, 31, 33, 1000, 1001):
-            rng = np.random.default_rng(B + k)
-            W = torch.from_numpy((rng.random((k, B, B), dtype=np.float32) * (
-                rng.random((k, B, B)) < 0.05)).astype(np.float32)).cuda()
-            for C in (1, 39, 100, 128):
+            W = sparse_w(k, B, seed=B + k)
+            for C in (1, 39, 100, 128, 200):
                 logp = logp_of(k, B, C, seed=B + C + k)
                 g = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
                 run(f"graph_reg_fwd [k={k} B={B} C={C}]",
@@ -1132,9 +1148,9 @@ def ptxas_entries(name: str) -> list[tuple[str, dict]]:
     return out
 
 
-#: The redesigned kernels (K3 and K5 in PR 16; K1, K2 and K10, which
-#: shares K1's template, in PR 17): wrapper name -> (source, the kernel's
-#: name in its mangled symbol, up to the character after it).
+#: The redesigned kernels (K3 and K5; K1, K2 and K10, which shares K1's
+#: template): wrapper name -> (source, the kernel's name in its mangled
+#: symbol, up to the character after it).
 REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
               "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_btermE"),
               "graph_reg_fwd": ("graph_reg", "reg_fwd_partialsILb1E"),
@@ -1451,13 +1467,72 @@ def print_step(label: str, step: dict) -> None:
           f"staging (pinned copy + H2D) {step['host_staging_ms']:.3f} ms")
 
 
+#: C entry points of K1, K2 and K10 in a checkout from before their
+#: workspaces (the partials alone for K1 and K10, no workspace for K2):
+#: ``against_phase`` calls such a library through these.
+LEGACY_GRAPH_REG = {"graph_reg_fwd_n_partials": ("I", "I"),
+                    "graph_reg_bwd_dlogp": tuple("PPPPIIIFFFPP")}
+
+
+def legacy_graph_reg_calls(lib) -> dict:
+    """K1, K2 and K10 through a library of the interface before their
+    workspaces: wrapper name -> fn(logp, W, g, p, gc, kappa, ge)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import graph_reg as gr
+    kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+    for name, args in LEGACY_GRAPH_REG.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[a] for a in args]
+        fn.restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def fwd(logp, W, g, p, gc, kappa, ge):
+        k, B, C = logp.shape
+        part = torch.empty(lib.graph_reg_fwd_n_partials(k, B),
+                           device="cuda")
+        out = torch.empty(k, device="cuda")
+        gr._raise_on(lib.graph_reg_fwd(
+            p.data_ptr(), logp.data_ptr(), W.data_ptr(), k, B, C, gc, kappa,
+            ge, part.data_ptr(), out.data_ptr(), stream()), "graph_reg_fwd")
+        return out
+
+    def pairwise(logp, W, g, p, gc, kappa, ge):
+        B, C = logp.shape
+        part = torch.empty(lib.graph_reg_fwd_n_partials(1, B),
+                           device="cuda")
+        out = torch.empty((), device="cuda")
+        gr._raise_on(lib.graph_reg_pairwise(
+            p.data_ptr(), logp.data_ptr(), W.data_ptr(), B, C,
+            part.data_ptr(), out.data_ptr(), stream()), "graph_reg_pairwise")
+        return out
+
+    def dlogp(logp, W, g, p, gc, kappa, ge):
+        k, B, C = logp.shape
+        out = torch.empty(k, B, C, device="cuda")
+        gr._raise_on(lib.graph_reg_bwd_dlogp(
+            p.data_ptr(), logp.data_ptr(), W.data_ptr(), g.data_ptr(), k, B,
+            C, gc, kappa, ge, out.data_ptr(), stream()),
+            "graph_reg_bwd_dlogp")
+        return out
+
+    return {"graph_reg_fwd": fwd, "graph_reg_pairwise": pairwise,
+            "graph_reg_bwd_dlogp": dlogp}
+
+
 def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     """The redesigned K1, K2, K3, K5 and K10 in turns with the same C entry
     points built from another checkout's sources (``--against DIR``, e.g.
     the parent commit unpacked with ``git archive``): the same wrapper and
     inputs as the kernels line's rows, each from a CUDA graph
     (``bench.graph_ms``), two rounds in turns; the two builds' outputs
-    must agree bit for bit (the redesigns keep every sum's order)."""
+    must agree bit for bit (the redesigns keep every sum's order).  K1, K2
+    and K10 are also held bit for bit against the other build at k = 3, B
+    = 1001, C = 100 (4-byte copies of W's rows, K1's class chunks) and at
+    B = 1001, C = 200 (K2's class chunks).  A library from before K1's and
+    K2's workspaces is called through :func:`legacy_graph_reg_calls`."""
     import ctypes
     import numpy as np
     import torch
@@ -1492,6 +1567,42 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
         libs[src] = lib
+    legacy = ({} if hasattr(libs["graph_reg"], "graph_reg_fwd_workspace")
+              else legacy_graph_reg_calls(libs["graph_reg"]))
+
+    def swapped(fn, module, lib):
+        """``fn`` with ``module``'s wrappers launching ``lib``'s kernels."""
+        def run():
+            own = module._lib
+            module._lib = lambda: lib
+            try:
+                return fn()
+            finally:
+                module._lib = own
+        return run
+
+    # The wrappers of K1, K2 and K10 on (logp, W, g, p): this build's, and
+    # the other build's.
+    this_k = {
+        "graph_reg_fwd": lambda logp, W, g, p: gr.reg_forward(
+            logp, W, gamma, kappa, gamma, p=p),
+        "graph_reg_bwd_dlogp": lambda logp, W, g, p: gr.reg_bwd_dlogp(
+            logp, W, g, gamma, kappa, gamma, p=p),
+        "graph_reg_pairwise": lambda logp, W, g, p: gr.reg_pairwise(
+            logp[0], W[0], p=p[0]),
+    }
+
+    def other_k(name, logp, W, g, p):
+        if not legacy:
+            return swapped(lambda: this_k[name](logp, W, g, p), gr,
+                           libs["graph_reg"])
+        if name == "graph_reg_pairwise":
+            logp, W, p = logp[0], W[0], p[0]
+        return lambda: legacy[name](logp, W, g, p, gamma, kappa, gamma)
+
+    def this_and_other(name, logp, W, g, p):
+        return (lambda: this_k[name](logp, W, g, p),
+                other_k(name, logp, W, g, p))
 
     B, C = W_path.shape[0], 39
     logp, W, g = kernel_inputs(B, C, W_path, seed=B)
@@ -1501,30 +1612,15 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     lay = block_layout(W_path, LAYOUT_BT)
     crows, ccols, cvalid = (torch.from_numpy(a)[None].cuda()
                             for a in lay.arrays()[3:6])
-    calls = {
-        "graph_reg_fwd": ("graph_reg", lambda: gr.reg_forward(
-            logp, W, gamma, kappa, gamma, p=p)),
-        "graph_reg_bwd_dlogp": ("graph_reg", lambda: gr.reg_bwd_dlogp(
-            logp, W, g, gamma, kappa, gamma, p=p)),
-        "graph_reg_bwd_dw": ("graph_reg", lambda: gr.reg_bwd_dw(
-            logp, g, gamma, gamma, p=p)),
-        "graph_reg_pairwise": ("graph_reg", lambda: gr.reg_pairwise(
-            logp[0], W[0], p=p[0])),
-        "graph_reg_bsp_bterm": ("graph_reg_bsp", lambda: bsp.bsp_bwd_bterm(
-            logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5)),
-    }
+    calls = {name: this_and_other(name, logp, W, g, p) for name in this_k}
+    for name, src, call in (
+            ("graph_reg_bwd_dw", "graph_reg", lambda: gr.reg_bwd_dw(
+                logp, g, gamma, gamma, p=p)),
+            ("graph_reg_bsp_bterm", "graph_reg_bsp", lambda: bsp.bsp_bwd_bterm(
+                logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5))):
+        calls[name] = (call, swapped(call, modules[src], libs[src]))
     records = {}
-    for fn_name, (src, call) in calls.items():
-        module = modules[src]
-        own = module._lib
-
-        def run_other(fn=call, module=module, lib=libs[src], own=own):
-            module._lib = lambda: lib
-            try:
-                return fn()
-            finally:
-                module._lib = own
-
+    for fn_name, (call, run_other) in calls.items():
         this, other = call(), run_other()
         torch.cuda.synchronize()
         check(torch.equal(this, other), f"{fn_name}: this checkout's kernel "
@@ -1539,6 +1635,26 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
               f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
               f"(rounds {rounds}); outputs equal bit for bit")
         records[fn_name] = rec
+    # Ragged and multi-chunk shapes, bits only.
+    shapes = []
+    for k, Bx, Cx in ((3, 1001, 100), (1, 1001, 200)):
+        logpx = random_logp(k, Bx, Cx, seed=Bx + Cx + k)
+        Wx = sparse_w(k, Bx, seed=Bx + k)
+        gx = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
+        px = torch.exp(logpx)
+        for name in this_k:
+            call, run_other = this_and_other(name, logpx, Wx, gx, px)
+            this, other = call(), run_other()
+            torch.cuda.synchronize()
+            where = f"{name} [k={k} B={Bx} C={Cx}]"
+            check(torch.equal(this, other), f"{where}: this checkout's "
+                  f"kernel and {root}'s differ")
+            shapes.append(where)
+    print(f"K1, K2 and K10 equal {root}'s bit for bit at "
+          f"{', '.join(shapes)}")
+    for name in this_k:
+        records[name]["bit_equal_shapes"] = [
+            where for where in shapes if where.startswith(f"{name} [")]
     return records
 
 
@@ -1546,8 +1662,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None, metavar="DIR",
-                    help="also time the redesigned K3 and K5 in turns with "
-                         "the same entry points built from DIR's sources")
+                    help="also time the redesigned K1, K2, K3, K5 and K10 "
+                         "in turns with the same entry points built from "
+                         "DIR's sources")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():

@@ -35,11 +35,13 @@ import torch
 __all__ = ["paper_config", "time_ms", "graph_ms", "profile_step",
            "profile_serve"]
 
-#: Names of this package's kernels in a profiler trace: K1–K3 and the
+#: Names of this package's kernels in a profiler trace: K1–K3 (with K1's
+#: second pass and the class padding of K1's and K2's inputs) and the
 #: block-sparse K4–K7.
-REG_KERNELS = ("reg_fwd_partials", "reg_fwd_sum", "reg_bwd_dlogp",
-               "reg_bwd_dw", "bsp_fwd_partials", "bsp_bwd_bterm",
-               "bsp_bwd_dlogp", "bsp_bwd_dw")
+REG_KERNELS = ("pad_classes", "reg_fwd_partials", "reg_fwd_tree_sum",
+               "reg_fwd_sum", "reg_bwd_dlogp", "reg_bwd_dw",
+               "bsp_fwd_partials", "bsp_bwd_bterm", "bsp_bwd_dlogp",
+               "bsp_bwd_dw")
 
 
 def paper_config(n_epochs: int = 1, layout_bt: int | None = None,

@@ -1,7 +1,10 @@
-// Dynamic shared memory past the default allowance, used by K5
-// (graph_reg_bsp.cu) and K8 (pairwise.cu).  A kernel may take 48 KB of
-// shared memory, static and dynamic together, unless it first raises its
-// cudaFuncAttributeMaxDynamicSharedMemorySize on the current device.
+// Per-device queries of the launches, each asked once per device.
+//
+// Dynamic shared memory past the default allowance, used by K1, K2 and K10
+// (graph_reg.cu), K5 (graph_reg_bsp.cu) and K8 (pairwise.cu).  A kernel
+// may take 48 KB of shared memory, static and dynamic together, unless it
+// first raises its cudaFuncAttributeMaxDynamicSharedMemorySize on the
+// current device.
 // allow_dynamic_smem<kernel>(bytes) raises it only when a launch needs
 // more than the device allows the kernel now, and keeps that allowance
 // per device, so a launch of a shape that has run before (also one under
@@ -35,6 +38,23 @@ cudaError_t allow_dynamic_smem(size_t bytes) {
                                static_cast<int>(bytes));
     if (err == cudaSuccess) allowed[dev] = bytes;
     return err;
+}
+
+// The number of SMs of the current device, which K1 and K2 size their
+// grids to fill.
+inline cudaError_t sm_count(int* n) {
+    static int known[kSmemMaxDevices];   // per device, 0 until asked
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kSmemMaxDevices) return cudaErrorInvalidDevice;
+    if (known[dev] == 0) {
+        err = cudaDeviceGetAttribute(&known[dev],
+                                     cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+    }
+    *n = known[dev];
+    return cudaSuccess;
 }
 
 }  // namespace

@@ -21,10 +21,11 @@
 // without the degree and entropy terms (kFull = false), with K1's second
 // pass, so it equals K1 at (gc, kappa, ge) = (1, 0, 0).
 //
-// K1, K2 and K10 (redesigned in PR 17) keep the bits of the kernels they
-// replace: the same sums in the same orders, now from cp.async pipelines
-// that fill every SM; their entry points first copy logP (and P) into
-// class-padded rows (pad_classes) in a workspace the caller allocates.
+// K1, K2 and K10 keep the bits of the strip kernels they replaced: the
+// same sums in the same orders, now from cp.async pipelines that fill
+// every SM; their entry points first copy logP (and P) into class-padded
+// rows (pad_classes) in a workspace the caller allocates, of the size
+// graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.
 // Padding is done with masks elsewhere (graph_reg_tiles.cuh).
 //
 // No float atomics: every output element and every partial sum has exactly
@@ -44,28 +45,18 @@ namespace {
 // A launch takes as few rows per block as fill each SM once (units of
 // `step` rows, at most `max_rows`): 20 rows for K1 at the path's B = 2176
 // on 132 SMs (109 blocks), and 36 for each of K2's two-block clusters (61
-// clusters on 122 SMs).  The number of rows changes no sum's order.
-int sm_count(int* n) {
-    static int known[64];   // per device, 0 until asked
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (known[dev] == 0) {
-        err = cudaDeviceGetAttribute(&known[dev],
-                                     cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    *n = known[dev];
-    return 0;
-}
-
+// clusters on 122 SMs; the SM count from dynamic_smem.cuh's sm_count).
+// The number of rows changes no sum's order.
 int rows_to_fill(int64_t rows_total, int n_sm, int step, int max_rows) {
     const int64_t per_sm = (rows_total + n_sm - 1) / n_sm;
     const int64_t rows = (per_sm + step - 1) / step * step;
     return static_cast<int>(rows < step ? step
                             : rows > max_rows ? max_rows : rows);
 }
+
+// K1 / K10 pass 1's partials: one per thread of each worker's 32-row
+// strips.
+int fwd_n_partials(int k, int B) { return k * ((B + 31) / 32) * kThreads; }
 
 // Cell (a, b) of a row-major (n_a x nb) grid, visited at e = start,
 // start + step, ...: each next cell from the last one without a division.
@@ -152,7 +143,7 @@ int launch_pad(const float* X, const float* Y, int64_t rows, int C,
 // broadcast, its logP rows padded to an odd number of 16-byte groups:
 // conflict-free), 8 loads per 64 FMAs, then feeds its chain the first
 // tile's values and then the second's.  Pass 1 writes every thread's
-// value (graph_reg_fwd_n_partials: k * strips * 256 floats); pass 2
+// value (fwd_n_partials: k * strips * 256 floats); pass 2
 // applies block_sum's tree to each strip's 256 and adds the strips in
 // order.  kFull = false (K10) drops the degrees and entropies.
 constexpr int kFwdTile = 64;      // columns per tile: the chains' order
@@ -759,12 +750,17 @@ reg_bwd_dw(const float* __restrict__ P, const float* __restrict__ L,
 
 extern "C" {
 
-// Number of K1 partials a (k, B) launch writes, one per thread of each
-// worker's 32-row strips.  The caller allocates them and, after them, k *
-// B * C4 floats for the class-padded copy of logP (C4 = C rounded up to
-// 4).
-int graph_reg_fwd_n_partials(int k, int B) {
-    return k * ((B + 31) / 32) * kThreads;
+// Floats of a K1 / K10 launch's workspace: pass 1's partials, one per
+// thread of each worker's 32-row strips, then the class-padded copy of
+// logP, k * B * C4 floats (C4 = C rounded up to 4).
+int graph_reg_fwd_workspace(int k, int B, int C) {
+    return fwd_n_partials(k, B) + k * B * pad4(C);
+}
+
+// Floats of a K2 launch's workspace: the class-padded copies of P and of
+// logP, k * B * C4 floats each.
+int graph_reg_bwd_dlogp_workspace(int k, int B, int C) {
+    return 2 * k * B * pad4(C);
 }
 
 // Rows per block and dynamic shared memory (bytes) of a K1 / K10 launch.
@@ -772,8 +768,8 @@ int graph_reg_fwd_plan(int k, int B, int C, int* rows, int* smem) {
     if (k < 1 || B < 1 || C < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     int n_sm = 0;
-    const int rc = sm_count(&n_sm);
-    if (rc != 0) return rc;
+    const cudaError_t err = sm_count(&n_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
     *rows = rows_to_fill((int64_t)k * 32 * ((B + 31) / 32),
                          n_sm, 4, 4 * kFwdMaxPairs);
     *smem = static_cast<int>(sizeof(float)) * fwd_smem_floats(*rows, C);
@@ -785,8 +781,8 @@ int graph_reg_bwd_dlogp_plan(int k, int B, int C, int* rows, int* smem) {
     if (k < 1 || B < 1 || C < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     int n_sm = 0;
-    const int rc = sm_count(&n_sm);
-    if (rc != 0) return rc;
+    const cudaError_t err = sm_count(&n_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int quads = dl_quads(C);
     const int n_chunks = (C + 4 * kDlMaxQuads - 1) / (4 * kDlMaxQuads);
     const int fit = 2 * (kDlMaxThreads / quads);
@@ -807,12 +803,13 @@ namespace {
 
 template <bool kFull>
 int launch_fwd(const void* p, const void* logp, const void* W, int k, int B,
-               int C, float gc, float kappa, float ge, void* partials,
+               int C, float gc, float kappa, float ge, void* workspace,
                void* out, cudaStream_t s) {
     int rows = 0, smem = 0;
     int rc = graph_reg_fwd_plan(k, B, C, &rows, &smem);
     if (rc != 0) return rc;
-    float* L4 = static_cast<float*>(partials) + graph_reg_fwd_n_partials(k, B);
+    float* partials = static_cast<float*>(workspace);
+    float* L4 = partials + fwd_n_partials(k, B);
     rc = launch_pad(static_cast<const float*>(logp), nullptr, (int64_t)k * B,
                     C, L4, nullptr, s);
     if (rc != 0) return rc;
@@ -825,12 +822,11 @@ int launch_fwd(const void* p, const void* logp, const void* W, int k, int B,
         <<<dim3((8 * n_strips + pairs - 1) / pairs, 1, k), 32 * pairs, smem,
            s>>>(static_cast<const float*>(p), static_cast<const float*>(logp),
                 L4, static_cast<const float*>(W), B, C, gc, kappa, ge, vec_w,
-                static_cast<float*>(partials));
+                partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    reg_fwd_tree_sum<<<k, kSumThreads, 0, s>>>(
-        static_cast<const float*>(partials), n_strips,
-        static_cast<float*>(out));
+    reg_fwd_tree_sum<<<k, kSumThreads, 0, s>>>(partials, n_strips,
+                                                static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -838,26 +834,29 @@ int launch_fwd(const void* p, const void* logp, const void* W, int k, int B,
 
 extern "C" {
 
+// workspace holds graph_reg_fwd_workspace(k, B, C) floats, 16-byte
+// aligned; out holds k floats.
 int graph_reg_fwd(const void* p, const void* logp, const void* W, int k,
                   int B, int C, float gc, float kappa, float ge,
-                  void* partials, void* out, void* stream) {
-    return launch_fwd<true>(p, logp, W, k, B, C, gc, kappa, ge, partials,
+                  void* workspace, void* out, void* stream) {
+    return launch_fwd<true>(p, logp, W, k, B, C, gc, kappa, ge, workspace,
                             out, static_cast<cudaStream_t>(stream));
 }
 
-// K10: logp and p (B, C), W (B, B), no worker axis; out is one float.
-// partials holds graph_reg_fwd_n_partials(1, B) + B * C4 floats.
+// K10: logp and p (B, C), W (B, B), no worker axis; workspace holds
+// graph_reg_fwd_workspace(1, B, C) floats; out is one float.
 int graph_reg_pairwise(const void* p, const void* logp, const void* W, int B,
-                       int C, void* partials, void* out, void* stream) {
-    return launch_fwd<false>(p, logp, W, 1, B, C, 1.f, 0.f, 0.f, partials,
+                       int C, void* workspace, void* out, void* stream) {
+    return launch_fwd<false>(p, logp, W, 1, B, C, 1.f, 0.f, 0.f, workspace,
                              out, static_cast<cudaStream_t>(stream));
 }
 
-// dlogp holds the (k, B, C) output, then, from the next multiple of 4
-// floats, 2 * k * B * C4 floats for the class-padded copies of P and logP.
+// workspace holds graph_reg_bwd_dlogp_workspace(k, B, C) floats, 16-byte
+// aligned; dlogp is the (k, B, C) output.
 int graph_reg_bwd_dlogp(const void* p, const void* logp, const void* W,
                         const void* g, int k, int B, int C, float gc,
-                        float kappa, float ge, void* dlogp, void* stream) {
+                        float kappa, float ge, void* workspace, void* dlogp,
+                        void* stream) {
     int rows = 0, smem = 0;
     int rc = graph_reg_bwd_dlogp_plan(k, B, C, &rows, &smem);
     if (rc != 0) return rc;
@@ -866,10 +865,8 @@ int graph_reg_bwd_dlogp(const void* p, const void* logp, const void* W,
     const cudaError_t err = allow_dynamic_smem<reg_bwd_dlogp>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // The class-padded copies follow the output, from the next 16 bytes.
-    const int64_t n_out = (int64_t)k * B * C, n_pad = (int64_t)k * B * pad4(C);
-    float* P4 = static_cast<float*>(dlogp) + (n_out + 3) / 4 * 4;
-    float* L4 = P4 + n_pad;
+    float* P4 = static_cast<float*>(workspace);
+    float* L4 = P4 + (int64_t)k * B * pad4(C);
     rc = launch_pad(static_cast<const float*>(p),
                     static_cast<const float*>(logp), (int64_t)k * B, C, P4, L4,
                     s);

@@ -79,12 +79,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "graph_reg_fwd_n_partials": (_I, _I),
+    "graph_reg_fwd_workspace": (_I, _I, _I),
+    "graph_reg_bwd_dlogp_workspace": (_I, _I, _I),
     "graph_reg_fwd_plan": (_I, _I, _I, _P, _P),
     "graph_reg_bwd_dlogp_plan": (_I, _I, _I, _P, _P),
     "graph_reg_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     "graph_reg_pairwise": (_P, _P, _P, _I, _I, _P, _P, _P),
-    "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P),
+    "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
+                            _P),
     "graph_reg_bwd_dw": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
 }
 
@@ -137,11 +139,12 @@ def _dims(logp: torch.Tensor) -> tuple[int, int, int]:
     return tuple(logp.shape)
 
 
-def _padded(k: int, B: int, C: int) -> int:
-    """Floats of a class-padded (k, B, C4) copy, C4 = C rounded up to 4:
-    the kernels' workspace beside their partials or output
-    (``csrc/graph_reg.cu``, ``pad_classes``)."""
-    return k * B * (-(-C // 4) * 4)
+def _workspace(name: str, k: int, B: int, C: int,
+               device: torch.device) -> torch.Tensor:
+    """The workspace of one K1 / K10 (``"graph_reg_fwd"``) or K2
+    (``"graph_reg_bwd_dlogp"``) launch, of the size the library gives."""
+    n = getattr(_lib(), f"{name}_workspace")(k, B, C)
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def launch_plan(name: str, k: int, B: int, C: int) -> dict:
@@ -162,14 +165,12 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
         return ref.reg_forward_ref(logp, W, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    partials = torch.empty(_lib().graph_reg_fwd_n_partials(k, B)
-                           + _padded(k, B, C), dtype=torch.float32,
-                           device=logp.device)
+    work = _workspace("graph_reg_fwd", k, B, C, logp.device)
     out = torch.empty(k, dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_fwd(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
         _checked(W, "W", (k, B, B)), k, B, C, gc, kappa, ge,
-        partials.data_ptr(), out.data_ptr(), _stream(logp))
+        work.data_ptr(), out.data_ptr(), _stream(logp))
     _raise_on(rc, "graph_reg_fwd")
     reg_forward.launches += 1
     return out
@@ -186,13 +187,11 @@ def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
                          f"got {tuple(logp.shape)}")
     B, C = logp.shape
     p = torch.exp(logp) if p is None else p
-    partials = torch.empty(_lib().graph_reg_fwd_n_partials(1, B)
-                           + _padded(1, B, C), dtype=torch.float32,
-                           device=logp.device)
+    work = _workspace("graph_reg_fwd", 1, B, C, logp.device)
     out = torch.empty((), dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_pairwise(
         _checked(p, "p", (B, C)), _checked(logp, "logp", (B, C)),
-        _checked(W, "W", (B, B)), B, C, partials.data_ptr(), out.data_ptr(),
+        _checked(W, "W", (B, B)), B, C, work.data_ptr(), out.data_ptr(),
         _stream(logp))
     _raise_on(rc, "graph_reg_pairwise")
     reg_pairwise.launches += 1
@@ -208,15 +207,12 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
         return ref.reg_bwd_dlogp_ref(logp, W, g, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    # The output, then (16-byte aligned) the class-padded P and logP.
-    n_out = k * B * C
-    buf = torch.empty(-(-n_out // 4) * 4 + 2 * _padded(k, B, C),
-                      dtype=torch.float32, device=logp.device)
-    out = buf[:n_out].view(k, B, C)
+    work = _workspace("graph_reg_bwd_dlogp", k, B, C, logp.device)
+    out = torch.empty(k, B, C, dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_bwd_dlogp(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
         _checked(W, "W", (k, B, B)), _checked(g, "g", (k,)), k, B, C, gc,
-        kappa, ge, out.data_ptr(), _stream(logp))
+        kappa, ge, work.data_ptr(), out.data_ptr(), _stream(logp))
     _raise_on(rc, "graph_reg_bwd_dlogp")
     reg_bwd_dlogp.launches += 1
     return out

@@ -45,8 +45,8 @@ from . import build, ref
 from .graph_reg import _checked, _on_cpu, _raise_on, _stream
 from .tuning import TileSpec, refuse_pinned
 
-__all__ = ["knn_topk", "rbf_affinity", "K_MAX", "route", "list_bytes",
-           "WRAPPERS", "SOURCE"]
+__all__ = ["knn_topk", "rbf_affinity", "K_MAX", "route", "WRAPPERS",
+           "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/pairwise.cu"
 
@@ -55,10 +55,6 @@ SOURCE = "src/repro_torch/csrc/pairwise.cu"
 #: pairs live in shared memory, 64 KB at k = 256.  Past it the lists live
 #: in the outputs (the global route).
 K_MAX = 256
-#: Rows of a block's lists (``kRows``) and bytes of one list entry
-#: (``kListEntryBytes``: a float d2 and an int index).
-_LIST_ROWS = 32
-_LIST_ENTRY_BYTES = 8
 
 
 def route(k: int) -> str:
@@ -67,12 +63,6 @@ def route(k: int) -> str:
     outputs).  Chosen by k alone; both give the same lists."""
     return "shared" if k <= K_MAX else "global"
 
-
-def list_bytes(N: int, k: int) -> int:
-    """Bytes that hold K8's running lists: a block's shared memory on the
-    shared route, the N·k outputs the wrapper allocates on the global
-    route."""
-    return (_LIST_ROWS if route(k) == "shared" else N) * k * _LIST_ENTRY_BYTES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

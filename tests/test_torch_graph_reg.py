@@ -217,16 +217,3 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
                              "graph_reg_bsp_dw", "graph_reg_pairwise",
                              "knn_topk", "rbf_affinity", "flash_attention")}
 
-
-@pytest.mark.parametrize("k,B,C", [(1, 2176, 39), (2, 1000, 1), (3, 1001, 100),
-                                   (1, 33, 128)])
-def test_workspace_holds_the_class_padded_copies(k, B, C):
-    """K1, K2 and K10 read logP (and P) from class-padded copies that their
-    entry points write into space the wrappers allocate beside the partials
-    or the output: k * B rows of C rounded up to 4, as ``pad4`` in the
-    source rounds it."""
-    from pathlib import Path
-    src = (Path(__file__).resolve().parents[1] / gr.SOURCE).read_text()
-    assert "int pad4(int C) { return (C + 3) / 4 * 4; }" in src
-    assert gr._padded(k, B, C) == k * B * (-(-C // 4) * 4)
-    assert gr._padded(k, B, C) % 4 == 0   # each copy starts 16-byte aligned

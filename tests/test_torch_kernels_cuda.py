@@ -64,7 +64,7 @@ def _close(got, want, rtol=2e-5):
 @pytest.mark.parametrize("k,B,C", [(2, 200, 8), (2, 200, 39), (2, 257, 70)]
                          + [(k, B, C) for k in (1, 3)
                             for B in (1, 31, 33, 1000, 1001)
-                            for C in (1, 39, 100, 128)])
+                            for C in (1, 39, 100, 128, 200)])
 def test_kernels_match_plain_versions(cuda, k, B, C):
     probs = [_problem(B, C, seed=s) for s in range(k)]
     logp = torch.stack([p[0] for p in probs]).to(cuda)

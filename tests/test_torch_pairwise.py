@@ -157,21 +157,23 @@ def test_k_max_is_the_kernels_limit():
 
 @pytest.mark.parametrize("k", [1, 10, 256, 257, 300, 1000])
 def test_knn_route_and_list_bytes_follow_the_source(k):
-    """K8 keeps its lists in shared memory up to kKMax and in the outputs
-    past it, by k alone; the bytes that hold them follow the source's
-    constants (kRows rows a block, kListEntryBytes an entry)."""
+    """K8 keeps its lists in shared memory up to kKMax and in the rows of
+    its outputs past it, by k alone.  The outputs hold a row's list on the
+    global route, so one (d2, index) pair of theirs takes the source's
+    kListEntryBytes: N·k of them are all the lists need, no workspace."""
     src = (ROOT / pairwise.SOURCE).read_text()
-    tiles = (ROOT / pairwise.SOURCE).with_name("graph_reg_tiles.cuh")
     k_max = int(re.search(r"kKMax = (\d+);", src).group(1))
-    rows = int(re.search(r"kRows = (\d+);", tiles.read_text()).group(1))
-    assert re.search(r"kListEntryBytes = sizeof\(float\) \+ sizeof\(int\);",
-                     src)
     assert "if (k > kKMax) {" in src
-    N = 4000
-    route = "shared" if k <= k_max else "global"
-    assert pairwise.route(k) == route
-    assert pairwise.list_bytes(N, k) == (rows if route == "shared" else N) \
-        * k * (4 + 4)
+    assert pairwise.route(k) == ("shared" if k <= k_max else "global")
+    entry = re.search(r"kListEntryBytes = sizeof\(float\) \+ sizeof\(int\);",
+                      src)
+    assert entry
+    N, M = 3, k + 1
+    x, y = (torch.tensor(a) for a in _xy(N, M, 4))
+    d2, idx = pairwise.knn_topk(x, y, k)
+    assert (d2.dtype, idx.dtype) == (torch.float32, torch.int32)
+    assert d2.shape == idx.shape == (N, k)
+    assert d2.nbytes + idx.nbytes == N * k * (4 + 4)
 
 
 # ------------------------------------------------------------- K9 RBF
