@@ -51,7 +51,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
    ``--against`` K1, K2, K3, K5 and K10 built from DIR, which must give
    the same bits (K1, K2 and K10 also at k = 3, B = 1001, C = 100 and at
-   B = 1001, C = 200); the redesigned K1 and K2 also at k in {1, 3}, B in
+   B = 1001, C = 200; K8 at k = 10, 40, 300 on 4,000 rows and 1,000 on
+   2,000 rows, K9 on the path's rows and at 1000 × 333, each timed in
+   turns but k = 40 and the ragged K9); the redesigned K1 and K2 also at
+   k in {1, 3}, B in
    {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, and K10 == K1 at
    (1, 0, 0) at B = 1001; K8 (streaming top-k) on the whole corpus at
    k = 10 (the path's)
@@ -59,7 +62,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    1,000 on 2,000 rows (global route, timed), against the dense plain
    version (|Δd2| ≤ 1e-5·(‖x_i‖² + ‖y_j‖²), indices equal except at near
    ties), K9 (RBF block) on the path's meta-batch rows with the graph's
-   sigma, K10 (bare cross term) on the path's block and a ragged one; each
+   sigma (128-row tiles), a ragged 1000 × 333 block and the first 2176
+   corpus rows (64-row tiles, timed), K10 (bare cross term) on the path's
+   block and a ragged one; each
    repeated bit for bit and timed beside its plain version and, for K8
    and K9, a PyTorch call (``mm`` and ``cdist``, which compute only the
    products or distances); K9 and K10 then once through their ``ops``
@@ -80,7 +85,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    ``loss/total`` must equal the dense epoch's bit for bit; then its
    W-gradient path, which must launch K4, K5, K6 and K7 once;
 9. one epoch on the device-built graph: K1 and K2 once per step, K8 and
-   every other kernel 0 times; then one on the host graph's edges and
+   every other kernel 0 times, its loss/total printed beside the one
+   measured before K8's redesign; then one on the host graph's edges and
    plan with the device graph's weights, whose loss/total is compared
    with the device epoch's (a measurement: the weights' round-off alone,
    or not);
@@ -415,11 +421,13 @@ def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
         return {}
     times = timed(kern, plain)
     mm_ms = graph_ms(lambda: torch.mm(x, x.T))
+    plan = pairwise.launch_plan("knn_topk", N, N, D, k, same=True)
     print(f"knn_topk: {times['ms']:.3f} ms; plain (dense matrix + stable "
           f"sort) {times['plain_ms']:.3f} ms; no PyTorch call computes the "
           f"top-k without the N×N matrix: torch.mm(x, x.T) alone takes "
-          f"{mm_ms:.3f} ms")
-    return {"route": pairwise.route(k), "max_abs_err": float(err.max()),
+          f"{mm_ms:.3f} ms ({times['ms'] / mm_ms:.3f}×); plan {plan}")
+    return {"route": pairwise.route(k), **plan, "mm_ms": mm_ms,
+            "max_abs_err": float(err.max()),
             "tol": D2_RTOL,
             "tol_rule": f"|Δd2| ≤ tol·(‖x_i‖²+‖y_j‖²); indices equal but "
                         f"at near ties ({len(mis_r)} here)",
@@ -430,16 +438,21 @@ def knn_kernel_phase(X, k: int, with_times: bool = True) -> dict:
                               2.0 * N * N * D + 3.0 * N * N)}
 
 
-def rbf_kernel_phase(X, sigma: float) -> dict:
-    """K9 on the path's meta-batch rows (x = y) with the graph's sigma."""
+def rbf_kernel_phase(X, sigma: float, corpus) -> dict:
+    """K9 on the path's meta-batch rows X (x = y) with the graph's sigma,
+    on a ragged block, and on the first P = 2176 corpus rows, where its
+    plan takes 64-row tiles (the path's block takes 128), timed too."""
     import numpy as np
     import torch
     from repro_torch.kernels import pairwise, ref
 
     x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
+    xp = torch.from_numpy(np.ascontiguousarray(corpus[:2176],
+                                               np.float32)).cuda()
     n, D = x.shape
     records = {}
-    cases = (("path", x, x), ("ragged", x[:1000], x[:333].contiguous()))
+    cases = (("path", x, x), ("ragged", x[:1000], x[:333].contiguous()),
+             ("P×P", xp, xp))
     for label, a_in, b_in in cases:
         def kern():
             return pairwise.rbf_affinity(a_in, b_in, sigma)
@@ -463,7 +476,13 @@ def rbf_kernel_phase(X, sigma: float) -> dict:
         check(math.isfinite(over) and over <= 1.0,
               f"{where} disagrees with its plain version")
         if label == "path":
+            plan = pairwise.launch_plan("rbf_affinity", n, n, D, same=True)
             records = {"max_abs_err": float(err.max()), "tol": 2e-5,
+                       "library": "torch.cdist",
+                       "rows_per_block": plan["rows_per_block"],
+                       "dynamic_smem_bytes": 4 * pairwise.D2_STAGES
+                       * pairwise.D2_K * (plan["rows_per_block"]
+                                          + pairwise.D2_COLS),
                        "tol_rule": f"|Δw| ≤ tol + w·√({D2_RTOL:g}·(‖x_i‖²+"
                                    f"‖y_j‖²))/(2σ²)",
                        "note": "library_ms is torch.cdist(x, x): the "
@@ -472,6 +491,19 @@ def rbf_kernel_phase(X, sigma: float) -> dict:
                        **timed(kern, plain, lambda: torch.cdist(x, x)),
                        "bound": bound_ms(4.0 * (n * D + n + n * n),
                                          2.0 * n * n * D + 6.0 * n * n)}
+        if label == "P×P":
+            m = len(xp)
+            times = timed(kern, plain, lambda: torch.cdist(xp, xp))
+            records["P×P"] = {
+                **pairwise.launch_plan("rbf_affinity", m, m, D, same=True),
+                **{key: times[key] for key in ("ms", "plain_ms",
+                                               "library_ms", "rounds")},
+                "bound_ms": bound_ms(4.0 * (m * D + m + m * m),
+                                     2.0 * m * m * D + 6.0 * m * m)[0]}
+            print(f"rbf_affinity [P×P, {m} rows]: {times['ms']:.4f} ms "
+                  f"({records['P×P']['rows_per_block']}-row tiles), plain "
+                  f"{times['plain_ms']:.4f} ms, torch.cdist "
+                  f"{times['library_ms']:.4f} ms")
     print(f"rbf_affinity: {records['ms']:.4f} ms; library torch.cdist(x, x) "
           f"{records['library_ms']:.4f} ms computes the distances only")
     return records
@@ -1112,6 +1144,13 @@ ATTN_TOL_RULE = ("f32: |Δ| ≤ 3e-5; bf16: |Δ| ≤ 2^-8·max|want| + "
 SERVE_RTOL = 1e-4
 
 
+#: The device-graph epoch's loss/total before K8's redesign (an NVIDIA
+#: H100 80GB HBM3 at a 700.00 W power limit, two runs): K8 keeps its bits,
+#: so the device graph, its plan and this loss stay the same unless the
+#: card's libraries change the epoch's other sums.
+DEVICE_EPOCH_LOSS = 5.892054557800293
+
+
 #: The full prefill with K11 on the FMA kernel (64-key tiles, no tensor
 #: cores), B 4 × T 2048, second call, on an NVIDIA H100 80GB HBM3 at a
 #: 700.00 W power limit (two runs; PERF.md names them).
@@ -1173,6 +1212,35 @@ def redesign_build_report() -> dict:
         print(f"{kernel} (-Xptxas -v): {r['registers']} registers, "
               f"{r['static_smem_bytes']} bytes of static shared memory, "
               f"{r['spill_bytes']} bytes spilled")
+    return rec
+
+
+def pairwise_build_report() -> dict:
+    """Registers, spills and static shared memory of every kernel of
+    ``pairwise.cu`` (K8's three instantiations, its segment merge and the
+    packing, K9 at 128- and 64-row tiles); no spill is allowed.  Keys:
+    ``knn_topk`` (shared lists, k ≤ 32: the path's), ``knn_topk_shared``
+    (33 ≤ k ≤ K_MAX), ``knn_topk_global``, ``rbf_affinity`` by tile
+    rows."""
+    import re
+    rec = {"rbf_affinity": {}}
+    knn = {("0", "1"): "knn_topk", ("0", "0"): "knn_topk_shared",
+           ("1", "0"): "knn_topk_global"}
+    for kernel, r in ptxas_entries("pairwise"):
+        check(r["spill_bytes"] == 0, f"{kernel} spills: {r}")
+        m = re.search(r"(knn_topk_kernelILb([01])ELb([01])E|rbf_affinity_"
+                      r"kernelILi(\d+)E|knn_merge_segments|pack_t)", kernel)
+        check(m is not None, f"an unknown kernel in pairwise.cu: {kernel}")
+        if m.group(2) is not None:
+            rec[knn[m.group(2), m.group(3)]] = r
+        elif m.group(4) is not None:
+            rec["rbf_affinity"][int(m.group(4))] = r
+        print(f"{m.group(1)} (-Xptxas -v): {r['registers']} registers, "
+              f"{r['static_smem_bytes']} bytes of static shared memory, "
+              f"{r['spill_bytes']} bytes spilled")
+    check(sorted(rec["rbf_affinity"]) == [64, 128]
+          and all(name in rec for name in knn.values()),
+          f"no compiler report for K8's or K9's kernels: {sorted(rec)}")
     return rec
 
 
@@ -1522,7 +1590,56 @@ def legacy_graph_reg_calls(lib) -> dict:
             "graph_reg_bwd_dlogp": dlogp}
 
 
-def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
+#: C entry points of K8 and K9 in a checkout from before their workspaces
+#: (no plan functions): ``against_phase`` calls such a library through
+#: these.
+LEGACY_PAIRWISE = {"knn_topk": tuple("PPPPIIIIIPPP"),
+                   "rbf_affinity": tuple("PPPPIIIFPP")}
+
+
+def legacy_pairwise_calls(lib) -> dict:
+    """K8 and K9 through a library of the interface before their
+    workspaces: ``knn_topk(x, y, k, exclude_self)`` and
+    ``rbf_affinity(x, y, sigma)``, as the wrappers call them."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import graph_reg as gr
+    kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+    for name, args in LEGACY_PAIRWISE.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[a] for a in args]
+        fn.restype = ctypes.c_int
+
+    def operands(x, y):
+        nx = torch.sum(x * x, dim=1)
+        return nx, nx if y is x else torch.sum(y * y, dim=1)
+
+    def knn(x, y, k, exclude_self):
+        (N, D), M = x.shape, y.shape[0]
+        nx, ny = operands(x, y)
+        d2 = torch.empty(N, k, device="cuda")
+        idx = torch.empty(N, k, dtype=torch.int32, device="cuda")
+        gr._raise_on(lib.knn_topk(
+            x.data_ptr(), y.data_ptr(), nx.data_ptr(), ny.data_ptr(), N, M,
+            D, k, int(exclude_self), d2.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "knn_topk")
+        return d2, idx
+
+    def rbf(x, y, sigma):
+        (N, D), M = x.shape, y.shape[0]
+        nx, ny = operands(x, y)
+        out = torch.empty(N, M, device="cuda")
+        gr._raise_on(lib.rbf_affinity(
+            x.data_ptr(), y.data_ptr(), nx.data_ptr(), ny.data_ptr(), N, M,
+            D, float(sigma), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "rbf_affinity")
+        return out
+
+    return {"knn_topk": knn, "rbf_affinity": rbf}
+
+
+def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
+                  rows_x, sigma: float) -> dict:
     """The redesigned K1, K2, K3, K5 and K10 in turns with the same C entry
     points built from another checkout's sources (``--against DIR``, e.g.
     the parent commit unpacked with ``git archive``): the same wrapper and
@@ -1531,8 +1648,14 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     must agree bit for bit (the redesigns keep every sum's order).  K1, K2
     and K10 are also held bit for bit against the other build at k = 3, B
     = 1001, C = 100 (4-byte copies of W's rows, K1's class chunks) and at
-    B = 1001, C = 200 (K2's class chunks).  A library from before K1's and
-    K2's workspaces is called through :func:`legacy_graph_reg_calls`."""
+    B = 1001, C = 200 (K2's class chunks).  K8 and K9 (redesigned on the
+    distance engine, bits kept) likewise: K8 on the corpus X at k = 10 and
+    on its first 4,000 rows at k = 300 and 2,000 at k = 1,000 (the global
+    route), K9 on the path's rows ``rows_x`` with ``sigma``, each timed in
+    turns, and bits alone at k = 40 and K9's ragged 1000 × 333.  A library
+    from before K1's and K2's workspaces is called through
+    :func:`legacy_graph_reg_calls`, one from before K8's and K9's through
+    :func:`legacy_pairwise_calls`."""
     import ctypes
     import numpy as np
     import torch
@@ -1541,10 +1664,11 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import graph_reg_bsp as bsp
+    from repro_torch.kernels import pairwise
 
     out_dir = build.build_dir() / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    modules = {"graph_reg": gr, "graph_reg_bsp": bsp}
+    modules = {"graph_reg": gr, "graph_reg_bsp": bsp, "pairwise": pairwise}
 
     def compile_one(src: str) -> Path:
         lib = out_dir / f"lib{src}.so"
@@ -1561,14 +1685,17 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     libs = {}
     for src, module in modules.items():
         lib = ctypes.CDLL(str(paths[src]))
-        for fn_name, args in module._SIGNATURES.items():
-            if hasattr(lib, fn_name):   # entry points the other tree has
-                fn = getattr(lib, fn_name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+        if src != "pairwise" or hasattr(lib, "knn_topk_plan"):
+            for fn_name, args in module._SIGNATURES.items():
+                if hasattr(lib, fn_name):   # entry points the other tree has
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
         libs[src] = lib
     legacy = ({} if hasattr(libs["graph_reg"], "graph_reg_fwd_workspace")
               else legacy_graph_reg_calls(libs["graph_reg"]))
+    legacy_pw = ({} if hasattr(libs["pairwise"], "knn_topk_plan")
+                 else legacy_pairwise_calls(libs["pairwise"]))
 
     def swapped(fn, module, lib):
         """``fn`` with ``module``'s wrappers launching ``lib``'s kernels."""
@@ -1655,6 +1782,63 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float) -> dict:
     for name in this_k:
         records[name]["bit_equal_shapes"] = [
             where for where in shapes if where.startswith(f"{name} [")]
+
+    # K8 and K9: this build's wrappers, and the other build's kernels.
+    def other_pw(name, *args):
+        if legacy_pw:
+            return lambda: legacy_pw[name](*args)
+        this = {"knn_topk": lambda x, y, k, ex: pairwise.knn_topk(
+                    x, y, k, exclude_self=ex),
+                "rbf_affinity": pairwise.rbf_affinity}[name]
+        return swapped(lambda: this(*args), pairwise, libs["pairwise"])
+
+    x = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
+    xr = torch.from_numpy(np.ascontiguousarray(rows_x, np.float32)).cuda()
+    cases = [("knn_topk", f"N={n} k={k}", (x[:n], x[:n], k, True), t)
+             for n, k, t in ((len(x), 10, True), (len(x), 40, False),
+                             (4000, 300, True), (2000, 1000, True))]
+    cases += [("rbf_affinity", "path", (xr, xr, sigma), True),
+              ("rbf_affinity", "ragged 1000 × 333",
+               (x[:1000], x[:333], sigma), False)]
+    pw_shapes = []
+    for name, where, args, with_times in cases:
+        if name == "knn_topk":
+            xa, ya, k, ex = args
+            call = (lambda xa=xa, k=k, ex=ex:
+                    pairwise.knn_topk(xa, xa, k, exclude_self=ex))
+            run_other = other_pw(name, xa, xa, k, ex)
+        else:
+            xa, ya, sg = args
+            call = lambda xa=xa, ya=ya, sg=sg: pairwise.rbf_affinity(xa, ya,
+                                                                     sg)
+            run_other = other_pw(name, xa, ya, sg)
+        this, other = call(), run_other()
+        torch.cuda.synchronize()
+        same = (torch.equal(this[0], other[0])
+                and torch.equal(this[1], other[1])
+                if name == "knn_topk" else torch.equal(this, other))
+        check(same, f"{name} [{where}]: this checkout's kernel and "
+              f"{root}'s differ")
+        pw_shapes.append(f"{name} [{where}]")
+        if not with_times:
+            continue
+        rounds = {"ms": [], "against_ms": []}
+        for _ in range(2):
+            rounds["ms"].append(graph_ms(call))
+            rounds["against_ms"].append(graph_ms(run_other))
+        rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+        rec["rounds"] = rounds
+        print(f"{name} [{where}, CUDA graphs, in turns]: this checkout "
+              f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
+              f"(rounds {rounds}); outputs equal bit for bit")
+        if name == "knn_topk" and where != f"N={len(x)} k=10":
+            records["knn_topk"].setdefault("global_route", {})[where] = rec
+        else:
+            records[name] = {**rec, **records.get(name, {})}
+    print(f"K8 and K9 equal {root}'s bit for bit at {', '.join(pw_shapes)}")
+    for name in ("knn_topk", "rbf_affinity"):
+        records[name]["bit_equal_shapes"] = [
+            where for where in pw_shapes if where.startswith(f"{name} [")]
     return records
 
 
@@ -1662,9 +1846,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None, metavar="DIR",
-                    help="also time the redesigned K1, K2, K3, K5 and K10 "
-                         "in turns with the same entry points built from "
-                         "DIR's sources")
+                    help="also time the redesigned K1, K2, K3, K5, K8, K9 "
+                         "and K10 in turns with the same entry points built "
+                         "from DIR's sources")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1693,6 +1877,7 @@ def main() -> int:
     build_all()
     fa_build = flash_attention_build_report()
     redesign_build = redesign_build_report()
+    pw_build = pairwise_build_report()
     t0 = time.time()
     exp = Experiment(paper_config(), device="cuda").build()
     P = exp.pipeline.__self__.pad
@@ -1705,20 +1890,22 @@ def main() -> int:
     records = kernel_phase(W_path, obj.gamma, obj.kappa)
     records.update(bsp_kernel_phase(W_path, obj.gamma, obj.kappa))
     redesign_cases_phase(P)
+    rows_x = exp.corpus.X[block_rows(exp, P)]
     against = ({} if args.against is None else
                against_phase(args.against.resolve(), W_path, obj.gamma,
-                             obj.kappa))
+                             obj.kappa, exp.corpus.X, rows_x,
+                             exp.graph.sigma))
     records["knn_topk"] = knn_kernel_phase(exp.corpus.X, exp.config.graph.k)
     knn_kernel_phase(exp.corpus.X, 40, with_times=False)   # lists past one warp
     # Past K_MAX the lists live in the outputs (the global route).
     records["knn_topk"]["global_route"] = {
         f"N={n} k={k}": {key: rec[key] for key in
-                         ("route", "ms", "plain_ms", "rounds",
+                         ("route", "segments", "ms", "plain_ms", "rounds",
                           "max_abs_err", "err_over_tol")}
         for n, k in ((4000, 300), (2000, 1000))
         for rec in [knn_kernel_phase(exp.corpus.X[:n], k)]}
-    rows_x = exp.corpus.X[block_rows(exp, P)]
-    records["rbf_affinity"] = rbf_kernel_phase(rows_x, exp.graph.sigma)
+    records["rbf_affinity"] = rbf_kernel_phase(rows_x, exp.graph.sigma,
+                                               exp.corpus.X)
     records["graph_reg_pairwise"] = pairwise_reg_phase(W_path)
     from repro_torch.kernels import ops
     x_rows = torch.from_numpy(rows_x).cuda()
@@ -1761,6 +1948,9 @@ def main() -> int:
           f"graph {dev_graph['row']['loss/total']!r}; eval/acc: host graph "
           f"{dense['row']['eval/acc']!r}, device graph "
           f"{dev_graph['row']['eval/acc']!r}")
+    print(f"device-graph epoch loss/total {dev_graph['row']['loss/total']!r} "
+          f"beside {DEVICE_EPOCH_LOSS!r} before K8's redesign (equal: "
+          f"{dev_graph['row']['loss/total'] == DEVICE_EPOCH_LOSS})")
     device_weights_phase(exp, graph["exp"], dev_graph["row"])
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
@@ -1775,7 +1965,14 @@ def main() -> int:
           f" ms of the {serve['prefill_ms']:.3f} ms prefill (kernel phase "
           f"time × launches)")
 
-    for name in REDESIGNED:
+    # K8's and K9's build records: the kernels the path's shapes launch.
+    builds = {**redesign_build, "knn_topk": {
+        **pw_build["knn_topk"],
+        "kernels_past_k_32": {key: pw_build[key] for key in (
+            "knn_topk_shared", "knn_topk_global")}},
+        "rbf_affinity": pw_build["rbf_affinity"][
+            records["rbf_affinity"]["rows_per_block"]]}
+    for name in builds:
         rec = records[name]
         rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
         lib = (f"{rec['library']} {rec['library_ms']:.5f} ms" if
@@ -1784,8 +1981,8 @@ def main() -> int:
               f"the plain version {rec['plain_ms']:.5f} ms in the same "
               f"call; bound {rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
               f"{100 * rec['share_of_bound']:.1f} % of it; "
-              f"{redesign_build[name]['registers']} registers, "
-              f"{redesign_build[name]['spill_bytes']} bytes spilled"
+              f"{builds[name]['registers']} registers, "
+              f"{builds[name]['spill_bytes']} bytes spilled"
               + (f", {rec['rows_per_block']} rows a block, "
                  f"{rec['dynamic_smem_bytes']} bytes of dynamic shared "
                  f"memory" if "rows_per_block" in rec else ""))
@@ -1833,14 +2030,15 @@ def main() -> int:
                 "spill_bytes": fa_build[128]["spill_bytes"],
                 "hgmma_instructions": fa_build["hgmma"]}
                if name == "flash_attention" else {}),
-            **({**redesign_build[name], "library": rec.get("library"),
+            **({**builds[name], "library": rec.get("library"),
                 "share_of_bound": rec["share_of_bound"],
                 **{key: rec[key] for key in ("dynamic_smem_bytes",
-                                              "rows_per_block") if key in rec},
+                                              "rows_per_block", "segments")
+                   if key in rec},
                 **({"against": {"dir": str(args.against),
                                 **against[name]}} if against else {})}
-               if name in redesign_build else {}),
-            **{key: rec[key] for key in ("note", "global_route")
+               if name in builds else {}),
+            **{key: rec[key] for key in ("note", "global_route", "P×P")
                if key in rec}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later), used by
-// the redesigned K1-K3 (graph_reg.cu) and K5 (graph_reg_bsp.cu).  A copy
-// with src-size bytes < the copy size zero-fills the rest of the shared
-// destination, so masked elements are written as 0 without a branch; the
-// source address of a fully masked copy is never read, but must still be
-// a valid global address.
+// the redesigned K1-K3 (graph_reg.cu), K5 (graph_reg_bsp.cu) and K8-K9
+// (d2_tile.cuh).  A copy with src-size bytes < the copy size zero-fills
+// the rest of the shared destination, so masked elements are written as 0
+// without a branch; the source address of a fully masked copy is never
+// read, but must still be a valid global address.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,7 @@
 // Per-device queries of the launches, each asked once per device.
 //
 // Dynamic shared memory past the default allowance, used by K1, K2 and K10
-// (graph_reg.cu), K5 (graph_reg_bsp.cu) and K8 (pairwise.cu).  A kernel
+// (graph_reg.cu), K5 (graph_reg_bsp.cu), K8 and K9 (pairwise.cu).  A kernel
 // may take 48 KB of shared memory, static and dynamic together, unless it
 // first raises its cudaFuncAttributeMaxDynamicSharedMemorySize on the
 // current device.
@@ -41,7 +41,7 @@ cudaError_t allow_dynamic_smem(size_t bytes) {
 }
 
 // The number of SMs of the current device, which K1 and K2 size their
-// grids to fill.
+// grids to fill, K8 its column segments and K9 its tile rows.
 inline cudaError_t sm_count(int* n) {
     static int known[kSmemMaxDevices];   // per device, 0 until asked
     int dev = 0;

@@ -1,10 +1,10 @@
 // Device helpers shared by the graph-regularizer kernels, the dense ones
 // (graph_reg.cu, K1-K3 and K10) and the block-sparse ones
-// (graph_reg_bsp.cu, K4-K7), and by the graph-construction kernels
-// (pairwise.cu, K8 and K9), whose inner products are the same 32 x 64 tile
-// over the feature axis.  The tile arithmetic fixes the order of the sums
-// of K4 (and of K1 before its redesign, which keeps those orders), so on a
-// full occupancy mask K4 equals K1 bit for bit.
+// (graph_reg_bsp.cu, K4-K7).  The tile arithmetic fixes the order of the
+// sums of K4 (and of K1 before its redesign, which keeps those orders), so
+// on a full occupancy mask K4 equals K1 bit for bit.  The graph-
+// construction kernels (pairwise.cu, K8 and K9) used xy_tile before their
+// redesign; their distance engine (d2_tile.cuh) keeps its sum order.
 //
 // Padding is done with masks, never with values: rows, columns and classes
 // outside (B, B, C) (features outside (N, M, D)) are loaded as 0 for p,

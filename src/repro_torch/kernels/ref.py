@@ -28,6 +28,9 @@ streams column chunks against a running (N, k) state, so the CPU path
 never holds an N×M matrix either.  Both order each row by (d2, index),
 ties to the lowest index, as the reference's ``lax.top_k`` does
 (``torch.topk`` promises no order among ties, so they sort stably).
+``knn_topk_segments_ref`` is the card kernel's split: per-segment lists of
+column tiles, merged by rank (``merge_segment_lists``); it gives the same
+lists, which is what lets the kernel merge in any order.
 
 The attention version (K11) takes the reference's layout, q (B, Tq, H, hd)
 against k, v (B, Tk, KV, hd), and repeats the arithmetic of its Pallas
@@ -46,7 +49,8 @@ __all__ = ["graph_reg_pairwise_ref", "graph_regularizer_ref",
            "reg_forward_ref", "reg_bwd_dlogp_ref", "reg_bwd_dw_ref",
            "bsp_forward_ref", "bsp_bwd_bterm_ref", "bsp_bwd_dlogp_ref",
            "flash_attention_ref", "scale_queries", "NEG_INF",
-           "bsp_bwd_dw_ref"]
+           "bsp_bwd_dw_ref", "knn_topk_segments_ref", "merge_segment_lists",
+           "EMPTY"]
 
 
 def graph_reg_pairwise_ref(logp: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -131,6 +135,70 @@ def knn_topk_stream_ref(x: torch.Tensor, y: torch.Tensor, k: int, *,
         best_d, best_i = _smallest(torch.cat([best_d, d2], 1),
                                    torch.cat([best_i, cols], 1), k)
     return best_d.contiguous(), best_i.contiguous()
+
+
+#: d2 of an unfilled slot of K8's lists (index −1): ``kEmpty`` in
+#: ``csrc/pairwise.cu``.  Only a distance below it enters a list.
+EMPTY = 3.4e38
+
+
+def _before(d, i, e, j):
+    """(d, i) before (e, j) in the total order (d2, index), elementwise."""
+    return (d < e) | ((d == e) & (i < j))
+
+
+def merge_segment_lists(d2: torch.Tensor, idx: torch.Tensor, k: int):
+    """K8's second pass: S lists per row, ``d2``/``idx`` (S, N, k), each
+    sorted by (d2, index), merged into the first k of their union.  Entry
+    t of list s goes to rank t + (entries of each lower list not after it)
+    + (entries of each higher list before it): equal pairs (unfilled
+    slots) go to the lower list, so the ranks are a permutation; ranks
+    below k are written."""
+    S, N, _ = d2.shape
+    rank = torch.arange(k).expand(S, N, k).clone()
+    for s in range(S):
+        for o in range(S):
+            if o != s:
+                a, ai = d2[s][:, :, None], idx[s][:, :, None]
+                b, bi = d2[o][:, None, :], idx[o][:, None, :]
+                ahead = _before(b, bi, a, ai)
+                if o < s:
+                    ahead |= (b == a) & (bi == ai)
+                rank[s] += ahead.sum(-1)
+    keep = rank < k
+    rows = torch.arange(N)[None, :, None].expand(S, N, k)
+    out_d = torch.empty(N, k, dtype=d2.dtype)
+    out_i = torch.empty(N, k, dtype=idx.dtype)
+    out_d[rows[keep], rank[keep]] = d2[keep]
+    out_i[rows[keep], rank[keep]] = idx[keep]
+    return out_d, out_i
+
+
+def knn_topk_segments_ref(x: torch.Tensor, y: torch.Tensor, k: int, *,
+                          exclude_self: bool = False, segments: int = 1,
+                          tile: int = 128):
+    """:func:`knn_topk_ref` as the card's K8 splits it: the column tiles
+    (``tile`` wide) in ``segments`` runs of ceil(tiles / segments), each
+    run's k smallest (d2, index) below :data:`EMPTY`, padded with (EMPTY,
+    −1), then :func:`merge_segment_lists`.  CPU tensors."""
+    M = y.shape[0]
+    n_tiles = -(-M // tile)
+    seg_cols = -(-n_tiles // segments) * tile
+    d2s, idxs = [], []
+    for c0 in range(0, M, seg_cols):
+        d2 = _sq_dists(x, y[c0:c0 + seg_cols])
+        if exclude_self:
+            _mask_self(d2, c0)
+        cols = torch.arange(c0, c0 + d2.shape[1], dtype=torch.int32)
+        d, i = _smallest(d2, cols.expand(d2.shape), min(k, d2.shape[1]))
+        full = torch.full((x.shape[0], k), EMPTY, dtype=torch.float32)
+        fi = torch.full((x.shape[0], k), -1, dtype=torch.int32)
+        full[:, :d.shape[1]], fi[:, :d.shape[1]] = d, i
+        empty = full >= EMPTY
+        full[empty], fi[empty] = EMPTY, -1
+        d2s.append(full)
+        idxs.append(fi)
+    return merge_segment_lists(torch.stack(d2s), torch.stack(idxs), k)
 
 
 def _g(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ from repro_torch.kernels import graph_reg, graph_reg_bsp, pairwise  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = (graph_reg, graph_reg_bsp, pairwise)
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-           "int*": ctypes.c_void_p, "int": ctypes.c_int,
+           "int*": ctypes.c_void_p, "int64_t*": ctypes.c_void_p,
+           "int": ctypes.c_int,
            "float": ctypes.c_float}
 
 

@@ -349,7 +349,19 @@ def _check_knn(x, y, k, got, want):
                                         (130, 600, 32, 256, False),
                                         (257, 257, 16, 256, True),
                                         (600, 600, 32, 300, True),
-                                        (200, 1100, 16, 1000, False)])
+                                        (200, 1100, 16, 1000, False),
+                                        # the packing's feature padding
+                                        (257, 300, 1, 12, True),
+                                        (130, 200, 3, 7, False),
+                                        # column segments (33 tiles, 7
+                                        # segments on 132 SMs)
+                                        (300, 4100, 351, 10, True),
+                                        (500, 4100, 8, 300, True),
+                                        # either side of K_MAX
+                                        (200, 300, 16, 120, False),
+                                        (200, 300, 16, 121, False),
+                                        (190, 190, 5, 32, True),
+                                        (190, 190, 5, 33, True)])
 def test_knn_topk_matches_plain_version(cuda, N, M, D, k, ex):
     x, y = (t.to(cuda) for t in _knn_inputs(N, M, D))
     before = pairwise.knn_topk.launches
@@ -376,9 +388,77 @@ def test_knn_topk_exact_ties_go_to_the_lowest_index(cuda, ex, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [11, 40, 200])
+@pytest.mark.parametrize("ex", [False, True])
+def test_knn_topk_exact_ties_across_segments(cuda, ex, k):
+    """Integer rows with 81 distinct values and duplicates half the corpus
+    apart: exact ties within every column segment and across each of their
+    boundaries (33 tiles in 7 segments on 132 SMs); the lists must be the
+    plain version's exactly."""
+    x, y = (t.to(cuda) for t in _knn_inputs(300, 4100, 4, integer=True))
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pairwise.launch_plan("knn_topk", 300, 4100, 4, k,
+                                same=False)["segments"] > 1 or n_sm < 8
+    d2, idx = pairwise.knn_topk(x, y, k, exclude_self=ex)
+    pd, pi = ref.knn_topk_ref(x, y, k, exclude_self=ex)
+    assert torch.equal(d2, pd) and torch.equal(idx, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 150])
+def test_knn_topk_exclude_self_with_more_queries_than_candidates(cuda, k):
+    """N > M with exclude_self: rows i < M skip column i, the others skip
+    nothing."""
+    x = torch.randn(700, 24, device=cuda)
+    y = x[:300]
+    got = pairwise.knn_topk(x, y, k, exclude_self=True)
+    want = ref.knn_topk_ref(x, y, k, exclude_self=True)
+    _check_knn(x, y, k, got, want)
+    rows = torch.arange(300, device=cuda)[:, None]
+    assert not bool((got[1][:300] == rows).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 351])
+def test_pairwise_kernels_take_offset_views(cuda, D):
+    """x and y as views that start one row into their storage (rows of
+    12 or 1,404 bytes: not 16-byte aligned): the packing reads them as
+    they lie."""
+    base = torch.randn(1 + 600, D, device=cuda)
+    y = base[1:]
+    x = y[:250]
+    assert x.data_ptr() % 16 != 0
+    got = pairwise.knn_topk(x, y, 10, exclude_self=True)
+    _check_knn(x, y, 10, got, ref.knn_topk_ref(x, y, 10, exclude_self=True))
+    w = pairwise.rbf_affinity(x, y, 1.5)
+    want = ref.rbf_affinity_ref(x, y, 1.5)
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    tol = 2e-5 + want * torch.sqrt(D2_RTOL * scale) / (2 * 1.5 * 1.5)
+    assert bool(((w - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,D,k,same", [(20000, 20000, 351, 10, True),
+                                          (2000, 2000, 351, 1000, True),
+                                          (300, 4100, 4, 40, False),
+                                          (33, 65, 7, 3, False)])
+def test_launch_plans_match_their_mirrors(cuda, N, M, D, k, same):
+    """The library's K8 and K9 plans on this card equal the Python mirrors
+    that the CPU tests hold to the source."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = pairwise.knn_plan(N, M, D, k, same=same, n_sm=n_sm)
+    del want["seg_tiles"]
+    assert pairwise.launch_plan("knn_topk", N, M, D, k, same=same) == want
+    assert pairwise.launch_plan("rbf_affinity", N, M, D, same=same) == \
+        pairwise.rbf_plan(N, M, D, same=same, n_sm=n_sm)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,M,D", [(32, 32, 16), (64, 64, 351),
                                    (130, 70, 64), (33, 257, 100),
-                                   (128, 128, 256)])
+                                   (128, 128, 256), (100, 90, 1),
+                                   (200, 130, 3), (2176, 2176, 351),
+                                   (2048, 2048, 16)])
 def test_rbf_affinity_matches_plain_version(cuda, N, M, D):
     rng = np.random.default_rng(N + M + D)
     x = torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32).to(cuda)
@@ -432,7 +512,7 @@ def test_graph_construction_kernels_refuse_pinned_tiles(cuda):
     # CPU.
     with pytest.raises(ValueError, match="k must be in"):
         pairwise.knn_topk(x, x, 64, exclude_self=True)
-    # Past K_MAX the lists live in the outputs (the global route): the
+    # Past K_MAX the lists live in global memory (the global route): the
     # plain version's lists, bits repeated.
     big = torch.randn(pairwise.K_MAX + 2, 8, device=cuda)
     k = pairwise.K_MAX + 1

@@ -157,23 +157,146 @@ def test_k_max_is_the_kernels_limit():
 
 @pytest.mark.parametrize("k", [1, 10, 256, 257, 300, 1000])
 def test_knn_route_and_list_bytes_follow_the_source(k):
-    """K8 keeps its lists in shared memory up to kKMax and in the rows of
-    its outputs past it, by k alone.  The outputs hold a row's list on the
-    global route, so one (d2, index) pair of theirs takes the source's
-    kListEntryBytes: N·k of them are all the lists need, no workspace."""
+    """K8 keeps its lists in shared memory up to kKMax and in global
+    memory past it, by k alone.  A (d2, index) pair of the lists takes the
+    source's kListEntryBytes: shared memory holds 128 rows of them on the
+    shared route only, and the workspace holds the segments' partial lists
+    only when there is more than one segment; the (N, k) outputs are the
+    pairs of the final lists."""
     src = (ROOT / pairwise.SOURCE).read_text()
     k_max = int(re.search(r"kKMax = (\d+);", src).group(1))
-    assert "if (k > kKMax) {" in src
+    assert re.search(r"k > kKMax \? launch_knn<true,", src)
     assert pairwise.route(k) == ("shared" if k <= k_max else "global")
     entry = re.search(r"kListEntryBytes = sizeof\(float\) \+ sizeof\(int\);",
                       src)
-    assert entry
+    assert entry and pairwise.LIST_ENTRY_BYTES == 4 + 4
     N, M = 3, k + 1
+    plan = pairwise.knn_plan(N, M, 4, k, same=False, n_sm=132)
+    lists = plan["dynamic_smem_bytes"] - pairwise.knn_plan(
+        N, M, 4, k_max + 1, same=False, n_sm=132)["dynamic_smem_bytes"]
+    assert lists == (pairwise.D2_ROWS * k * 8 if k <= k_max else 0)
+    packed = 4 * pairwise.D2_K * (128 + -(-M // 128) * 128)
+    assert plan["workspace_bytes"] == packed + (
+        plan["segments"] * N * k * 8 if plan["segments"] > 1 else 0)
     x, y = (torch.tensor(a) for a in _xy(N, M, 4))
     d2, idx = pairwise.knn_topk(x, y, k)
     assert (d2.dtype, idx.dtype) == (torch.float32, torch.int32)
     assert d2.shape == idx.shape == (N, k)
     assert d2.nbytes + idx.nbytes == N * k * (4 + 4)
+
+
+#: The launch plans' constants in the sources, by name: (file, name in
+#: the source, the mirror's value in :mod:`repro_torch.kernels.pairwise`).
+_PLAN_CONSTANTS = {
+    "rows": ("d2_tile.cuh", "kD2Rows", pairwise.D2_ROWS),
+    "cols": ("d2_tile.cuh", "kD2Cols", pairwise.D2_COLS),
+    "slab": ("d2_tile.cuh", "kD2K", pairwise.D2_K),
+    "stages": ("d2_tile.cuh", "kD2Stages", pairwise.D2_STAGES),
+    "threads": ("d2_tile.cuh", "kD2Threads", pairwise.D2_THREADS),
+    "cand_cap": ("pairwise.cu", "kCandCap", pairwise.CAND_CAP),
+    "max_segments": ("pairwise.cu", "kMaxSegments", pairwise.MAX_SEGMENTS),
+    "min_segment_tiles": ("pairwise.cu", "kMinSegmentTiles",
+                          pairwise.MIN_SEGMENT_TILES),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_CONSTANTS))
+def test_launch_plan_mirror_constants_follow_the_source(name):
+    fname, const, value = _PLAN_CONSTANTS[name]
+    src = (ROOT / "src/repro_torch/csrc" / fname).read_text()
+    assert int(re.search(rf"constexpr int {const} = (\d+);", src).group(1)) \
+        == value
+
+
+def test_launch_plan_mirror_byte_cap_follows_the_source():
+    src = (ROOT / pairwise.SOURCE).read_text()
+    shift = re.search(r"kSegmentBytesCap = 256ll << (\d+);", src)
+    assert shift and pairwise.SEGMENT_BYTES_CAP == 256 << int(shift.group(1))
+
+
+@pytest.mark.parametrize("N,M,k,n_sm,segments", [
+    (20000, 20000, 10, 132, 5),     # the corpus: 785 blocks of 32 tiles
+    (2000, 2000, 1000, 132, 4),     # global route, 16 column tiles
+    (4000, 4000, 300, 132, 4),
+    (300, 700, 10, 132, 1),         # under 2 x kMinSegmentTiles tiles
+    (300, 4100, 11, 132, 7),        # 33 tiles: 8 wanted, 5 a segment -> 7
+    (200_000, 200_000, 1000, 132, 1),   # the partial lists' byte cap
+])
+def test_knn_launch_plan_mirror(N, M, k, n_sm, segments):
+    """The mirror of K8's host plan (``knn_plan`` in the source): segments
+    fill the card, each ≥ kMinSegmentTiles tiles, none empty, and the
+    partial lists stay under the byte cap; no other count of segments has
+    an SM walk fewer tiles."""
+    plan = pairwise.knn_plan(N, M, 351, k, same=N == M, n_sm=n_sm)
+    assert plan["segments"] == segments
+    tiles = -(-M // 128)
+    assert (plan["segments"] - 1) * plan["seg_tiles"] < tiles
+    assert plan["segments"] * plan["seg_tiles"] >= tiles
+    if segments > 1:
+        assert plan["seg_tiles"] >= pairwise.MIN_SEGMENT_TILES
+        assert segments * N * k * 8 <= pairwise.SEGMENT_BYTES_CAP
+    strips = -(-N // 128)
+    walk = -(-strips * segments // n_sm) * plan["seg_tiles"]
+    assert all(walk <= -(-strips * s // n_sm) * -(-tiles // s)
+               for s in range(1, pairwise.MAX_SEGMENTS + 1)
+               if s == 1 or (tiles // s >= pairwise.MIN_SEGMENT_TILES
+                             and s * N * k * 8 <= pairwise.SEGMENT_BYTES_CAP))
+    assert plan["dynamic_smem_bytes"] <= 232_448      # an H100 block's most
+
+
+@pytest.mark.parametrize("n,rows", [(2042, 128), (2176, 64), (2048, 128),
+                                    (1000, 64)])
+def test_rbf_launch_plan_mirror(n, rows):
+    """K9's tile rows: 64 where each SM then runs fewer rows of tiles
+    (2176² is 289 tiles of 128² on 132 SMs, 3 a SM; 578 of 64 × 128, 5)."""
+    plan = pairwise.rbf_plan(n, n, 351, same=True, n_sm=132)
+    assert plan["rows_per_block"] == rows
+    assert plan["workspace_bytes"] == 4 * 352 * (-(-n // 128) * 128)
+    assert 352 % pairwise.D2_K == 0     # 351 features pad to 352
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 5])
+@pytest.mark.parametrize("ex", [False, True])
+def test_segment_merge_rule_matches_stream_and_reference(segments, ex):
+    """K8's split: per-segment top-k lists of column tiles (16 wide here,
+    so 160 columns make 10 tiles), merged by rank in (d2, index) order,
+    on integer inputs whose duplicate rows put exact ties on both sides of
+    every segment boundary: the lists equal the streamed plain version's
+    and the reference's Pallas kernel's (interpret mode) exactly."""
+    rng = np.random.default_rng(segments)
+    y = rng.integers(0, 3, size=(160, 4)).astype(np.float32)
+    y[80:120] = y[:40]
+    y[150:] = y[10:20]
+    x = y[:48].copy()
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    k = 9
+    got = ref.knn_topk_segments_ref(xt, yt, k, exclude_self=ex,
+                                    segments=segments, tile=16)
+    stream = ref.knn_topk_stream_ref(xt, yt, k, exclude_self=ex)
+    assert torch.equal(got[0], stream[0]) and torch.equal(got[1], stream[1])
+    jd, ji = knn_topk_pallas(jnp.asarray(x), jnp.asarray(y), k,
+                             exclude_self=ex, bi=16, bj=32, bd=8,
+                             interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jd))
+
+
+def test_segment_merge_keeps_unfilled_slots_last():
+    """Segments shorter than k pad their lists with (EMPTY, -1); the merge
+    ranks every real pair first and hands equal pads to the lower list, so
+    each output slot is written once."""
+    d2 = torch.tensor([[[1.0, ref.EMPTY, ref.EMPTY]],
+                       [[0.5, 2.0, ref.EMPTY]]])
+    idx = torch.tensor([[[4, -1, -1]], [[9, 7, -1]]], dtype=torch.int32)
+    d, i = ref.merge_segment_lists(d2, idx, 3)
+    assert d.tolist() == [[0.5, 1.0, 2.0]] and i.tolist() == [[9, 4, 7]]
+    d, i = ref.merge_segment_lists(d2[:, :, :2].clone(), idx[:, :, :2].clone(),
+                                   2)
+    assert d.tolist() == [[0.5, 1.0]] and i.tolist() == [[9, 4]]
+    pads = ref.merge_segment_lists(
+        torch.full((3, 1, 2), ref.EMPTY),
+        torch.full((3, 1, 2), -1, dtype=torch.int32), 2)
+    assert pads[1].tolist() == [[-1, -1]]
 
 
 # ------------------------------------------------------------- K9 RBF
