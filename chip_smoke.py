@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py [--against DIR]
 
-``--against DIR`` also builds K1's, K2's, K3's, K5's and K10's C entry
-points from another checkout's sources (DIR, e.g. the parent commit
-unpacked with ``git archive``) and times them in turns with this
-checkout's on the same inputs, outputs equal bit for bit (phase 5); K1,
-K2 and K10 are also compared bit for bit at two ragged, multi-chunk
-shapes.  Every kernel time below is the device time of one call from a
-CUDA graph of back-to-back calls (``bench.graph_ms``), the kernel,
+``--against DIR`` also builds the C entry points of K1-K6 and K8-K10
+from another checkout's sources (DIR, e.g. the parent commit unpacked
+with ``git archive``) and times them in turns with this checkout's on the
+same inputs, outputs equal bit for bit (phase 5); K1, K2, K10, K4 and K6
+are also compared bit for bit at ragged, multi-chunk shapes.  Every
+kernel time below is the device time of one call from a CUDA graph of
+back-to-back calls (``bench.graph_ms``), the kernel,
 its plain version and the library call (where there is one) two rounds
 in turns; the wrappers are given p = exp(logp), as the training path
 gives it.
@@ -20,8 +20,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 2. build every CUDA source under ``src/repro_torch/csrc`` from this
    checkout, one ``nvcc`` per source, all started together; K11's
    tensor-core kernels and the redesigned K3 and K5 must report no
-   spills, nor may the redesigned K1, K2 and K10 (``-Xptxas -v``,
-   registers and shared memory printed), and the
+   spills, nor may the redesigned K1, K2, K4, K6 and K10 (``-Xptxas
+   -v``, registers and shared memory printed), and the
    library must hold ``HGMMA`` (tensor-core) instructions;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
@@ -45,17 +45,22 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    layout ``block_layout(W, 128)`` gives it (with both scalar sets), on a
    ragged B=1000, bt=64 random symmetric tile mask, on a mask with an
    empty tile row, and on a full mask, where K4 must equal K1, K5∘K6 K2
-   and K7 K3 bit for bit; K5 is timed beside ``torch.bmm(W.mT, p)`` as
-   K3 beside ``addmm``; the redesigned K3 and K5 also at k = 2, ragged B
+   and K7 K3 bit for bit; K5 is timed beside ``torch.bmm(W.mT, p)`` and
+   K6 beside ``torch.bmm(W, logp)`` (their dense products alone) as K3
+   beside ``addmm``; the redesigned K3 and K5 also at k = 2, ragged B
    (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
-   ``--against`` K1, K2, K3, K5 and K10 built from DIR, which must give
+   ``--against`` K1-K6 and K10 built from DIR, which must give
    the same bits (K1, K2 and K10 also at k = 3, B = 1001, C = 100 and at
-   B = 1001, C = 200; K8 at k = 10, 40, 300 on 4,000 rows and 1,000 on
+   B = 1001, C = 200, K4 and K6 at six ragged shapes and tile edges; K8
+   at k = 10, 40, 300 on 4,000 rows and 1,000 on
    2,000 rows, K9 on the path's rows and at 1000 × 333, each timed in
-   turns but k = 40 and the ragged K9); the redesigned K1 and K2 also at
-   k in {1, 3}, B in
-   {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, and K10 == K1 at
+   turns but k = 40, the ragged K9 and the ragged K4 and K6); the
+   redesigned K1 and K2 also at k in {1, 3}, B in
+   {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, K4 and K6 at the
+   same shapes with bt in {32, 64, 128, 256} on four kinds of tile mask
+   (an empty tile row, one tile row holding every tile, tail-padded
+   lists, a full mask), and K10 == K1 at
    (1, 0, 0) at B = 1001; K8 (streaming top-k) on the whole corpus at
    k = 10 (the path's)
    and k = 40 (shared-memory route), and at k = 300 on 4,000 rows and k =
@@ -186,17 +191,20 @@ RTOL = 2e-5
 TOL_RULE = f"|Δ| ≤ tol + {RTOL:g}·|want|, tol = {RTOL:g}·max|want|"
 
 
-def compare(name: str, got, want) -> dict:
+def compare(name: str, got, want, quiet: bool = False) -> dict:
+    """Hold ``got`` to ``want`` under :data:`TOL_RULE`; print the errors
+    unless ``quiet`` (a failure is always fatal and named)."""
     import torch
     err = (got - want).abs()
     atol = RTOL * float(want.abs().max())
     limit = (atol + RTOL * want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
     over = float((err / limit).max())
     rec = {"max_abs_err": float(err.max()), "tol": atol, "err_over_tol": over}
-    print(f"{name}: max_abs_err={rec['max_abs_err']:.3e} atol={atol:.3e} "
-          f"rtol={RTOL:g} err/tol={over:.3f}")
+    if not quiet:
+        print(f"{name}: max_abs_err={rec['max_abs_err']:.3e} atol={atol:.3e} "
+              f"rtol={RTOL:g} err/tol={over:.3f}")
     check(math.isfinite(over) and over <= 1.0,
-          f"{name} disagrees with its plain version")
+          f"{name} disagrees with its plain version (err/tol {over:.3f})")
     return rec
 
 
@@ -721,7 +729,8 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
         p = torch.exp(logp)
         bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt)
         # The wrappers are given p, as the autograd Function gives it;
-        # one PyTorch call for K5's function is the dense Wᵀ·P.
+        # the dense Wᵀ·P and W·logP stand beside K5 and K6 as their
+        # library yardsticks (one PyTorch call for their products alone).
         runs = {
             "graph_reg_bsp_fwd": (
                 lambda: bsp.bsp_forward(logp, W, rows, cols, valid, bt, gc,
@@ -738,7 +747,8 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                 lambda: bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid,
                                           g, bt, gc, kap, ge, p=p),
                 lambda: ref.bsp_bwd_dlogp_ref(logp, W, bterm, rows, cols,
-                                              valid, g, bt, gc, kap, ge), None),
+                                              valid, g, bt, gc, kap, ge),
+                lambda: torch.bmm(W, logp)),
             "graph_reg_bsp_dw": (
                 lambda: bsp.bsp_bwd_dw(logp, occ, g, bt, gc, ge, p=p),
                 lambda: ref.bsp_bwd_dw_ref(logp, occ, g, bt, gc, ge), None),
@@ -778,6 +788,10 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                 library="torch.bmm(W.mT, p)",
                 dynamic_smem_bytes=bsp.bterm_smem_bytes(B, C, lay.list_len,
                                                         bt))
+            records["graph_reg_bsp_dlogp"]["library"] = "torch.bmm(W, logp)"
+            for name in ("graph_reg_bsp_fwd", "graph_reg_bsp_dlogp"):
+                records[name].update(bsp.launch_plan(name, 1, B, C,
+                                                     lay.list_len, bt))
             n_el, T, nt = active_entries(lay, B), lay.list_len, lay.nt
             s_flops = 2.0 * n_el * C
             f4 = 4.0
@@ -815,15 +829,55 @@ def sparse_w(k: int, B: int, seed: int):
         rng.random((k, B, B)) < 0.05)).astype(np.float32)).cuda()
 
 
+#: Tile masks of K4's and K6's cases: one tile row empty; one tile row
+#: holding every tile (and nothing else); a random mask whose lists carry
+#: tail padding beyond the longest worker's; every tile occupied.
+MASK_KINDS = ("empty tile row", "one full tile row", "tail-padded", "full")
+
+
+def bsp_case(k: int, B: int, bt: int, kind: str, seed: int):
+    """k workers' W (k, B, B) on the card, uniform in [0, 1) inside a tile
+    mask of ``kind`` (:data:`MASK_KINDS`) and zero outside it, and the
+    seven layout arrays with the worker axis leading (one list length for
+    all).  W is not symmetric: with a symmetric W and C = 1 (logp = 0, p
+    = 1) K6's output is g·(κ + γ·(deg_i − Σ_j W_ji)), a difference of two
+    equal sums that the kernel and its plain version take in different
+    orders, which no tolerance relative to the output bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.metabatch import block_layout
+    rng = np.random.default_rng(seed)
+    nt = -(-B // bt)
+    Ws = []
+    for _ in range(k):
+        if kind == "one full tile row":
+            occ = np.zeros((nt, nt), bool)
+            occ[nt // 2] = True
+        else:
+            occ = rng.random((nt, nt)) < (2.0 if kind == "full" else 0.3)
+            if kind == "empty tile row":
+                occ[min(1, nt - 1)] = False
+        mask = np.kron(occ, np.ones((bt, bt), bool))[:B, :B]
+        Ws.append(np.where(mask, rng.random((B, B), dtype=np.float32),
+                           0.0).astype(np.float32))
+    T = max(block_layout(w, bt).list_len for w in Ws)
+    T += 7 if kind == "tail-padded" else 0
+    lays = [block_layout(w, bt, list_len=T).arrays() for w in Ws]
+    arrays = [torch.from_numpy(np.stack([lay[i] for lay in lays])).cuda()
+              for i in range(7)]
+    return torch.from_numpy(np.stack(Ws)).cuda(), arrays
+
+
 def redesign_cases_phase(P: int) -> int:
     """The redesigned kernels beyond the path's shape: K1 and K2 at k in
     {1, 3}, B in {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, K10 ==
     K1 at (1, 0, 0) at B = 1001; K3 and K5 at k = 2 workers,
     ragged B (1000, and 1001 for rows that are not 16-byte multiples), C
     in {1, 39, 100}, K5 at bt in {32, 64, 128} on random symmetric tile
-    masks and on a full mask at bt = 32, C = 128, B = 6144; each against
-    its plain version and repeated bit for bit.
-    Returns the number of cases."""
+    masks and on a full mask at bt = 32, C = 128, B = 6144; K4 and K6 at
+    the K1/K2 shapes, bt in {32, 64, 128, 256} and every mask of
+    :data:`MASK_KINDS`; each against its plain version and repeated bit
+    for bit.  Returns the number of cases."""
     import numpy as np
     import torch
     from repro_torch.core.metabatch import block_layout
@@ -903,7 +957,49 @@ def redesign_cases_phase(P: int) -> int:
         lambda: bsp.bsp_bwd_bterm(logp, W, crows, ccols, cvalid, bt),
         lambda: ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid, bt))
     n += 1
-    print(f"redesigned K1, K2, K3 and K5: {n} further cases within "
+    # K4 and K6 at ragged and edge shapes, tile edges and masks: each
+    # against its plain version (K6 on K5's plain bterm) and repeated bit
+    # for bit; printed as one line a tile edge.
+    for bt in (32, 64, 128, 256):
+        worst, n_bt = {"K4": 0.0, "K6": 0.0}, 0
+        for k in (1, 3):
+            for B in (1, 31, 33, 1000, 1001):
+                for kind in MASK_KINDS:
+                    W, (rows, cols, valid, crows, ccols, cvalid,
+                        _) = bsp_case(k, B, bt, kind, seed=B + bt + k)
+                    for C in (1, 39, 100, 128, 200):
+                        logp = logp_of(k, B, C, seed=B + C + bt)
+                        g = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
+                        bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols,
+                                                      cvalid, bt)
+                        where = f"k={k} B={B} C={C} bt={bt} {kind}"
+                        for key, kern, plain in (
+                                ("K4", lambda: bsp.bsp_forward(
+                                    logp, W, rows, cols, valid, bt, 0.8, 1e-2,
+                                    0.8),
+                                 lambda: ref.bsp_forward_ref(
+                                     logp, W, rows, cols, valid, bt, 0.8,
+                                     1e-2, 0.8)),
+                                ("K6", lambda: bsp.bsp_bwd_dlogp(
+                                    logp, W, bterm, rows, cols, valid, g, bt,
+                                    0.8, 1e-2, 0.8),
+                                 lambda: ref.bsp_bwd_dlogp_ref(
+                                     logp, W, bterm, rows, cols, valid, g, bt,
+                                     0.8, 1e-2, 0.8))):
+                            a, b, want = kern(), kern(), plain()
+                            torch.cuda.synchronize()
+                            check(torch.equal(a, b),
+                                  f"{key} [{where}]: two launches differ")
+                            rec = compare(f"{key} [{where}]", a, want,
+                                          quiet=True)
+                            worst[key] = max(worst[key], rec["err_over_tol"])
+                            n_bt += 1
+        print(f"K4 and K6 at bt={bt}: {n_bt} cases (k 1/3, B 1/31/33/1000/"
+              f"1001, C 1/39/100/128/200, masks: {', '.join(MASK_KINDS)}) "
+              f"within tolerance, repeated bit for bit; worst err/tol K4 "
+              f"{worst['K4']:.3f}, K6 {worst['K6']:.3f}")
+        n += n_bt
+    print(f"redesigned K1, K2, K3, K4, K5 and K6: {n} further cases within "
           f"tolerance and repeated bit for bit")
     return n
 
@@ -1188,13 +1284,15 @@ def ptxas_entries(name: str) -> list[tuple[str, dict]]:
 
 
 #: The redesigned kernels (K3 and K5; K1, K2 and K10, which shares K1's
-#: template): wrapper name -> (source, the kernel's name in its mangled
-#: symbol, up to the character after it).
+#: template; K4 on K1's pipeline and K6 on K2's): wrapper name -> (source,
+#: the kernel's name in its mangled symbol, up to the character after it).
 REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
               "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_btermE"),
               "graph_reg_fwd": ("graph_reg", "reg_fwd_partialsILb1E"),
               "graph_reg_bwd_dlogp": ("graph_reg", "reg_bwd_dlogpE"),
-              "graph_reg_pairwise": ("graph_reg", "reg_fwd_partialsILb0E")}
+              "graph_reg_pairwise": ("graph_reg", "reg_fwd_partialsILb0E"),
+              "graph_reg_bsp_fwd": ("graph_reg_bsp", "bsp_fwd_partialsE"),
+              "graph_reg_bsp_dlogp": ("graph_reg_bsp", "bsp_bwd_dlogpE")}
 
 
 def redesign_build_report() -> dict:
@@ -1590,6 +1688,56 @@ def legacy_graph_reg_calls(lib) -> dict:
             "graph_reg_bwd_dlogp": dlogp}
 
 
+#: C entry points of K4 and K6 in a checkout from before their workspaces
+#: (per-strip partials for K4, no workspace for K6): ``against_phase``
+#: calls such a library through these.
+LEGACY_BSP = {"graph_reg_bsp_fwd_n_partials": ("I", "I"),
+              "graph_reg_bsp_fwd": tuple("PPPPPPIIIIIFFFPPP"),
+              "graph_reg_bsp_dlogp": tuple("PPPPPPPPIIIIIFFFPP")}
+
+
+def legacy_bsp_calls(lib) -> dict:
+    """K4 and K6 through a library of the interface before their
+    workspaces, as the wrappers call them: wrapper name -> fn(logp, W,
+    bterm, rows, cols, valid, g, bt, gc, kappa, ge, p) (K4 ignores bterm
+    and g)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import graph_reg as gr
+    kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+    for name, args in LEGACY_BSP.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[a] for a in args]
+        fn.restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def fwd(logp, W, bterm, rows, cols, valid, g, bt, gc, kappa, ge, p):
+        k, B, C = logp.shape
+        part = torch.empty(lib.graph_reg_bsp_fwd_n_partials(k, B),
+                           device="cuda")
+        out = torch.empty(k, device="cuda")
+        gr._raise_on(lib.graph_reg_bsp_fwd(
+            p.data_ptr(), logp.data_ptr(), W.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), valid.data_ptr(), k, B, C, rows.shape[-1], bt,
+            gc, kappa, ge, part.data_ptr(), out.data_ptr(), stream()),
+            "graph_reg_bsp_fwd")
+        return out
+
+    def dlogp(logp, W, bterm, rows, cols, valid, g, bt, gc, kappa, ge, p):
+        k, B, C = logp.shape
+        out = torch.empty(k, B, C, device="cuda")
+        gr._raise_on(lib.graph_reg_bsp_dlogp(
+            p.data_ptr(), logp.data_ptr(), W.data_ptr(), bterm.data_ptr(),
+            g.data_ptr(), rows.data_ptr(), cols.data_ptr(), valid.data_ptr(),
+            k, B, C, rows.shape[-1], bt, gc, kappa, ge, out.data_ptr(),
+            stream()), "graph_reg_bsp_dlogp")
+        return out
+
+    return {"graph_reg_bsp_fwd": fwd, "graph_reg_bsp_dlogp": dlogp}
+
+
 #: C entry points of K8 and K9 in a checkout from before their workspaces
 #: (no plan functions): ``against_phase`` calls such a library through
 #: these.
@@ -1648,14 +1796,18 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     must agree bit for bit (the redesigns keep every sum's order).  K1, K2
     and K10 are also held bit for bit against the other build at k = 3, B
     = 1001, C = 100 (4-byte copies of W's rows, K1's class chunks) and at
-    B = 1001, C = 200 (K2's class chunks).  K8 and K9 (redesigned on the
-    distance engine, bits kept) likewise: K8 on the corpus X at k = 10 and
-    on its first 4,000 rows at k = 300 and 2,000 at k = 1,000 (the global
-    route), K9 on the path's rows ``rows_x`` with ``sigma``, each timed in
-    turns, and bits alone at k = 40 and K9's ragged 1000 × 333.  A library
-    from before K1's and K2's workspaces is called through
-    :func:`legacy_graph_reg_calls`, one from before K8's and K9's through
-    :func:`legacy_pairwise_calls`."""
+    B = 1001, C = 200 (K2's class chunks).  K4 and K6 (redesigned on K1's
+    and K2's pipelines, bits kept) likewise on the path's block and
+    layout, and bits alone at six ragged shapes (k 1-3, B 33-1001, C 1-200,
+    bt 32, 64, 96, 128, 160, 256, one mask of :data:`MASK_KINDS` each).
+    K8 and K9 (redesigned on the distance engine, bits kept) likewise: K8
+    on the corpus X at k = 10 and on its first 4,000 rows at k = 300 and
+    2,000 at k = 1,000 (the global route), K9 on the path's rows
+    ``rows_x`` with ``sigma``, each timed in turns, and bits alone at k =
+    40 and K9's ragged 1000 × 333.  A library from before K1's and K2's
+    workspaces is called through :func:`legacy_graph_reg_calls`, one from
+    before K4's and K6's through :func:`legacy_bsp_calls`, one from before
+    K8's and K9's through :func:`legacy_pairwise_calls`."""
     import ctypes
     import numpy as np
     import torch
@@ -1664,7 +1816,7 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     from repro_torch.kernels import build
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import graph_reg_bsp as bsp
-    from repro_torch.kernels import pairwise
+    from repro_torch.kernels import pairwise, ref
 
     out_dir = build.build_dir() / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1696,6 +1848,9 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
               else legacy_graph_reg_calls(libs["graph_reg"]))
     legacy_pw = ({} if hasattr(libs["pairwise"], "knn_topk_plan")
                  else legacy_pairwise_calls(libs["pairwise"]))
+    legacy_bsp = ({} if hasattr(libs["graph_reg_bsp"],
+                                "graph_reg_bsp_fwd_workspace")
+                  else legacy_bsp_calls(libs["graph_reg_bsp"]))
 
     def swapped(fn, module, lib):
         """``fn`` with ``module``'s wrappers launching ``lib``'s kernels."""
@@ -1783,6 +1938,72 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
         records[name]["bit_equal_shapes"] = [
             where for where in shapes if where.startswith(f"{name} [")]
 
+    # K4 and K6 (redesigned on K1's and K2's pipelines, bits kept): this
+    # build's wrappers, and the other build's kernels, on (logp, W, bterm,
+    # layout, g, bt): timed in turns on the path's block and layout, bits
+    # alone at ragged shapes, tile edges and masks.
+    this_bsp = {
+        "graph_reg_bsp_fwd": lambda logp, W, bterm, rows, cols, valid, g, bt,
+        p: bsp.bsp_forward(logp, W, rows, cols, valid, bt, gamma, kappa,
+                           gamma, p=p),
+        "graph_reg_bsp_dlogp": lambda logp, W, bterm, rows, cols, valid, g,
+        bt, p: bsp.bsp_bwd_dlogp(logp, W, bterm, rows, cols, valid, g, bt,
+                                 gamma, kappa, gamma, p=p),
+    }
+
+    def bsp_pair(name, *args):
+        call = lambda: this_bsp[name](*args)   # noqa: E731
+        if legacy_bsp:
+            return call, lambda: legacy_bsp[name](*args[:-1], gamma, kappa,
+                                                  gamma, args[-1])
+        return call, swapped(call, bsp, libs["graph_reg_bsp"])
+
+    rows, cols, valid = (torch.from_numpy(a)[None].cuda()
+                         for a in lay.arrays()[:3])
+    bterm5 = bsp.bsp_bwd_bterm(logp5, W5, crows, ccols, cvalid, LAYOUT_BT,
+                               p=p5)
+    for name in this_bsp:
+        call, run_other = bsp_pair(name, logp5, W5, bterm5, rows, cols, valid,
+                                   g, LAYOUT_BT, p5)
+        this, other = call(), run_other()
+        torch.cuda.synchronize()
+        check(torch.equal(this, other), f"{name}: this checkout's kernel "
+              f"and {root}'s differ")
+        rounds = {"ms": [], "against_ms": []}
+        for _ in range(2):
+            rounds["ms"].append(graph_ms(call))
+            rounds["against_ms"].append(graph_ms(run_other))
+        rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+        rec["rounds"] = rounds
+        print(f"{name} [path, CUDA graphs, in turns]: this checkout "
+              f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
+              f"(rounds {rounds}); outputs equal bit for bit")
+        records[name] = rec
+    bsp_shapes = []
+    for (k, Bx, Cx, bt), kind in zip(
+            ((3, 1001, 100, 32), (1, 1001, 200, 96), (2, 1000, 39, 64),
+             (1, 1001, 39, 256), (3, 33, 128, 128), (2, 1001, 1, 160)),
+            MASK_KINDS + MASK_KINDS[:2]):
+        Wx, arrays = bsp_case(k, Bx, bt, kind, seed=Bx + bt)
+        logpx = random_logp(k, Bx, Cx, seed=Bx + Cx + k)
+        px = torch.exp(logpx)
+        gx = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
+        bx = ref.bsp_bwd_bterm_ref(logpx, Wx, *arrays[3:6], bt)
+        for name in this_bsp:
+            call, run_other = bsp_pair(name, logpx, Wx, bx, *arrays[:3], gx,
+                                       bt, px)
+            this, other = call(), run_other()
+            torch.cuda.synchronize()
+            where = f"{name} [k={k} B={Bx} C={Cx} bt={bt} {kind}]"
+            check(torch.equal(this, other), f"{where}: this checkout's "
+                  f"kernel and {root}'s differ")
+            bsp_shapes.append(where)
+    print(f"K4 and K6 equal {root}'s bit for bit at "
+          f"{', '.join(bsp_shapes)}")
+    for name in this_bsp:
+        records[name]["bit_equal_shapes"] = [
+            where for where in bsp_shapes if where.startswith(f"{name} [")]
+
     # K8 and K9: this build's wrappers, and the other build's kernels.
     def other_pw(name, *args):
         if legacy_pw:
@@ -1846,9 +2067,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None, metavar="DIR",
-                    help="also time the redesigned K1, K2, K3, K5, K8, K9 "
-                         "and K10 in turns with the same entry points built "
-                         "from DIR's sources")
+                    help="also time the redesigned K1-K6 and K8-K10 in "
+                         "turns with the same entry points built from "
+                         "DIR's sources")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2021,6 +2242,7 @@ def main() -> int:
             "err_over_tol": rec["err_over_tol"],
             "ms": rec["ms"], "kernel_ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / rec["ms"],
             "library_ms": rec["library_ms"], "rounds": rec["rounds"],
             **({"kernel_route": rec["kernel_route"],
                 "block_k": rec["block_k"],

@@ -35,13 +35,12 @@ import torch
 __all__ = ["paper_config", "time_ms", "graph_ms", "profile_step",
            "profile_serve"]
 
-#: Names of this package's kernels in a profiler trace: K1–K3 (with K1's
-#: second pass and the class padding of K1's and K2's inputs) and the
-#: block-sparse K4–K7.
+#: Names of this package's kernels in a profiler trace: K1–K3 and the
+#: block-sparse K4–K7, with the second pass of K1 and K4 and the class
+#: padding of the inputs of K1, K2, K4 and K6.
 REG_KERNELS = ("pad_classes", "reg_fwd_partials", "reg_fwd_tree_sum",
-               "reg_fwd_sum", "reg_bwd_dlogp", "reg_bwd_dw",
-               "bsp_fwd_partials", "bsp_bwd_bterm", "bsp_bwd_dlogp",
-               "bsp_bwd_dw")
+               "reg_bwd_dlogp", "reg_bwd_dw", "bsp_fwd_partials",
+               "bsp_bwd_bterm", "bsp_bwd_dlogp", "bsp_bwd_dw")
 
 
 def paper_config(n_epochs: int = 1, layout_bt: int | None = None,

@@ -25,7 +25,9 @@
 // same sums in the same orders, now from cp.async pipelines that fill
 // every SM; their entry points first copy logP (and P) into class-padded
 // rows (pad_classes) in a workspace the caller allocates, of the size
-// graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.
+// graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.  K1's
+// pipeline and the A half of K2's live in graph_reg_tiles.cuh, where the
+// block-sparse K4 and K6 (graph_reg_bsp.cu) run them over listed tiles.
 // Padding is done with masks elsewhere (graph_reg_tiles.cuh).
 //
 // No float atomics: every output element and every partial sum has exactly
@@ -54,328 +56,25 @@ int rows_to_fill(int64_t rows_total, int n_sm, int step, int max_rows) {
                             : rows > max_rows ? max_rows : rows);
 }
 
-// K1 / K10 pass 1's partials: one per thread of each worker's 32-row
-// strips.
-int fwd_n_partials(int k, int B) { return k * ((B + 31) / 32) * kThreads; }
-
-// Cell (a, b) of a row-major (n_a x nb) grid, visited at e = start,
-// start + step, ...: each next cell from the last one without a division.
-struct Walk {
-    int a, b, da, db, nb;
-    __device__ Walk(int start, int step, int nb_)
-        : a(start / nb_), b(start % nb_), da(step / nb_), db(step % nb_),
-          nb(nb_) {}
-    __device__ __forceinline__ void next() {
-        a += da;
-        b += db;
-        if (b >= nb) { b -= nb; ++a; }
-    }
-};
-
-// Rows of C floats copied to rows of C4 = C rounded up to 4, zero-filled:
-// the class-padded copies of logP (K1, K10) and of P and logP (K2) that
-// their pipelines read with 16-byte copies.  C = 39 rows are 156 bytes,
-// not a multiple of 16; 4-byte copies of them cost more than the padding.
-__host__ __device__ __forceinline__ int pad4(int C) { return (C + 3) / 4 * 4; }
-
-// Grid dimension y picks the source: X (y = 0) or Y (y = 1).
-__global__ void __launch_bounds__(kThreads)
-pad_classes(const float* __restrict__ X, const float* __restrict__ Y,
-            int64_t rows, int C, float* __restrict__ outX,
-            float* __restrict__ outY) {
-    const float* src = blockIdx.y ? Y : X;
-    float4* out = reinterpret_cast<float4*>(blockIdx.y ? outY : outX);
-    const int q4 = pad4(C) / 4;
-    const int64_t n = rows * q4;
-    for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
-         e += (int64_t)gridDim.x * blockDim.x) {
-        const int64_t r = e / q4;
-        const int c = 4 * static_cast<int>(e - r * q4);
-        const float* x = src + r * C + c;
-        float4 v;
-        v.x = c < C ? x[0] : 0.f;
-        v.y = c + 1 < C ? x[1] : 0.f;
-        v.z = c + 2 < C ? x[2] : 0.f;
-        v.w = c + 3 < C ? x[3] : 0.f;
-        out[e] = v;
-    }
-}
-
-// Pads X into outX and, where Y is given, Y into outY, in one launch.
-int launch_pad(const float* X, const float* Y, int64_t rows, int C,
-               float* outX, float* outY, cudaStream_t s) {
-    const int64_t n = rows * (pad4(C) / 4);
-    const int blocks = static_cast<int>((n + kThreads - 1) / kThreads < 512
-                                        ? (n + kThreads - 1) / kThreads
-                                        : 512);
-    pad_classes<<<dim3(blocks, Y ? 2 : 1), kThreads, 0, s>>>(X, Y, rows, C,
-                                                           outX, outY);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// K1, pass 1.  The loss's bits are fixed by four orders, kept from the
-// strip kernel it replaces (one 256-thread block per 32-row strip, thread
-// (ty, tx) owning rows ty + 8r and columns tx + 32c of each 32 x 64 tile):
-//   * S_ij = sum_c P_ic logP_jc, one fmaf chain in increasing c from +0;
-//   * thread (ty, tx)'s chain cross = fmaf(W_ij, S_ij, cross) and its
-//     degrees deg[r] += W_ij over the 64-column tiles in order, then r,
-//     then c (i, j < B only);
-//   * per row, d = warp_sum over the 32 lanes' deg[r], h = row_entropy,
-//     ent += (kappa + ge*d)*h at tx = 0 in r order; the thread's value is
-//     -gc*cross - ent;
-//   * block_sum's tree over the strip's 256 values, then the strips in
-//     order (pass 2).
-// Only the consumption of S by the chains has an order, so S may come
-// from any layout.  The chains of one (strip, ty) pair touch four rows
-// only, so a pair is one warp here, and a block holds `pairs` warps:
-// pairs of consecutive index p = 8*strip + ty, rows 32*strip + ty + 8r.
-// The launch sizes blocks to fill every SM once (20 rows at the path's
+// K1 and K10, pass 1: K1's pipeline (fwd_partials, graph_reg_tiles.cuh)
+// over every 64-column tile of B, blocks of `pairs` warps at consecutive
+// (strip, ty) pairs, sized to fill every SM once (20 rows at the path's
 // shape, against one 32-row strip on 68 of the 132 SMs before).
 //
 // What bounds it: 2*B*B*C flops for S (5.5 us at the path's shape) and
-// the B*B bytes of W (5.7 us).  Each block streams 128-column spans (two
-// of the chains' 64-column tiles) of the class-padded logP (all B rows)
-// and its rows' W span through a ring of kFwdStages cp.async stages of
-// 16-byte copies (classes in chunks of up to kFwdChunk; its rows of P are
-// loaded once when C fits one chunk), so the next spans' copies are in
-// flight while one is summed.  A thread computes a 4 x 4 S tile, its
-// columns tx + 32c of both tiles, from 16-byte reads (its rows' P
-// broadcast, its logP rows padded to an odd number of 16-byte groups:
-// conflict-free), 8 loads per 64 FMAs, then feeds its chain the first
-// tile's values and then the second's.  Pass 1 writes every thread's
-// value (fwd_n_partials: k * strips * 256 floats); pass 2
-// applies block_sum's tree to each strip's 256 and adds the strips in
-// order.  kFull = false (K10) drops the degrees and entropies.
-constexpr int kFwdTile = 64;      // columns per tile: the chains' order
-constexpr int kFwdSpan = 128;     // columns per ring stage: two tiles
-constexpr int kFwdChunk = 64;     // classes per ring stage
-constexpr int kFwdStages = 3;     // depth of the cp.async ring
-constexpr int kFwdMaxPairs = 8;   // warps per block
-
-// Floats of a class-chunk row in shared memory: `width` (a multiple of 4)
-// rounded up to an odd number of 16-byte groups.
-__host__ __device__ __forceinline__ int fwd_stride(int width) {
-    return 4 * ((width / 4) | 1);
-}
-
-// Class chunk width: C rounded up to 4, at most kFwdChunk.
-__host__ __device__ __forceinline__ int fwd_width(int C) {
-    const int c4 = (C + 3) / 4 * 4;
-    return c4 < kFwdChunk ? c4 : kFwdChunk;
-}
-
-// Floats of one ring stage: logP of the tile's 64 columns and W[rows,
-// tile], and P of the block's rows where C takes more than one chunk (one
-// chunk of P is loaded once, beside the ring).
-__host__ __device__ __forceinline__ int fwd_stage_floats(int rows, int C) {
-    const int width = fwd_width(C), stride = fwd_stride(width);
-    return kFwdSpan * stride + rows * kFwdSpan
-           + (C > width ? rows * stride : 0);
-}
-
-// Floats of a K1 launch's dynamic shared memory.
-__host__ __device__ __forceinline__ int fwd_smem_floats(int rows, int C) {
-    const int width = fwd_width(C);
-    return kFwdStages * fwd_stage_floats(rows, C)
-           + (C > width ? 0 : rows * fwd_stride(width));
-}
-
-// Row of the block's local row lr: pair p = first + lr / 4, r = lr % 4.
-__device__ __forceinline__ int fwd_row(int first_pair, int lr) {
-    const int p = first_pair + (lr >> 2);
-    return 32 * (p >> 3) + (p & 7) + 8 * (lr & 3);
-}
-
+// the B*B bytes of W (5.7 us).  kFull = false (K10) drops the degrees and
+// entropies.  Pass 2 is reg_fwd_tree_sum.  The plan fills each SM with
+// one block, which is all the launch bounds promise: with the bare 256
+// threads ptxas caps the pipeline at 128 registers, where it spills.
 template <bool kFull>
-__global__ void __launch_bounds__(32 * kFwdMaxPairs)
+__global__ void __launch_bounds__(32 * kFwdMaxPairs, 1)
 reg_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
                  const float* __restrict__ L4, const float* __restrict__ W,
                  int B, int C, float gc,
                  float kappa, float ge, int vec_w,
                  float* __restrict__ partials) {
-    extern __shared__ __align__(16) float ring[];
-    const int tid = threadIdx.x, warp = tid >> 5, tx = tid & 31;
-    const int rows = blockDim.x / 8;               // 4 per warp
-    const int z = blockIdx.z;
-    const int n_strips = (B + 31) / 32;
-    const int first = blockIdx.x * (blockDim.x / 32);
-    const int pair = first + warp;
-    const int width = fwd_width(C), stride = fwd_stride(width);
-    const int n_chunks = (C + width - 1) / width;
-    const int n_tiles = (B + kFwdSpan - 1) / kFwdSpan;   // two-tile spans
-    const int n_stages = n_tiles * n_chunks;
-    const int stage_floats = fwd_stage_floats(rows, C);
-    const int C4 = pad4(C);
-    P += (int64_t)z * B * C;
-    L += (int64_t)z * B * C;
-    L4 += (int64_t)z * B * C4;
-    W += (int64_t)z * B * B;
-
-    const bool p_once = n_chunks == 1;
-    float* const P_once = ring + kFwdStages * stage_floats;   // [rows][stride]
-    const Walk walk_l(tid, blockDim.x, width / 4);   // (tile column, quad)
-    const Walk walk_p(tid, blockDim.x, width);     // (local row, class)
-    const Walk walk_w(tid, blockDim.x, kFwdSpan);  // (local row, column)
-    const Walk walk_w4(tid, blockDim.x, kFwdSpan / 4);   // (row, 4 columns)
-    auto load_p = [&](float* Ps, int c0) {
-        for (Walk w = walk_p; w.a < rows; w.next()) {
-            const int i = fwd_row(first, w.a), c = c0 + w.b;
-            const bool ok = i < B && c < C;
-            cp_async4(Ps + w.a * stride + w.b,
-                      P + (ok ? (int64_t)i * C + c : 0), ok ? 4 : 0);
-        }
-    };
-    auto load_stage = [&](int stage, int s) {
-        const int j0 = (s / n_chunks) * kFwdSpan;
-        const int u = s - (s / n_chunks) * n_chunks;
-        const int c0 = u * width;
-        float* Ls = ring + stage * stage_floats;   // [64][stride]
-        float* Ws = Ls + kFwdSpan * stride;        // [rows][128]
-        for (Walk w = walk_l; w.a < kFwdSpan; w.next()) {
-            const int j = j0 + w.a, c = c0 + 4 * w.b;
-            const bool ok = j < B && c < C4;
-            cp_async16(Ls + w.a * stride + 4 * w.b,
-                       L4 + (ok ? (int64_t)j * C4 + c : 0), ok ? 16 : 0);
-        }
-        if (!p_once) load_p(Ws + rows * kFwdSpan, c0);
-        if (u < n_chunks - 1) return;   // W with the tile's last chunk
-        if (vec_w) {                    // rows of W are 16-byte aligned
-            for (Walk w = walk_w4; w.a < rows; w.next()) {
-                const int i = fwd_row(first, w.a), j = j0 + 4 * w.b;
-                const int n = i < B ? min(4, B - j) : 0;
-                cp_async16(Ws + w.a * kFwdSpan + 4 * w.b,
-                           W + (n > 0 ? (int64_t)i * B + j : 0),
-                           n > 0 ? 4 * n : 0);
-            }
-        } else {
-            for (Walk w = walk_w; w.a < rows; w.next()) {
-                const int i = fwd_row(first, w.a), j = j0 + w.b;
-                const bool ok = i < B && j < B;
-                cp_async4(Ws + w.a * kFwdSpan + w.b,
-                          W + (ok ? (int64_t)i * B + j : 0), ok ? 4 : 0);
-            }
-        }
-    };
-
-    int irow[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) irow[r] = fwd_row(first, 4 * warp + r);
-    float S[4][4] = {};
-    float cross = 0.f, deg[4] = {0.f, 0.f, 0.f, 0.f};
-    if (p_once) load_p(P_once, 0);   // in the first stage's group
-    for (int s = 0; s < kFwdStages - 1; ++s) {
-        if (s < n_stages) load_stage(s, s);
-        cp_async_commit();
-    }
-    for (int s = 0; s < n_stages; ++s) {
-        cp_async_wait<kFwdStages - 2>();
-        __syncthreads();   // stage s landed; stage s - 1's slot is free
-        if (s + kFwdStages - 1 < n_stages)
-            load_stage((s + kFwdStages - 1) % kFwdStages, s + kFwdStages - 1);
-        cp_async_commit();
-        const int tile = s / n_chunks;
-        const bool last = s - tile * n_chunks == n_chunks - 1;
-        const float* Ls = ring + (s % kFwdStages) * stage_floats;
-        const float* Ws = Ls + kFwdSpan * stride;
-        const float* Ps = p_once ? P_once : Ws + rows * kFwdSpan;
-        const float* prow = Ps + 4 * warp * stride;
-        // This thread's columns of the span: tx + 32c, c < 4, so columns c
-        // = 0, 1 are its two of the first tile and c = 2, 3 of the second.
-        const float* lc = Ls + tx * stride;
-#pragma unroll 2
-        for (int c = 0; c < width; c += 4) {
-            float4 a[4], b[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-                a[r] = *reinterpret_cast<const float4*>(prow + r * stride + c);
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-                b[m] = *reinterpret_cast<const float4*>(lc + 32 * m * stride
-                                                        + c);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    S[r][m] = fmaf(a[r].x, b[m].x, S[r][m]);
-                    S[r][m] = fmaf(a[r].y, b[m].y, S[r][m]);
-                    S[r][m] = fmaf(a[r].z, b[m].z, S[r][m]);
-                    S[r][m] = fmaf(a[r].w, b[m].w, S[r][m]);
-                }
-        }
-        if (last) {
-            // The chain: tile by tile, then r, then c.
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int j0 = tile * kFwdSpan + h * kFwdTile;
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-#pragma unroll
-                    for (int c = 0; c < 2; ++c) {
-                        const int j = j0 + tx + 32 * c;
-                        if (irow[r] < B && j < B) {
-                            const float w = Ws[(4 * warp + r) * kFwdSpan
-                                               + h * kFwdTile + tx + 32 * c];
-                            cross = fmaf(w, S[r][2 * h + c], cross);
-                            if (kFull) deg[r] += w;
-                        }
-                        S[r][2 * h + c] = 0.f;
-                    }
-                }
-            }
-        }
-    }
-    float ent = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4 && kFull; ++r) {
-        const float d = warp_sum(deg[r]);
-        if (irow[r] < B) {
-            const float h = row_entropy(P, L, C, irow[r]);
-            if (tx == 0) ent += (kappa + ge * d) * h;
-        }
-    }
-    if (pair < 8 * n_strips)
-        partials[((int64_t)z * n_strips * 8 + pair) * 32 + tx] =
-            -gc * cross - ent;
-}
-
-// K1, pass 2: one block of kSumThreads per worker.  Warp w takes strips
-// w, w + 32, ...: lane l holds the strip's values l + 32m (m < 8) and runs
-// block_sum's tree on them (levels 128..32 inside the lane, 16..1 by
-// shuffles; a level adds red[t + s] into red[t] for t < s, and lanes past
-// s feed no lane below them), then thread 0 adds the strip totals in
-// strip order from +0.
-constexpr int kSumThreads = 1024;
-
-__global__ void __launch_bounds__(kSumThreads)
-reg_fwd_tree_sum(const float* __restrict__ partials, int n_strips,
-                 float* __restrict__ out) {
-    __shared__ float totals[kSumThreads];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* part = partials + (int64_t)blockIdx.x * n_strips * kThreads;
-    float sum = 0.f;
-    for (int g0 = 0; g0 < n_strips; g0 += kSumThreads) {
-        for (int t = g0 + warp; t < min(n_strips, g0 + kSumThreads);
-             t += kSumThreads / 32) {
-            float v[8];
-#pragma unroll
-            for (int m = 0; m < 8; ++m)
-                v[m] = part[(int64_t)t * kThreads + lane + 32 * m];
-#pragma unroll
-            for (int m = 0; m < 4; ++m) v[m] += v[m + 4];
-#pragma unroll
-            for (int m = 0; m < 2; ++m) v[m] += v[m + 2];
-            v[0] += v[1];
-            for (int o = 16; o > 0; o >>= 1)
-                v[0] += __shfl_down_sync(0xffffffffu, v[0], o);
-            if (lane == 0) totals[t - g0] = v[0];
-        }
-        __syncthreads();
-        if (threadIdx.x == 0)
-            for (int t = g0; t < min(n_strips, g0 + kSumThreads); ++t)
-                sum += totals[t - g0];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) out[blockIdx.x] = sum;
+    fwd_partials<kFull, false>(P, L, L4, W, nullptr, nullptr, nullptr, 0, 0,
+                               B, C, gc, kappa, ge, vec_w, partials);
 }
 
 // K2: dlogp = g*[-gc*(P.*(W logP) + W^T P) + (kappa + ge*deg).*P.*(logP+1)].
@@ -406,72 +105,7 @@ reg_fwd_tree_sum(const float* __restrict__ partials, int n_strips,
 // * 32-j pieces stream through a ring of kDlStages cp.async stages, the
 //   next pieces in flight while one is summed; edges are zero-filled by
 //   the copies (src-size below the copy size).
-constexpr int kDlPiece = 32;      // j per ring stage
-constexpr int kDlStages = 2;      // depth of the cp.async ring
-constexpr int kDlMaxRows = 64;
-constexpr int kDlMaxQuads = 32;   // class chunk: at most 128 classes
-constexpr int kDlMaxThreads = 512;
-
-// Class quads of a block: C rounded up to 4, at most kDlMaxQuads.
-__host__ __device__ __forceinline__ int dl_quads(int C) {
-    const int q = (C + 3) / 4;
-    return q < kDlMaxQuads ? q : kDlMaxQuads;
-}
-
-// Floats of one ring stage: the W piece (rows x 32) and the piece's logP
-// or P rows (32 x 4*quads).
-__host__ __device__ __forceinline__ int dl_stage_floats(int rows, int quads) {
-    return kDlPiece * (rows + 4 * quads);
-}
-
-// Position of W[i0 + r, j0 + j] in block 0's row-major piece: 16-byte
-// groups XOR-swizzled by the row pair, so the 16-byte reads of a warp's
-// row pairs spread over the banks.
-__device__ __forceinline__ int dl_swz(int r, int j) {
-    return r * kDlPiece + ((((j >> 2) ^ (r >> 1)) & 7) << 2) + (j & 3);
-}
-
-// One 32-j piece of a thread's chains: its 2 x 4 outputs and, with kDeg,
-// its two rows' degrees, in increasing j.
-template <bool kA, bool kDeg>
-__device__ __forceinline__ void dl_piece(const float* __restrict__ Ws,
-                                         const float4* __restrict__ vv,
-                                         int rows, int rp, int quads,
-                                         float (&acc)[2][4], float (&deg)[2]) {
-#pragma unroll
-    for (int j4 = 0; j4 < kDlPiece; j4 += 4) {
-        float w[2][4];
-        float4 v[4];
-        if (kA) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                const float4 t = *reinterpret_cast<const float4*>(
-                    Ws + dl_swz(2 * rp + r, j4));
-                w[r][0] = t.x; w[r][1] = t.y; w[r][2] = t.z; w[r][3] = t.w;
-            }
-        } else {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const float2 t = *reinterpret_cast<const float2*>(
-                    Ws + (j4 + u) * rows + 2 * rp);
-                w[0][u] = t.x; w[1][u] = t.y;
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) v[u] = vv[(j4 + u) * quads];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                acc[r][0] = fmaf(w[r][u], v[u].x, acc[r][0]);
-                acc[r][1] = fmaf(w[r][u], v[u].y, acc[r][1]);
-                acc[r][2] = fmaf(w[r][u], v[u].z, acc[r][2]);
-                acc[r][3] = fmaf(w[r][u], v[u].w, acc[r][3]);
-                if (kDeg) deg[r] += w[r][u];
-            }
-        }
-    }
-}
+constexpr int kDlStages = 2;      // depth of K2's cp.async ring
 
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kDlMaxThreads)
 reg_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
@@ -506,21 +140,9 @@ reg_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
     auto load_piece = [&](int stage, int j0) {
         float* Ws = ring + stage * stage_floats;   // rows x 32 floats
         float* Vs = Ws + kDlPiece * rows;          // [piece][width]
-        if (is_a && vec_w) {            // W[i0 + r, j0 .. j0 + 32)
-            for (Walk w = walk_w4; w.a < rows; w.next()) {
-                const int i = i0 + w.a, j = j0 + 4 * w.b;
-                const int n = i < B ? min(4, B - j) : 0;
-                cp_async16(Ws + dl_swz(w.a, 4 * w.b),
-                           W + (n > 0 ? (int64_t)i * B + j : 0),
-                           n > 0 ? 4 * n : 0);
-            }
-        } else if (is_a) {
-            for (Walk w = walk_w; w.a < rows; w.next()) {
-                const bool ok = i0 + w.a < B && j0 + w.b < B;
-                cp_async4(Ws + dl_swz(w.a, w.b),
-                          W + (ok ? (int64_t)(i0 + w.a) * B + j0 + w.b : 0),
-                          ok ? 4 : 0);
-            }
+        if (is_a) {                     // W[i0 + r, j0 .. j0 + 32)
+            dl_load_rows(Ws, W, B, i0, B, j0, B, rows, vec_w, walk_w4,
+                         walk_w);
         } else if (vec_w) {             // W[j0 + j, i0 .. i0 + rows)
             for (Walk w = walk_c4; w.a < kDlPiece; w.next()) {
                 const int j = j0 + w.a, i = i0 + 4 * w.b;
@@ -537,13 +159,7 @@ reg_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
                           ok ? 4 : 0);
             }
         }
-        for (Walk w = walk_v; w.a < kDlPiece; w.next()) {
-            const int c = c0 + 4 * w.b;
-            const bool ok = j0 + w.a < B && c < C4;
-            cp_async16(Vs + w.a * width + 4 * w.b,
-                       V4 + (ok ? (int64_t)(j0 + w.a) * C4 + c : 0),
-                       ok ? 16 : 0);
-        }
+        dl_load_v(Vs, V4, C4, j0, B, c0, width, walk_v);
     };
 
     float acc[2][4] = {}, deg[2] = {0.f, 0.f};

@@ -24,13 +24,18 @@
 // The TPU kernels walk a list as one ordered grid, find a strip's first and
 // last entries from the neighbouring entries, and keep scratch alive from
 // one grid step to the next.  CUDA blocks run in no order, so here a block
-// owns a piece of one tile strip (32 rows for K4, K6 and K7, 8 for K5; bt
-// must be a multiple of 32), binary-searches its strip's range in the
-// sorted major coordinate, and loops over those entries in list order;
-// entries with valid=0 (sentinels and tail padding) add nothing.  Inside
-// an entry the sums run in the dense kernels' order (64-column pieces and
-// 16-class chunks for K4, j increasing for K5 and K6), so on a full mask
-// with bt a multiple of 64 K4 equals K1 and K5∘K6 equals K2 bit for bit.
+// owns rows of one tile line (bt must be a multiple of 32), its first warp
+// finds the line's entries in the sorted major coordinate and compacts
+// their valid tiles, in list order, into shared memory (compact_line), and
+// the block walks them in that order; entries with valid=0 (sentinels and
+// tail padding) add nothing.  Inside an entry the sums run in the dense
+// kernels' orders: K4 is K1's pipeline over the listed tiles' 64-column
+// pieces and K6 the A half of K2's over their 32-j pieces (both in
+// graph_reg_tiles.cuh), K5 runs j increasing as K2's W^T P, K7 K3's
+// tiles; so on a full mask with bt a multiple of 64 K4 equals K1, K5∘K6
+// equals K2 and K7 equals K3 bit for bit.  K4 and K6 read a class-padded
+// copy of logP that their entry points write into a workspace the caller
+// allocates (graph_reg_bsp_fwd_workspace / graph_reg_bsp_dlogp_workspace).
 // No float atomics: every output element and partial has one writer, and
 // repeats are bit-identical.
 
@@ -40,84 +45,29 @@
 
 namespace {
 
-// [lo, hi): the entries of tile line `line` in a list sorted by `major`.
-__device__ __forceinline__ void line_range(const int* __restrict__ major,
-                                           int T, int line, int& lo, int& hi) {
-    int a = 0, b = T;
-    while (a < b) {
-        const int m = (a + b) >> 1;
-        if (major[m] < line) a = m + 1; else b = m;
-    }
-    lo = a;
-    b = T;
-    while (a < b) {
-        const int m = (a + b) >> 1;
-        if (major[m] <= line) a = m + 1; else b = m;
-    }
-    hi = a;
-}
-
-// K4, pass 1: one block per (32-row piece, worker); K1's block restricted
-// to the column tiles its strip lists.  A listed strip owes its rows'
-// entropy term even when it holds only a sentinel.
-__global__ void __launch_bounds__(kThreads)
+// K4, pass 1: K1's pipeline (fwd_partials) over the listed tiles of the
+// block's tile row, in list order.  A block holds `pairs` warps of one
+// tile row (blockIdx.x = tile row * groups + group); the launch takes the
+// most warps a block (a power of two, at most 8) that still fill every
+// SM once: 16 rows at the path's shape (k = 1, B = 2176, bt = 128), 136
+// blocks.  No block splits a chain, so a tile row with many listed tiles
+// takes its blocks longer than one with few.  In development runs on an
+// H100 blocks of 8 or 4 rows (twice or four times the SMs) and of 32 ran
+// slower, and a fourth ring stage gained nothing.
+//
+// What bounds it: the listed tiles' W and logP (4.3 MB at the path's
+// shape, 60 of 289 tiles: 1.3 us) and 2*C flops per listed entry of W (77
+// MFLOP, 1.1 us).  Pass 2 is reg_fwd_tree_sum, as K1's.  As K1's, its
+// launch bounds promise one block an SM (at 128 registers it spills).
+__global__ void __launch_bounds__(32 * kFwdMaxPairs, 1)
 bsp_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
-                 const float* __restrict__ W, const int* __restrict__ rows,
-                 const int* __restrict__ cols, const int* __restrict__ valid,
-                 int B, int C, int T, int bt, float gc, float kappa, float ge,
+                 const float* __restrict__ L4, const float* __restrict__ W,
+                 const int* __restrict__ rows, const int* __restrict__ cols,
+                 const int* __restrict__ valid, int B, int C, int T, int bt,
+                 float gc, float kappa, float ge, int vec_w,
                  float* __restrict__ partials) {
-    __shared__ float Ps[kChunk][kRows + 1];
-    __shared__ float Ls[kChunk][kCols + 1];
-    __shared__ float red[kThreads];
-    const int z = blockIdx.z, i0 = blockIdx.x * kRows;
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    const int nt = (B + bt - 1) / bt;
-    P += (int64_t)z * B * C;
-    L += (int64_t)z * B * C;
-    W += (int64_t)z * B * B;
-    rows += (int64_t)z * T;
-    cols += (int64_t)z * T;
-    valid += (int64_t)z * T;
-    int lo, hi;
-    line_range(rows, T, i0 / bt, lo, hi);
-
-    float cross = 0.f, deg[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int t = lo; t < hi; ++t) {
-        const int ct = cols[t];
-        if (valid[t] != 1 || ct < 0 || ct >= nt) continue;
-        const int j1 = min((ct + 1) * bt, B);
-        for (int j0 = ct * bt; j0 < j1; j0 += kCols) {
-            float acc[4][2] = {};
-            s_tile(P, L, B, C, i0, j0, Ps, Ls, acc);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int i = i0 + ty + 8 * r;
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const int j = j0 + tx + 32 * c;
-                    if (i < B && j < j1) {
-                        const float w = W[(int64_t)i * B + j];
-                        cross = fmaf(w, acc[r][c], cross);
-                        deg[r] += w;
-                    }
-                }
-            }
-        }
-    }
-    float ent = 0.f;
-    if (lo < hi) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int i = i0 + ty + 8 * r;
-            const float d = warp_sum(deg[r]);
-            if (i < B) {
-                const float h = row_entropy(P, L, C, i);
-                if (tx == 0) ent += (kappa + ge * d) * h;
-            }
-        }
-    }
-    const float total = block_sum(-gc * cross - ent, red);
-    if (tid == 0) partials[(int64_t)z * gridDim.x + blockIdx.x] = total;
+    fwd_partials<true, true>(P, L, L4, W, rows, cols, valid, T, bt, B, C, gc,
+                             kappa, ge, vec_w, partials);
 }
 
 // K5: bterm[i, c] = sum_j W[j, i] P[j, c] over the tiles of i's column
@@ -134,11 +84,10 @@ bsp_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
 //   pads to 40, not to 64); it reads its steps eight at a time, all the
 //   shared-memory reads first, so one read latency covers eight FMAs of
 //   each of its four chains;
-// * warp 0 finds the strip's [lo, hi) with a pivot per lane a round (two
-//   rounds for lists up to ~1,000 entries, where a binary search takes
-//   ~20 dependent loads) and compacts the valid entries' tile rows, in
-//   list order, into shared memory: the pipeline reads no index from
-//   global memory;
+// * warp 0 finds the strip's [lo, hi) with a pivot per lane a round and
+//   compacts the valid entries' tile rows, in list order, into shared
+//   memory (compact_line): the pipeline reads no index from global
+//   memory;
 // * the strip's (tile, 32-row piece) sequence streams through a ring of
 //   kBtStages shared-memory stages filled with cp.async (16-byte copies
 //   where rows are 16-byte aligned, 4-byte copies otherwise), so the
@@ -161,47 +110,6 @@ __host__ __device__ __forceinline__ int bterm_stage_floats(int quads) {
     return kBtPiece * (kBtRows + 4 * quads);
 }
 
-// Entries of a strip's compacted tile list: a layout lists each tile at
-// most once, so a strip holds at most nt valid entries (and at most T).
-__host__ __device__ __forceinline__ int bterm_list_cap(int B, int T, int bt) {
-    return min(T, (B + bt - 1) / bt);
-}
-
-// Run by the first warp (its `lanes` threads, all of the block's if
-// fewer than 32): the entries [lo, hi) of tile line `line` in the list
-// sorted by `major`.  Each round probes `lanes` pivots of the remaining
-// range for both bounds at once and keeps the interval that holds each.
-__device__ __forceinline__ void warp_line_range(const int* __restrict__ major,
-                                                int T, int line, int lanes,
-                                                unsigned mask, int& lo,
-                                                int& hi) {
-    const int lane = threadIdx.x & 31;
-    int a[2] = {0, 0}, b[2] = {T, T};
-    while (b[0] - a[0] > lanes || b[1] - a[1] > lanes) {
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-            const int n = b[s] - a[s];
-            if (n <= lanes) continue;                 // uniform
-            auto pivot = [&](int t) {
-                return a[s] + static_cast<int>((int64_t)(t + 1) * n /
-                                               (lanes + 1));
-            };
-            const int cnt = __popc(__ballot_sync(
-                mask, major[pivot(lane)] < line + s));
-            const int na = cnt ? pivot(cnt - 1) + 1 : a[s];
-            b[s] = cnt < lanes ? pivot(cnt) : b[s];
-            a[s] = na;
-        }
-    }
-    int res[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-        res[s] = a[s] + __popc(__ballot_sync(
-            mask, a[s] + lane < b[s] && major[a[s] + lane] < line + s));
-    lo = res[0];
-    hi = res[1];
-}
-
 __global__ void __launch_bounds__(kBtRows * kBtMaxQuads)
 bsp_bwd_bterm(const float* __restrict__ P, const float* __restrict__ W,
               const int* __restrict__ crows, const int* __restrict__ ccols,
@@ -216,7 +124,7 @@ bsp_bwd_bterm(const float* __restrict__ P, const float* __restrict__ W,
     const int nt = (B + bt - 1) / bt;
     const int stage_floats = bterm_stage_floats(quads);
     // The strip's valid tile rows, in list order.
-    const int cap = bterm_list_cap(B, T, bt);
+    const int cap = list_cap(B, T, bt);
     int* jts = reinterpret_cast<int*>(ring + kBtStages * stage_floats);
     P += (int64_t)z * B * C;
     W += (int64_t)z * B * B;
@@ -225,23 +133,9 @@ bsp_bwd_bterm(const float* __restrict__ P, const float* __restrict__ W,
     ccols += (int64_t)z * T;
     cvalid += (int64_t)z * T;
 
-    if (tid < 32) {
-        const int lanes = min(32, static_cast<int>(blockDim.x));
-        const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1;
-        const int lane = tid;
-        int lo, hi, n = 0;
-        warp_line_range(ccols, T, i0 / bt, lanes, mask, lo, hi);
-        for (int e0 = lo; e0 < hi; e0 += lanes) {
-            const int e = e0 + lane;
-            const int jt = e < hi ? crows[e] : -1;
-            const bool ok = e < hi && cvalid[e] == 1 && jt >= 0 && jt < nt;
-            const unsigned m = __ballot_sync(mask, ok);
-            const int at = n + __popc(m & ((1u << lane) - 1));
-            if (ok && at < cap) jts[at] = jt;   // more: a tile listed twice
-            n += __popc(m);
-        }
-        if (lane == 0) n_tiles = min(n, cap);
-    }
+    if (tid < 32)
+        compact_line(ccols, crows, cvalid, T, i0 / bt, nt, cap, jts,
+                     &n_tiles, nullptr);
     __syncthreads();
     const int n = n_tiles;
 
@@ -342,89 +236,134 @@ bsp_bwd_bterm(const float* __restrict__ P, const float* __restrict__ W,
     }
 }
 
-// K6: one block per (32-row piece, worker); K2's block restricted to the
-// column tiles its strip lists, with K5's bterm in place of its W^T P.
-// Degrees are recomputed per class chunk, as in K2.
-__global__ void __launch_bounds__(kThreads)
+// K6: K2's block 0 (the A half of its pipeline, graph_reg_tiles.cuh)
+// without the cluster, over the 32-j pieces of the listed tiles of the
+// block's tile row in list order, with K5's bterm in place of K2's W^T P.
+// Its bits: A = W logP and each row's degree are each one chain in
+// increasing j over the listed tiles in list order (zeros past a tile's
+// end), from +0, and the epilogue is K2's expression.
+//
+// What bounds it: the listed tiles' W and logP (3.9 MB at the path's
+// shape: 1.2 us) and 2*C flops per listed entry of W (1.1 us); in
+// practice the latency of each row's serial chain over its tile row's
+// pieces.  The design:
+//
+// * one block per (rows of one tile row, class chunk of up to 128,
+//   worker): the most rows (a multiple of 4, at most kDlMaxRows) that
+//   still fill every SM once; 16 at the path's shape, 136 blocks of 80
+//   threads;
+// * a thread owns 2 rows x 4 classes of a class chunk of C rounded up to
+//   4 (40 at C = 39, not 64), read from the class-padded logP;
+// * the pieces stream through a ring of kBsDlStages cp.async stages of
+//   16-byte copies (W's rows swizzled as K2's, dl_swz), so the loads of
+//   the next piece are in flight while one is summed (two stages, as K2's
+//   ring: in development runs on an H100 three, four and eight stages
+//   ran slower, and so did blocks of 8 or 32 rows); the degrees come from
+//   the same W reads, in warp 0.
+constexpr int kBsDlStages = 2;   // depth of K6's cp.async ring
+
+__global__ void __launch_bounds__(kDlMaxThreads)
 bsp_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
-              const float* __restrict__ W, const float* __restrict__ bterm,
-              const float* __restrict__ g, const int* __restrict__ rows,
-              const int* __restrict__ cols, const int* __restrict__ valid,
-              int B, int C, int T, int bt, float gc, float kappa, float ge,
+              const float* __restrict__ L4, const float* __restrict__ W,
+              const float* __restrict__ bterm, const float* __restrict__ g,
+              const int* __restrict__ rows_l, const int* __restrict__ cols_l,
+              const int* __restrict__ valid_l, int B, int C, int T, int bt,
+              float gc, float kappa, float ge, int vec_w,
               float* __restrict__ dlogp) {
-    __shared__ float Ws[kBwdRows][kBwdCols + 1];    // W[i, j]
-    __shared__ float Lj[kBwdCols][kClassW + 1];
-    __shared__ float deg_s[kBwdRows];
-    const int z = blockIdx.z, i0 = blockIdx.x * kBwdRows;
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    const int nt = (B + bt - 1) / bt;
+    extern __shared__ __align__(16) float ring[];
+    __shared__ int n_tiles;
+    const int quads = dl_quads(C), width = 4 * quads, C4 = pad4(C);
+    const int pairs = blockDim.x / quads, rows = 2 * pairs;
+    const int tid = threadIdx.x, rp = tid % pairs, q = tid / pairs;
+    const int groups = (bt + rows - 1) / rows;
+    const int line = blockIdx.x / groups;
+    const int i0 = line * bt + (blockIdx.x - line * groups) * rows;
+    const int row_end = min(line * bt + bt, B);
+    if (i0 >= row_end) return;   // the last tile row's rest
+    const int z = blockIdx.z, c0 = blockIdx.y * 4 * kDlMaxQuads;
+    const int stage_floats = dl_stage_floats(rows, quads);
+    int* list = reinterpret_cast<int*>(ring + kBsDlStages * stage_floats);
     P += (int64_t)z * B * C;
     L += (int64_t)z * B * C;
+    L4 += (int64_t)z * B * C4;
     W += (int64_t)z * B * B;
     bterm += (int64_t)z * B * C;
     dlogp += (int64_t)z * B * C;
-    rows += (int64_t)z * T;
-    cols += (int64_t)z * T;
-    valid += (int64_t)z * T;
     const float gz = g[z];
-    int lo, hi;
-    line_range(rows, T, i0 / bt, lo, hi);
+    if (tid < 32)
+        compact_line(rows_l + (int64_t)z * T, cols_l + (int64_t)z * T,
+                     valid_l + (int64_t)z * T, T, line, (B + bt - 1) / bt,
+                     list_cap(B, T, bt), list, &n_tiles, nullptr);
+    __syncthreads();
+    const int n = n_tiles;
 
-    for (int c0 = 0; c0 < C; c0 += kClassW) {
-        float A[4][2] = {};
-        float degacc = 0.f;
-        for (int t = lo; t < hi; ++t) {
-            const int ct = cols[t];
-            if (valid[t] != 1 || ct < 0 || ct >= nt) continue;
-            const int j1 = min((ct + 1) * bt, B);
-            for (int j0 = ct * bt; j0 < j1; j0 += kBwdCols) {
-                for (int e = tid; e < kBwdRows * kBwdCols; e += kThreads) {
-                    const int ii = e / kBwdCols, jj = e % kBwdCols;
-                    const bool ok = (i0 + ii < B) && (j0 + jj < j1);
-                    Ws[ii][jj] = ok ? W[(int64_t)(i0 + ii) * B + j0 + jj] : 0.f;
-                }
-                for (int e = tid; e < kBwdCols * kClassW; e += kThreads) {
-                    const int jj = e / kClassW, cc = e % kClassW;
-                    const bool ok = (j0 + jj < j1) && (c0 + cc < C);
-                    Lj[jj][cc] = ok ? L[(int64_t)(j0 + jj) * C + c0 + cc] : 0.f;
-                }
-                __syncthreads();
-                if (tid < kBwdRows)
-                    for (int jj = 0; jj < kBwdCols; ++jj) degacc += Ws[tid][jj];
-#pragma unroll 8
-                for (int jj = 0; jj < kBwdCols; ++jj) {
-                    float w[4], l[2];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r) w[r] = Ws[ty + 8 * r][jj];
-#pragma unroll
-                    for (int c = 0; c < 2; ++c) l[c] = Lj[jj][tx + 32 * c];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 2; ++c)
-                            A[r][c] = fmaf(w[r], l[c], A[r][c]);
-                }
-                __syncthreads();
-            }
+    // The line's pieces in order: j0 .. j0 + 32 of the tile that ends at
+    // j1.  Uniform across the block.
+    int u = 0, pj = 0, pend = 0;
+    auto next_piece = [&](int& j0, int& j1) -> bool {
+        if (pj >= pend) {
+            if (u >= n) return false;
+            pj = list[u++] * bt;
+            pend = min(pj + bt, B);
         }
-        if (tid < kBwdRows) deg_s[tid] = degacc;
-        __syncthreads();
+        j0 = pj;
+        j1 = pend;
+        pj += kDlPiece;
+        return true;
+    };
+    const Walk walk_w4(tid, blockDim.x, kDlPiece / 4);   // (row, j quad)
+    const Walk walk_w(tid, blockDim.x, kDlPiece);        // (row, j)
+    const Walk walk_v(tid, blockDim.x, quads);           // (j, class quad)
+    auto load_piece = [&](int stage, int j0, int j1) {
+        float* Ws = ring + stage * stage_floats;   // rows x 32 floats
+        dl_load_rows(Ws, W, B, i0, row_end, j0, j1, rows, vec_w, walk_w4,
+                     walk_w);
+        dl_load_v(Ws + kDlPiece * rows, L4, C4, j0, j1, c0, width, walk_v);
+    };
+
+    float acc[2][4] = {}, deg[2] = {0.f, 0.f};
+    int issued = 0, j0, j1;
+    for (int s = 0; s < kBsDlStages - 1; ++s) {
+        if (next_piece(j0, j1)) load_piece(issued++ % kBsDlStages, j0, j1);
+        cp_async_commit();
+    }
+    for (int it = 0; it < issued; ++it) {
+        cp_async_wait<kBsDlStages - 2>();
+        __syncthreads();   // piece it landed; piece it - 1's slot is free
+        if (next_piece(j0, j1)) load_piece(issued++ % kBsDlStages, j0, j1);
+        cp_async_commit();
+        const float* Ws = ring + (it % kBsDlStages) * stage_floats;
+        const float4* vv = reinterpret_cast<const float4*>(
+            Ws + kDlPiece * rows) + q;
+        // The degree threads (q = 0: threads 0 .. pairs - 1) are all in
+        // warp 0; the other warps skip the degree adds.
+        if (tid < 32)
+            dl_piece<true, true>(Ws, vv, rows, rp, quads, acc, deg);
+        else
+            dl_piece<true, false>(Ws, vv, rows, rp, quads, acc, deg);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free: the degrees
+    float* degs = ring;   // [rows]
+    if (q == 0) {
+        degs[2 * rp] = deg[0];
+        degs[2 * rp + 1] = deg[1];
+    }
+    __syncthreads();
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int i = i0 + ty + 8 * r;
-            if (i >= B) continue;
-            const float coef = kappa + ge * deg_s[ty + 8 * r];
+    for (int r = 0; r < 2; ++r) {
+        const int i = i0 + 2 * rp + r;
+        if (i >= row_end) continue;
+        const float coef = kappa + ge * degs[2 * rp + r];
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const int cc = c0 + tx + 32 * c;
-                if (cc >= C) continue;
-                const int64_t at = (int64_t)i * C + cc;
-                const float p = P[at];
-                dlogp[at] = gz * (-gc * (p * A[r][c] + bterm[at])
-                                  + coef * p * (L[at] + 1.f));
-            }
+        for (int e = 0; e < 4; ++e) {
+            const int cc = c0 + 4 * q + e;
+            if (cc >= C) continue;
+            const int64_t at = (int64_t)i * C + cc;
+            const float p = P[at];
+            dlogp[at] = gz * (-gc * (p * acc[r][e] + bterm[at])
+                              + coef * p * (L[at] + 1.f));
         }
-        __syncthreads();   // deg_s is rewritten by the next class chunk
     }
 }
 
@@ -473,29 +412,64 @@ bool bad_tile_edge(int bt) { return bt <= 0 || bt % kRows != 0; }
 
 extern "C" {
 
-// Number of K4 partials a (k, B) launch writes: the caller allocates them.
-int graph_reg_bsp_fwd_n_partials(int k, int B) {
-    return k * ((B + kRows - 1) / kRows);
+// Floats of a K4 launch's workspace: pass 1's partials, one per thread of
+// each worker's 32-row strips, then the class-padded copy of logP, k * B *
+// C4 floats (C4 = C rounded up to 4); K1's sizes.
+int graph_reg_bsp_fwd_workspace(int k, int B, int C) {
+    return fwd_n_partials(k, B) + k * B * pad4(C);
 }
 
+// Rows per block and dynamic shared memory (bytes) of a K4 launch: blocks
+// of a power of two of warps (4 rows each, at most kFwdMaxPairs), the
+// most that still fill every SM once with k * nt * (bt / 4 / pairs)
+// blocks; the ring, P's rows and the compacted tile list.
+int graph_reg_bsp_fwd_plan(int k, int B, int C, int T, int bt, int* rows,
+                           int* smem) {
+    if (k < 1 || B < 1 || C < 1 || T < 0 || bad_tile_edge(bt))
+        return static_cast<int>(cudaErrorInvalidValue);
+    int n_sm = 0;
+    const cudaError_t err = sm_count(&n_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t lines = (int64_t)k * ((B + bt - 1) / bt);
+    int pairs = kFwdMaxPairs;
+    while (pairs > 1 && lines * (bt / 4 / pairs) < n_sm) pairs /= 2;
+    *rows = 4 * pairs;
+    *smem = static_cast<int>(sizeof(float)) * fwd_smem_floats(*rows, C)
+            + static_cast<int>(sizeof(int)) * list_cap(B, T, bt);
+    return 0;
+}
+
+// workspace holds graph_reg_bsp_fwd_workspace(k, B, C) floats, 16-byte
+// aligned; out holds k floats.
 int graph_reg_bsp_fwd(const void* p, const void* logp, const void* W,
                       const void* rows, const void* cols, const void* valid,
                       int k, int B, int C, int T, int bt, float gc,
-                      float kappa, float ge, void* partials, void* out,
+                      float kappa, float ge, void* workspace, void* out,
                       void* stream) {
-    if (bad_tile_edge(bt)) return static_cast<int>(cudaErrorInvalidValue);
+    int rows_pb = 0, smem = 0;
+    int rc = graph_reg_bsp_fwd_plan(k, B, C, T, bt, &rows_pb, &smem);
+    if (rc != 0) return rc;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int n_strips = (B + kRows - 1) / kRows;
-    bsp_fwd_partials<<<dim3(n_strips, 1, k), kThreads, 0, s>>>(
-        static_cast<const float*>(p), static_cast<const float*>(logp),
-        static_cast<const float*>(W), static_cast<const int*>(rows),
-        static_cast<const int*>(cols), static_cast<const int*>(valid),
-        B, C, T, bt, gc, kappa, ge, static_cast<float*>(partials));
-    cudaError_t err = cudaGetLastError();
+    float* partials = static_cast<float*>(workspace);
+    float* L4 = partials + fwd_n_partials(k, B);
+    rc = launch_pad(static_cast<const float*>(logp), nullptr, (int64_t)k * B,
+                    C, L4, nullptr, s);
+    if (rc != 0) return rc;
+    const int pairs = rows_pb / 4, nt = (B + bt - 1) / bt;
+    // 16-byte copies of W's rows need B a multiple of 4 and W aligned.
+    const int vec_w = B % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+    cudaError_t err = allow_dynamic_smem<bsp_fwd_partials>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    reg_fwd_sum<<<(k + 127) / 128, 128, 0, s>>>(
-        static_cast<const float*>(partials), n_strips, k,
-        static_cast<float*>(out));
+    bsp_fwd_partials<<<dim3(nt * (bt / 4 / pairs), 1, k), 32 * pairs, smem,
+                       s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(logp), L4,
+        static_cast<const float*>(W), static_cast<const int*>(rows),
+        static_cast<const int*>(cols), static_cast<const int*>(valid), B, C,
+        T, bt, gc, kappa, ge, vec_w, partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reg_fwd_tree_sum<<<k, kSumThreads, 0, s>>>(partials, (B + 31) / 32,
+                                                static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -506,7 +480,7 @@ int graph_reg_bsp_bterm_smem(int B, int C, int T, int bt) {
     const int quads = min((C + 3) / 4, kBtMaxQuads);
     return static_cast<int>(sizeof(float) * kBtStages *
                                 bterm_stage_floats(quads) +
-                            sizeof(int) * bterm_list_cap(B, T, bt));
+                            sizeof(int) * list_cap(B, T, bt));
 }
 
 int graph_reg_bsp_bterm(const void* p, const void* W, const void* crows,
@@ -532,20 +506,67 @@ int graph_reg_bsp_bterm(const void* p, const void* W, const void* crows,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Floats of a K6 launch's workspace: the class-padded copy of logP, k * B
+// * C4 floats.
+int graph_reg_bsp_dlogp_workspace(int k, int B, int C) {
+    return k * B * pad4(C);
+}
+
+// Rows per block and dynamic shared memory (bytes) of a K6 launch: the
+// most rows (a multiple of 4, at most kDlMaxRows, bt and what
+// kDlMaxThreads threads hold) that still fill every SM once with k *
+// class chunks * nt * ceil(bt / rows) blocks; the ring and the compacted
+// tile list.
+int graph_reg_bsp_dlogp_plan(int k, int B, int C, int T, int bt, int* rows,
+                             int* smem) {
+    if (k < 1 || B < 1 || C < 1 || T < 0 || bad_tile_edge(bt))
+        return static_cast<int>(cudaErrorInvalidValue);
+    int n_sm = 0;
+    const cudaError_t err = sm_count(&n_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int quads = dl_quads(C);
+    const int n_chunks = (C + 4 * kDlMaxQuads - 1) / (4 * kDlMaxQuads);
+    const int64_t lines = (int64_t)k * n_chunks * ((B + bt - 1) / bt);
+    const int fit = 2 * (kDlMaxThreads / quads);
+    int r = min(min(fit, kDlMaxRows), bt) & ~3;
+    while (r > 4 && lines * ((bt + r - 1) / r) < n_sm) r -= 4;
+    *rows = r;
+    *smem = static_cast<int>(sizeof(float)) * kBsDlStages
+            * dl_stage_floats(r, quads)
+            + static_cast<int>(sizeof(int)) * list_cap(B, T, bt);
+    return 0;
+}
+
+// workspace holds graph_reg_bsp_dlogp_workspace(k, B, C) floats, 16-byte
+// aligned; dlogp is the (k, B, C) output.
 int graph_reg_bsp_dlogp(const void* p, const void* logp, const void* W,
                         const void* bterm, const void* g, const void* rows,
                         const void* cols, const void* valid, int k, int B,
                         int C, int T, int bt, float gc, float kappa, float ge,
-                        void* dlogp, void* stream) {
-    if (bad_tile_edge(bt)) return static_cast<int>(cudaErrorInvalidValue);
-    const int n_strips = (B + kBwdRows - 1) / kBwdRows;
-    bsp_bwd_dlogp<<<dim3(n_strips, 1, k), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(p), static_cast<const float*>(logp),
+                        void* workspace, void* dlogp, void* stream) {
+    int rows_pb = 0, smem = 0;
+    int rc = graph_reg_bsp_dlogp_plan(k, B, C, T, bt, &rows_pb, &smem);
+    if (rc != 0) return rc;
+    const cudaError_t err = allow_dynamic_smem<bsp_bwd_dlogp>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* L4 = static_cast<float*>(workspace);
+    rc = launch_pad(static_cast<const float*>(logp), nullptr, (int64_t)k * B,
+                    C, L4, nullptr, s);
+    if (rc != 0) return rc;
+    const int quads = dl_quads(C);
+    const int n_chunks = (C + 4 * kDlMaxQuads - 1) / (4 * kDlMaxQuads);
+    const int nt = (B + bt - 1) / bt;
+    // 16-byte copies of W need B a multiple of 4 and W aligned (each
+    // piece starts at a multiple of 32 columns).
+    const int vec_w = B % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+    bsp_bwd_dlogp<<<dim3(nt * ((bt + rows_pb - 1) / rows_pb), n_chunks, k),
+                    rows_pb / 2 * quads, smem, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(logp), L4,
         static_cast<const float*>(W), static_cast<const float*>(bterm),
         static_cast<const float*>(g), static_cast<const int*>(rows),
-        static_cast<const int*>(cols), static_cast<const int*>(valid),
-        B, C, T, bt, gc, kappa, ge, static_cast<float*>(dlogp));
+        static_cast<const int*>(cols), static_cast<const int*>(valid), B, C,
+        T, bt, gc, kappa, ge, vec_w, static_cast<float*>(dlogp));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -139,22 +139,30 @@ def _dims(logp: torch.Tensor) -> tuple[int, int, int]:
     return tuple(logp.shape)
 
 
-def _workspace(name: str, k: int, B: int, C: int,
+def _workspace(lib: ctypes.CDLL, name: str, k: int, B: int, C: int,
                device: torch.device) -> torch.Tensor:
-    """The workspace of one K1 / K10 (``"graph_reg_fwd"``) or K2
-    (``"graph_reg_bwd_dlogp"``) launch, of the size the library gives."""
-    n = getattr(_lib(), f"{name}_workspace")(k, B, C)
+    """The workspace of one launch of ``lib``'s entry point ``name`` (K1 /
+    K10 ``"graph_reg_fwd"``, K2 ``"graph_reg_bwd_dlogp"``, K4
+    ``"graph_reg_bsp_fwd"``, K6 ``"graph_reg_bsp_dlogp"``), of the size
+    the library gives."""
+    n = getattr(lib, f"{name}_workspace")(k, B, C)
     return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def _plan(lib: ctypes.CDLL, name: str, *dims: int) -> dict:
+    """Rows per block and dynamic shared memory (bytes) of one launch of
+    ``lib``'s entry point ``name`` at ``dims``, from its ``_plan``."""
+    rows, smem = ctypes.c_int(), ctypes.c_int()
+    _raise_on(getattr(lib, f"{name}_plan")(
+        *dims, ctypes.byref(rows), ctypes.byref(smem)), f"{name}_plan")
+    return {"rows_per_block": rows.value, "dynamic_smem_bytes": smem.value}
 
 
 def launch_plan(name: str, k: int, B: int, C: int) -> dict:
     """Rows per block and dynamic shared memory (bytes) of one K1 / K10
     (``"graph_reg_fwd"``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
     current card, as the library computes them."""
-    rows, smem = ctypes.c_int(), ctypes.c_int()
-    _raise_on(getattr(_lib(), f"{name}_plan")(
-        k, B, C, ctypes.byref(rows), ctypes.byref(smem)), f"{name}_plan")
-    return {"rows_per_block": rows.value, "dynamic_smem_bytes": smem.value}
+    return _plan(_lib(), name, k, B, C)
 
 
 def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
@@ -165,7 +173,7 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
         return ref.reg_forward_ref(logp, W, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    work = _workspace("graph_reg_fwd", k, B, C, logp.device)
+    work = _workspace(_lib(), "graph_reg_fwd", k, B, C, logp.device)
     out = torch.empty(k, dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_fwd(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),
@@ -187,7 +195,7 @@ def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
                          f"got {tuple(logp.shape)}")
     B, C = logp.shape
     p = torch.exp(logp) if p is None else p
-    work = _workspace("graph_reg_fwd", 1, B, C, logp.device)
+    work = _workspace(_lib(), "graph_reg_fwd", 1, B, C, logp.device)
     out = torch.empty((), dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_pairwise(
         _checked(p, "p", (B, C)), _checked(logp, "logp", (B, C)),
@@ -207,7 +215,7 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
         return ref.reg_bwd_dlogp_ref(logp, W, g, gc, kappa, ge)
     k, B, C = _dims(logp)
     p = torch.exp(logp) if p is None else p
-    work = _workspace("graph_reg_bwd_dlogp", k, B, C, logp.device)
+    work = _workspace(_lib(), "graph_reg_bwd_dlogp", k, B, C, logp.device)
     out = torch.empty(k, B, C, dtype=torch.float32, device=logp.device)
     rc = _lib().graph_reg_bwd_dlogp(
         _checked(p, "p", (k, B, C)), _checked(logp, "logp", (k, B, C)),

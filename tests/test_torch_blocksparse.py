@@ -17,6 +17,8 @@ values agree to ~1e-6 relative; the tests allow rtol 2e-5 with an atol of
 2e-5 of the largest magnitude, as tests/test_torch_graph_reg.py does.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -370,3 +372,84 @@ def test_launch_counters_cover_k4_to_k7_and_ignore_the_plain_path():
         layout=tmeta.block_layout(W, 32)).backward()
     counts = gr.launch_counts()
     assert set(counts) >= set(bsp.WRAPPERS) and not any(counts.values())
+
+
+# K4's and K6's launch plans (``graph_reg_bsp_fwd_plan`` and
+# ``graph_reg_bsp_dlogp_plan`` in the source) have Python mirrors,
+# ``bsp.fwd_plan`` and ``bsp.dlogp_plan``: their constants are held to the
+# sources here and their results to the library on the card
+# (tests/test_torch_kernels_cuda.py).
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+_PLAN_CONSTANTS = {
+    "fwd_span": ("graph_reg_tiles.cuh", "kFwdSpan", bsp.FWD_SPAN),
+    "fwd_chunk": ("graph_reg_tiles.cuh", "kFwdChunk", bsp.FWD_CHUNK),
+    "fwd_stages": ("graph_reg_tiles.cuh", "kFwdStages", bsp.FWD_STAGES),
+    "fwd_max_pairs": ("graph_reg_tiles.cuh", "kFwdMaxPairs",
+                      bsp.FWD_MAX_PAIRS),
+    "strip_partials": ("graph_reg_tiles.cuh", "kThreads", bsp.SUM_THREADS),
+    "dl_piece": ("graph_reg_tiles.cuh", "kDlPiece", bsp.DL_PIECE),
+    "dl_max_rows": ("graph_reg_tiles.cuh", "kDlMaxRows", bsp.DL_MAX_ROWS),
+    "dl_max_quads": ("graph_reg_tiles.cuh", "kDlMaxQuads", bsp.DL_MAX_QUADS),
+    "dl_max_threads": ("graph_reg_tiles.cuh", "kDlMaxThreads",
+                       bsp.DL_MAX_THREADS),
+    "dlogp_stages": ("graph_reg_bsp.cu", "kBsDlStages", bsp.DLOGP_STAGES),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_CONSTANTS))
+def test_bsp_launch_plan_mirror_constants_follow_the_source(name):
+    fname, const, value = _PLAN_CONSTANTS[name]
+    src = (CSRC / fname).read_text()
+    assert int(re.search(rf"constexpr int {const} = (\d+);", src).group(1)) \
+        == value
+
+
+# (k, B, C, T, bt): the path (P = 2176 on the card's machine, 2112 here,
+# lists of 88 / 112), ragged and edge shapes, several class chunks.
+PLAN_CASES = [(1, 2176, 39, 88, 128), (1, 2112, 39, 112, 128),
+              (3, 1001, 100, 400, 32), (1, 1001, 200, 40, 96),
+              (2, 1000, 39, 60, 256), (1, 1, 1, 1, 32),
+              (1, 33, 128, 2, 64), (4, 6144, 39, 2000, 32)]
+
+
+@pytest.mark.parametrize("k,B,C,T,bt", PLAN_CASES)
+def test_bsp_fwd_launch_plan_mirror(k, B, C, T, bt):
+    """K4's blocks are 1, 2, 4 or 8 warps of one tile row: the most that
+    still fill every SM once (fewer only where even one warp a block does
+    not); the workspace holds K1's partials and the class-padded logP."""
+    n_sm = 132
+    plan = bsp.fwd_plan(k, B, C, T, bt, n_sm=n_sm)
+    rows, groups = plan["rows_per_block"], plan["groups_per_tile_row"]
+    pairs = rows // 4
+    assert pairs in (1, 2, 4, 8) and groups * rows == bt
+    lines = k * -(-B // bt)
+    assert pairs == 1 or lines * groups >= n_sm
+    assert pairs == 8 or lines * groups // 2 < n_sm
+    assert plan["workspace_floats"] == (k * -(-B // 32) * 256
+                                        + k * B * -(-C // 4) * 4)
+    assert plan["dynamic_smem_bytes"] <= 232_448      # an H100 block's most
+    if (k, B, C, bt) == (1, 2176, 39, 128):
+        assert (rows, lines * groups) == (16, 136)
+
+
+@pytest.mark.parametrize("k,B,C,T,bt", PLAN_CASES)
+def test_bsp_dlogp_launch_plan_mirror(k, B, C, T, bt):
+    """K6's blocks hold an even number of rows of one tile row, 2 a thread
+    pair, at most 64 and 512 threads: the most (a multiple of 4) that still
+    fill every SM once; the workspace holds the class-padded logP."""
+    n_sm = 132
+    plan = bsp.dlogp_plan(k, B, C, T, bt, n_sm=n_sm)
+    rows, groups = plan["rows_per_block"], plan["groups_per_tile_row"]
+    quads = min(-(-C // 4), 32)
+    assert rows % 4 == 0 and 4 <= rows <= min(64, bt)
+    assert rows // 2 * quads <= 512 and rows // 2 <= 32   # q = 0 in warp 0
+    assert (groups - 1) * rows < bt <= groups * rows
+    lines = k * -(-C // 128) * -(-B // bt)
+    blocks = lines * groups
+    assert rows == 4 or blocks >= n_sm
+    most = min(2 * (512 // quads), 64, bt) & ~3
+    assert rows == most or lines * -(-bt // (rows + 4)) < n_sm
+    assert plan["workspace_floats"] == k * B * -(-C // 4) * 4
+    assert plan["dynamic_smem_bytes"] <= 232_448
+    if (k, B, C, bt) == (1, 2176, 39, 128):
+        assert (rows, blocks) == (16, 136)

@@ -10,7 +10,8 @@ Tolerance: the kernels and the plain versions (cuBLAS products) sum float32
 terms in different orders; rtol 2e-5 with an atol of 2e-5 of the largest
 magnitude.  Repeats must be bit-identical: the kernels use no atomics.  On
 a full occupancy mask the block-sparse K4, K5∘K6 and K7 must equal the
-dense K1, K2 and K3 bit for bit (the same sums in the same order).  The graph-construction kernels K8 and
+dense K1, K2 and K3 bit for bit (the same sums in the same order; K4 and
+K6 run K1's and K2's pipelines, at tile edges 64, 128 and 256).  The graph-construction kernels K8 and
 K9 hold squared distances to 1e-5·(‖x_i‖² + ‖y_j‖²), the scale of the
 float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal the
 plain version's except at such near ties, and exactly on integer inputs.
@@ -243,7 +244,7 @@ def test_bterm_kernel_takes_a_long_list(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bt", [64, 128])
+@pytest.mark.parametrize("bt", [64, 128, 256])
 def test_block_sparse_full_mask_equals_dense_kernels(cuda, bt):
     """Full mask: K4 is K1, K5∘K6 is K2 and K7 is K3, bit for bit (the
     same sums in the same order, the same epilogues)."""
@@ -262,6 +263,94 @@ def test_block_sparse_full_mask_equals_dense_kernels(cuda, bt):
                        gr.reg_bwd_dlogp(logp, W, g, GAMMA, KAPPA, GAMMA))
     assert torch.equal(bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, GAMMA),
                        gr.reg_bwd_dw(logp, g, GAMMA, GAMMA))
+
+
+#: Tile masks of the redesigned K4's and K6's cases (as chip_smoke.py's).
+MASK_KINDS = ("empty tile row", "one full tile row", "tail-padded", "full")
+
+
+def _bsp_case(k, B, C, bt, kind, seed=0):
+    """k workers of (logp, W, layout) under a tile mask of ``kind``: one
+    tile row empty, one tile row holding every tile (and nothing else), a
+    random mask with lists padded past the longest worker's, or every
+    tile occupied."""
+    rng = np.random.default_rng(seed + B + C + bt)
+    nt = -(-B // bt)
+    Ws = []
+    for _ in range(k):
+        if kind == "one full tile row":
+            occ = np.zeros((nt, nt), bool)
+            occ[nt // 2] = True
+        else:
+            occ = rng.random((nt, nt)) < (2.0 if kind == "full" else 0.3)
+            if kind == "empty tile row":
+                occ[min(1, nt - 1)] = False
+        mask = np.kron(occ, np.ones((bt, bt), bool))[:B, :B]
+        W = np.abs(rng.normal(size=(B, B))).astype(np.float32)
+        Ws.append(np.where(mask, W, 0.0).astype(np.float32))
+    T = max(block_layout(W, bt).list_len for W in Ws)
+    T += 7 if kind == "tail-padded" else 0
+    lays = [block_layout(W, bt, list_len=T).arrays() for W in Ws]
+    arrays = [torch.tensor(np.stack([lay[i] for lay in lays]))
+              for i in range(7)]
+    logp = torch.log_softmax(torch.tensor(
+        rng.normal(size=(k, B, C)) * 2.0, dtype=torch.float32), -1)
+    return logp, torch.tensor(np.stack(Ws)), arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [32, 64, 128, 256])
+@pytest.mark.parametrize("B", [1, 31, 33, 1000, 1001])
+def test_redesigned_k4_and_k6_match_plain_versions(cuda, B, bt):
+    """K4 on K1's pipeline and K6 on K2's, over the listed tiles: k 1 and
+    3, C 1 to 200 (two of K6's class chunks, four of K4's), every mask
+    kind; repeats bit-identical."""
+    for k in (1, 3):
+        g = torch.tensor([0.5, -2.0, 0.25][:k], device=cuda)
+        for C in (1, 39, 100, 128, 200):
+            for kind in MASK_KINDS:
+                logp, W, arrays = _bsp_case(k, B, C, bt, kind)
+                logp, W = logp.to(cuda), W.to(cuda)
+                rows, cols, valid, crows, ccols, cvalid, _ = [
+                    a.to(cuda) for a in arrays]
+                bterm = ref.bsp_bwd_bterm_ref(logp, W, crows, ccols, cvalid,
+                                              bt)
+                for kern, plain in (
+                        (lambda: bsp.bsp_forward(logp, W, rows, cols, valid,
+                                                 bt, GAMMA, KAPPA, GAMMA),
+                         lambda: ref.bsp_forward_ref(logp, W, rows, cols,
+                                                     valid, bt, GAMMA, KAPPA,
+                                                     GAMMA)),
+                        (lambda: bsp.bsp_bwd_dlogp(
+                            logp, W, bterm, rows, cols, valid, g, bt, GAMMA,
+                            KAPPA, GAMMA),
+                         lambda: ref.bsp_bwd_dlogp_ref(
+                            logp, W, bterm, rows, cols, valid, g, bt, GAMMA,
+                            KAPPA, GAMMA))):
+                    a, b = kern(), kern()
+                    torch.cuda.synchronize()
+                    assert torch.equal(a, b), (k, C, kind)
+                    _close(a.cpu().numpy(), plain().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C,T,bt", [(1, 2176, 39, 88, 128),
+                                        (3, 1001, 100, 400, 32),
+                                        (1, 1001, 200, 40, 96),
+                                        (2, 1000, 39, 60, 256),
+                                        (1, 1, 1, 1, 32)])
+def test_bsp_launch_plans_match_their_mirrors(cuda, k, B, C, T, bt):
+    """The library's K4 and K6 plans on this card equal the Python
+    mirrors that the CPU tests hold to the source."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name, mirror in (("graph_reg_bsp_fwd", bsp.fwd_plan),
+                         ("graph_reg_bsp_dlogp", bsp.dlogp_plan)):
+        want = mirror(k, B, C, T, bt, n_sm=n_sm)
+        assert bsp.launch_plan(name, k, B, C, T, bt) == {
+            key: want[key] for key in ("rows_per_block",
+                                       "dynamic_smem_bytes")}
+        assert getattr(bsp._lib(), f"{name}_workspace")(k, B, C) == \
+            want["workspace_floats"]
 
 
 @pytest.mark.cuda
