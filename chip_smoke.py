@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--against DIR]
 
-``--against DIR`` also builds the C entry points of K1-K6 and K8-K10
-from another checkout's sources (DIR, e.g. the parent commit unpacked
-with ``git archive``) and times them in turns with this checkout's on the
-same inputs, outputs equal bit for bit (phase 5); K1, K2, K10, K4 and K6
+``--against DIR`` also builds the C entry points of K1-K10 from another
+checkout's sources (DIR, e.g. the parent commit unpacked with ``git
+archive``) and times them in turns with this checkout's on the same
+inputs, outputs equal bit for bit (phase 5); K1, K2, K10, K4, K6 and K7
 are also compared bit for bit at ragged, multi-chunk shapes.  Every
 kernel time below is the device time of one call from a CUDA graph of
 back-to-back calls (``bench.graph_ms``), the kernel,
@@ -20,9 +20,11 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 2. build every CUDA source under ``src/repro_torch/csrc`` from this
    checkout, one ``nvcc`` per source, all started together; K11's
    tensor-core kernels and the redesigned K3 and K5 must report no
-   spills, nor may the redesigned K1, K2, K4, K6 and K10 (``-Xptxas
-   -v``, registers and shared memory printed), and the
-   library must hold ``HGMMA`` (tensor-core) instructions;
+   spills, nor may the redesigned K1, K2, K4, K6, K7 and K10 (``-Xptxas
+   -v``, registers and shared memory printed; K3 and K7, one tile body,
+   with the blocks an SM their registers and shared memory allow, at
+   least three for K7), and the library must hold ``HGMMA`` (tensor-core)
+   instructions;
 3. host pipeline of the paper's configuration: corpus, k-NN graph,
    partition and meta-batch plan (``Experiment.build``), which fixes the
    padded batch size P of the main path; then the device graph build:
@@ -47,7 +49,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    empty tile row, and on a full mask, where K4 must equal K1, K5∘K6 K2
    and K7 K3 bit for bit; K5 is timed beside ``torch.bmm(W.mT, p)`` and
    K6 beside ``torch.bmm(W, logp)`` (their dense products alone) as K3
-   beside ``addmm``; the redesigned K3 and K5 also at k = 2, ragged B
+   beside ``addmm``, and K7 beside ``zero_`` of its dense output (its
+   floor, not a library call for its function); the redesigned K3 and K5
+   also at k = 2, ragged B
    (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
    ``--against`` K1-K6 and K10 built from DIR, which must give
@@ -60,7 +64,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, K4 and K6 at the
    same shapes with bt in {32, 64, 128, 256} on four kinds of tile mask
    (an empty tile row, one tile row holding every tile, tail-padded
-   lists, a full mask), and K10 == K1 at
+   lists, a full mask), K7 (on K3's tile) at k 1/3, B 1/33/130/1000/1001,
+   C 1/39/200 and bt 32/64/96/128/160/256 on the same masks (zero off the
+   occupied tiles, K3's bits on a full mask), and K10 == K1 at
    (1, 0, 0) at B = 1001; K8 (streaming top-k) on the whole corpus at
    k = 10 (the path's)
    and k = 40 (shared-memory route), and at k = 300 on 4,000 rows and k =
@@ -95,11 +101,24 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    plan with the device graph's weights, whose loss/total is compared
    with the device epoch's (a measurement: the weights' round-off alone,
    or not);
-10. a step breakdown of both paths (``repro_torch.bench.profile_step``
+10. the engine extras at the paper's width, each through ``Experiment``:
+   checkpoint and resume (2 epochs, ``checkpoint_every=1``; stopped after
+   epoch 1 and resumed, and resumed past a LATEST target truncated by the
+   injector's checkpoint fault; the final checkpoint's arrays and the
+   history equal the uninterrupted run's bit for bit); the non-finite
+   guard (a NaN batch and an inf batch in one epoch: exactly 2 steps
+   skipped, params finite, launches the epoch's plus the replayed
+   windows'; without the guard the params end non-finite); the online
+   graph refresh (the stream pipeline, its graph built on K8 and
+   refreshed on K8 after each of 2 epochs from the top hidden layer, N
+   20,000 × D 2000: K8 once for the build and once per refresh, churn and
+   repair or re-plan printed, the refreshed graph against the host graph
+   of the same embeddings, K8 checked and timed at that shape);
+11. a step breakdown of both paths (``repro_torch.bench.profile_step``
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
    launch gaps);
-11. the LM serve path (``python -m repro_torch.serve.serve_lm``): K11 at
+12. the LM serve path (``python -m repro_torch.serve.serve_lm``): K11 at
    the prefill's shape, q (4, 2048, 12, 128) against k, v (4, 2048, 2,
    128), in bf16 (tensor-core route) and f32 (FMA route), and at a ragged
    T = 1000 and a Tq < Tk case, each labelled with its route and held
@@ -114,7 +133,7 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    counts at 0 just before the prefill (K11 exactly 28 times, nothing
    else) and again before the decode (no kernel at all), logits finite,
    prefill ms, decode ms/token, tok/s and peak device memory;
-12. the ``{"kernels": [...]}`` line, then the result line.
+13. the ``{"kernels": [...]}`` line, then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -575,15 +594,17 @@ def ops_path(name: str, fn) -> dict:
     return counts
 
 
-def timed(kern, plain, library=None, rounds: int = 2) -> dict:
+def timed(kern, plain, library=None, rounds: int = 2, floor=None) -> dict:
     """Device time of a kernel's wrapper (as the path calls it), of its
     plain version and, where there is one, of one PyTorch call for the
-    same function: each from a CUDA graph of back-to-back calls
+    same function (and of a ``floor``, work the kernel cannot do without,
+    where one is given): each from a CUDA graph of back-to-back calls
     (``bench.graph_ms``, no host time between launches), ``rounds``
     rounds in turns, averaged.  Every row of the kernels line is timed
     so."""
     from repro_torch.bench import graph_ms
-    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": library,
+           "floor_ms": floor}
     runs = {key: [] for key, fn in fns.items() if fn is not None}
     for _ in range(rounds):
         for key in runs:
@@ -755,6 +776,10 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
         }
         where = (f"{label} B={B} C={C} bt={bt} "
                  f"{lay.n_active}/{lay.nt ** 2} tiles")
+        # K7's floor: the fill of its dense (k, B, B) output with zeros,
+        # which it cannot skip (not a library call for its function).
+        dw_out = torch.empty(1, B, B, device="cuda")
+        floors = {"graph_reg_bsp_dw": lambda: dw_out.zero_()}
         for name, (kern, plain, library) in runs.items():
             a, b, want = kern(), kern(), plain()
             torch.cuda.synchronize()
@@ -762,7 +787,8 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                   "same inputs differ")
             rec = compare(f"{name} [{where}]", a, want)
             if label == "path":
-                records[name] = dict(rec, **timed(kern, plain, library))
+                records[name] = dict(rec, **timed(kern, plain, library,
+                                                  floor=floors.get(name)))
         dW = runs["graph_reg_bsp_dw"][0]()
         live = occ.repeat_interleave(bt, -2).repeat_interleave(bt, -1)
         check(bool((dW[live[..., :B, :B] == 0] == 0).all()),
@@ -808,6 +834,28 @@ def bsp_kernel_phase(W_path, gamma: float, kappa: float) -> dict:
                 s_flops + 3.0 * n_el + 2.0 * B * C)
             print(f"path layout: bt={bt}, {lay.n_active} of {nt * nt} tiles "
                   f"occupied, list length {T}, {n_el} entries of W in them")
+            k7 = records["graph_reg_bsp_dw"]
+            print(f"graph_reg_bsp_dw [path]: {k7['ms']:.5f} ms; its floor, "
+                  f"zero_ of the same (1, {B}, {B}) output, "
+                  f"{k7['floor_ms']:.5f} ms; bound {k7['bound'][0]:.5f} ms "
+                  f"({k7['bound'][1]}); plain {k7['plain_ms']:.5f} ms")
+            # Where K7's time goes: its zero pieces alone (an empty mask),
+            # one occupied tile (two live pieces, at the grid's start or
+            # its end) and every tile (K3's work and the occupancy tests).
+            from repro_torch.bench import graph_ms
+            masks = {"empty": [], "first tile": [(0, 0)],
+                     "last tile": [(nt - 1, nt - 1)],
+                     "full": [(r, c) for r in range(nt) for c in range(nt)]}
+            k7["by_mask_ms"] = {}
+            for key, cells in masks.items():
+                o = torch.zeros(1, nt, nt, dtype=torch.int32, device="cuda")
+                for r, c in cells:
+                    o[0, r, c] = 1
+                k7["by_mask_ms"][key] = graph_ms(
+                    lambda o=o: bsp.bsp_bwd_dw(logp, o, g, bt, gc, ge, p=p))
+            print(f"graph_reg_bsp_dw by occupancy (same inputs): "
+                  + ", ".join(f"{key} {ms:.5f} ms" for key, ms in
+                              k7["by_mask_ms"].items()))
     return records
 
 
@@ -999,8 +1047,49 @@ def redesign_cases_phase(P: int) -> int:
               f"within tolerance, repeated bit for bit; worst err/tol K4 "
               f"{worst['K4']:.3f}, K6 {worst['K6']:.3f}")
         n += n_bt
-    print(f"redesigned K1, K2, K3, K4, K5 and K6: {n} further cases within "
-          f"tolerance and repeated bit for bit")
+    # K7 on K3's tile at ragged shapes (B not a multiple of 4: scalar
+    # stores), tile edges (pieces over several tiles below bt = 128) and
+    # masks: within tolerance, repeated bit for bit, exact zeros off the
+    # occupied tiles, K3's bits on a full mask.  gc != ge: at B = 1 the
+    # one entry is -g·h·(ge - gc), which no relative tolerance bounds when
+    # they are equal.
+    for bt in (32, 64, 96, 128, 160, 256):
+        worst, n_bt, n_full = 0.0, 0, 0
+        for k in (1, 3):
+            g = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
+            for B in (1, 33, 130, 1000, 1001):
+                for kind in MASK_KINDS:
+                    _, arrays = bsp_case(k, B, bt, kind, seed=B + bt + k)
+                    occ = arrays[6]
+                    live = occ.repeat_interleave(bt, -2).repeat_interleave(
+                        bt, -1)[..., :B, :B]
+                    for C in (1, 39, 200):
+                        logp = logp_of(k, B, C, seed=B + C + bt)
+                        where = f"K7 [k={k} B={B} C={C} bt={bt} {kind}]"
+                        a = bsp.bsp_bwd_dw(logp, occ, g, bt, 0.8, 0.5)
+                        b = bsp.bsp_bwd_dw(logp, occ, g, bt, 0.8, 0.5)
+                        want = ref.bsp_bwd_dw_ref(logp, occ, g, bt, 0.8, 0.5)
+                        torch.cuda.synchronize()
+                        check(torch.equal(a, b), f"{where}: two launches "
+                              "differ")
+                        check(bool((a[live == 0] == 0).all()),
+                              f"{where}: nonzero off the occupied tiles")
+                        rec = compare(where, a, want, quiet=True)
+                        worst = max(worst, rec["err_over_tol"])
+                        if kind == "full":
+                            check(torch.equal(a, gr.reg_bwd_dw(
+                                logp, g, 0.8, 0.5)), f"{where}: not K3 bit "
+                                "for bit on the full mask")
+                            n_full += 1
+                        n_bt += 1
+        print(f"K7 at bt={bt}: {n_bt} cases (k 1/3, B 1/33/130/1000/1001, "
+              f"C 1/39/200, masks: {', '.join(MASK_KINDS)}) within "
+              f"tolerance, repeated bit for bit, zero off the occupied "
+              f"tiles, {n_full} equal to K3 on a full mask; worst err/tol "
+              f"{worst:.3f}")
+        n += n_bt
+    print(f"redesigned K1, K2, K3, K4, K5, K6 and K7: {n} further cases "
+          f"within tolerance and repeated bit for bit")
     return n
 
 
@@ -1225,6 +1314,254 @@ def w_grad_path(W_path, gamma: float, kappa: float,
     return counts
 
 
+def extras_config(**over):
+    """``bench.paper_config()`` with sections replaced (``execution``,
+    ``resilience``, ``batch``, ``online``, ``graph``, ``train``)."""
+    import dataclasses
+    from repro_torch.bench import paper_config
+    return dataclasses.replace(paper_config(), **over)
+
+
+def checkpoint_phase(exp) -> dict:
+    """Checkpoint and resume at full width (the paper's configuration, 2
+    epochs, ``checkpoint_every=1``), on the host experiment's corpus, graph
+    and plan: an uninterrupted run; a run stopped after epoch 1 and
+    resumed; and the uninterrupted run's directory with the file LATEST
+    points at truncated by the injector's checkpoint fault, resumed from
+    the checkpoint before it.  Each resumed run's final checkpoint (params,
+    AdaGrad state, the dropout generator's state on the card, the step)
+    and history must equal the uninterrupted run's bit for bit."""
+    import dataclasses
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.resilience import FaultEvent, FaultInjector, FaultPlan
+
+    root = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(n_epochs: int, name: str, resume: bool = False):
+        base = extras_config()
+        cfg = dataclasses.replace(
+            base, train=dataclasses.replace(base.train, n_epochs=n_epochs),
+            execution=dataclasses.replace(
+                base.execution, checkpoint_every=1,
+                checkpoint_dir=str(root / name), resume=resume))
+        e = Experiment(cfg, corpus=exp.corpus, eval_data=exp.eval_data,
+                       graph=exp.graph, plan=exp.plan, device="cuda")
+        gr.reset_launch_counts()
+        res, secs = sync_time(e.run)
+        return res, gr.launch_counts(), secs
+
+    def rows(res):
+        return [{k: v for k, v in r.items() if k != "seconds"}
+                for r in res.history]
+
+    def archive_equal(a: Path, b: Path) -> list[str]:
+        """Keys of two checkpoints whose arrays differ in any bit."""
+        with np.load(a) as x, np.load(b) as y:
+            check(sorted(x.files) == sorted(y.files),
+                  f"{a} and {b} hold different keys")
+            return [key for key in x.files
+                    if x[key].dtype != y[key].dtype
+                    or not np.array_equal(x[key], y[key])]
+
+    full, full_counts, full_s = run(2, "full")
+    stop, _, _ = run(1, "stopped")
+    resumed, res_counts, res_s = run(2, "stopped", resume=True)
+    want = root / "full" / "ckpt_00002.npz"
+    with np.load(want) as z:
+        keys = z.files
+        n_bytes = want.stat().st_size
+        gen = z[next(key for key in keys if key.startswith("generator"))]
+    print(f"checkpoint phase: uninterrupted 2 epochs {full_s:.2f}s, "
+          f"launches {full_counts}; checkpoint {n_bytes / 1e6:.1f} MB, "
+          f"{sum(not key.startswith('__dtype__') for key in keys)} arrays, "
+          f"generator state {gen.dtype} ({gen.size} bytes) of a "
+          f"{torch.cuda.get_device_name(0)} generator")
+    steps = full_counts["graph_reg_fwd"] // 2
+    check(res_counts == {name: (steps if name in ("graph_reg_fwd",
+                                                 "graph_reg_bwd_dlogp")
+                                else 0) for name in res_counts},
+          f"the resumed run launched {res_counts}: not one epoch of K1/K2")
+    differ = archive_equal(root / "stopped" / "ckpt_00002.npz", want)
+    print(f"resume after epoch 1: {res_s:.2f}s, launches {res_counts}; "
+          f"final checkpoint arrays differing from the uninterrupted run's: "
+          f"{differ or 'none'}; history rows equal "
+          f"{rows(resumed) == rows(full)}")
+    check(not differ, f"the resumed run's final state differs: {differ}")
+    check(rows(resumed) == rows(full), "the resumed run's history differs")
+    check(rows(stop) == rows(full)[:1], "the stopped run's epoch differs")
+
+    # A truncate fault on the file LATEST points at: resume falls back.
+    shutil.copytree(root / "full", root / "corrupt")
+    inj = FaultInjector(FaultPlan((FaultEvent("checkpoint", epoch=2,
+                                              mode="truncate"),)))
+    inj.after_checkpoint(str(root / "corrupt" / "ckpt_00002.npz"), epoch=2)
+    check(len(inj.fired()) == 1, "the checkpoint fault did not fire")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fell, fell_counts, fell_s = run(2, "corrupt", resume=True)
+    fallback = [str(w.message) for w in caught
+                if "ckpt_00002 is unusable" in str(w.message)]
+    differ = archive_equal(root / "corrupt" / "ckpt_00002.npz", want)
+    print(f"resume past a truncated LATEST (ckpt_00002): warned "
+          f"{len(fallback)} time(s) ({fallback[0][:90] if fallback else ''}"
+          f"...), {fell_s:.2f}s, launches {fell_counts}; final checkpoint "
+          f"arrays differing: {differ or 'none'}; history rows equal "
+          f"{rows(fell) == rows(full)}")
+    check(len(fallback) == 1, "resume did not fall back past the corrupt "
+          "LATEST target")
+    check(fell_counts == res_counts, f"the fallback resume launched "
+          f"{fell_counts}, not one epoch")
+    check(not differ and rows(fell) == rows(full),
+          f"the fallback resume's final state or history differs: {differ}")
+    shutil.rmtree(root)
+    return {"steps": steps, "bytes": n_bytes, "full_s": full_s,
+            "resume_s": res_s}
+
+
+def guard_phase(exp, steps: int) -> dict:
+    """The non-finite guard at full width: one epoch of the paper's
+    configuration with a NaN batch at step 3 and an inf batch at step 11
+    (fault injection), ``nonfinite_guard=True``.  Exactly the two steps
+    are skipped, the params stay finite, and the launches are the epoch's
+    plus one replay of each tainted window (``guard_window`` steps); the
+    same faults without the guard leave the params non-finite."""
+    import numpy as np
+    from repro_torch.api import Experiment, ResilienceConfig
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.resilience import (FaultEvent, FaultInjector, FaultPlan,
+                                        all_finite)
+
+    poisoned = {3: "nan", 11: "inf"}
+
+    def run(resilience):
+        e = Experiment(extras_config(resilience=resilience),
+                       corpus=exp.corpus, eval_data=exp.eval_data,
+                       graph=exp.graph, plan=exp.plan, device="cuda",
+                       injector=FaultInjector(FaultPlan(tuple(
+                           FaultEvent("batch", epoch=0, step=s, mode=m)
+                           for s, m in poisoned.items()))))
+        gr.reset_launch_counts()
+        res, secs = sync_time(e.run)
+        return res, gr.launch_counts(), secs
+
+    cfg = ResilienceConfig(nonfinite_guard=True)
+    res, counts, secs = run(cfg)
+    row = res.history[0]
+    w = cfg.guard_window
+    replayed = sum(min(w, steps - s) for s in range(0, steps, w)
+                   if any(s <= p < s + w for p in poisoned))
+    want = {name: (steps + replayed if name in ("graph_reg_fwd",
+                                                "graph_reg_bwd_dlogp")
+                   else 0) for name in counts}
+    finite = bool(all_finite(res.params))
+    print(f"guard phase: NaN batch at step 3, inf at step 11, guard window "
+          f"{w}: guard/skipped_total {row['guard/skipped_total']}, "
+          f"guard/skipped mean {row['guard/skipped']!r}, params finite "
+          f"{finite}, loss/total {row['loss/total']!r}, {secs:.2f}s; "
+          f"launches {counts} ({steps} steps + {replayed} replayed)")
+    check(row["guard/skipped_total"] == 2, "the guard did not skip exactly "
+          "the two poisoned steps")
+    check(finite and np.isfinite(row["loss/total"]),
+          "the guarded run ended non-finite")
+    check(counts == want, f"guarded launches {counts}, expected {want}")
+    bare, bare_counts, _ = run(ResilienceConfig())
+    bare_finite = bool(all_finite(bare.params))
+    print(f"the same faults without the guard: params finite {bare_finite}, "
+          f"loss/total {bare.history[0]['loss/total']!r}, launches "
+          f"{bare_counts}")
+    check(not bare_finite, "the unguarded run stayed finite: the faults "
+          "did not reach the params")
+    return {"counts": counts, "replayed": replayed, "seconds": secs}
+
+
+def online_phase(exp) -> dict:
+    """The online graph refresh at full width: the paper's configuration
+    on the stream pipeline, its graph built on K8 (``construction=
+    "device"``) and refreshed on K8 after each of 2 epochs
+    (``online.refresh_every=1``, ``backend="device"``) from the top hidden
+    layer's activations (N 20,000 × D 2000).  K8 launches once for the
+    build and once per refresh; the last refresh's graph is held against
+    the host graph of the same embeddings (edges equal except at near
+    ties), and K8 at that shape is checked and timed beside its bound."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.api import BatchConfig, Experiment, OnlineConfig
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.online.refresh import (edge_churn, edge_set,
+                                            embedding_knn_graph)
+
+    base = extras_config()
+    cfg = dataclasses.replace(
+        base,
+        graph=dataclasses.replace(base.graph, construction="device"),
+        batch=BatchConfig(batch_size=base.batch.batch_size,
+                          pipeline="metabatch_stream"),
+        train=dataclasses.replace(base.train, n_epochs=2),
+        online=OnlineConfig(refresh_every=1, tap=-1, backend="device"))
+    gr.reset_launch_counts()
+    e, build_s = sync_time(lambda: Experiment(
+        cfg, corpus=exp.corpus, eval_data=exp.eval_data,
+        device="cuda").build())
+    build_counts = gr.launch_counts()
+    gr.reset_launch_counts()
+    res, run_s = sync_time(e.run)
+    run_counts = gr.launch_counts()
+    stats, mgr = e.online.stats, e.online
+    steps = run_counts["graph_reg_fwd"]
+    print(f"online phase: build {build_s:.2f}s, launches {build_counts}; 2 "
+          f"epochs with a refresh after each {run_s:.2f}s, launches "
+          f"{run_counts}; stats {stats}; churn of the last refresh "
+          f"{mgr.last_churn!r}; loss/total "
+          f"{[r['loss/total'] for r in res.history]}")
+    check(build_counts == {n: int(n == "knn_topk") for n in build_counts},
+          f"the online experiment's build launched {build_counts}")
+    check(run_counts == {n: (2 if n == "knn_topk" else steps if n in (
+        "graph_reg_fwd", "graph_reg_bwd_dlogp") else 0) for n in run_counts},
+          f"the online run launched {run_counts}: not K8 once per refresh")
+    check(stats["refreshes"] == 2 and stats["rejected"] == 0,
+          f"the refreshes did not both swap in: {stats}")
+    check(all(np.isfinite(r["loss/total"]) for r in res.history),
+          "non-finite loss/total on the online path")
+    E = np.ascontiguousarray(mgr.features, np.float32)
+    k = mgr.graph.k
+    check(E.shape == (exp.corpus.X.shape[0], base.train.hidden_dim),
+          f"embeddings of shape {E.shape}")
+    t0 = time.perf_counter()
+    g_host = embedding_knn_graph(E, k=k, backend="host")
+    host_s = time.perf_counter() - t0
+    a, b = edge_set(g_host), edge_set(mgr.graph)
+    diff = a ^ b
+    near = near_tie_rows(E, k)
+    bad = [edge for edge in diff if not (near[edge[0]] or near[edge[1]])]
+    rel = abs(mgr.graph.sigma - g_host.sigma) / g_host.sigma
+    print(f"refreshed graph (K8) vs host graph of the same {E.shape} "
+          f"embeddings (host build {host_s:.2f}s): sigma rel {rel:.2e}, "
+          f"{len(b)} vs {len(a)} edges, symmetric difference {len(diff)} "
+          f"(churn {edge_churn(g_host, mgr.graph):.2e}), "
+          f"{int(near.sum())} near-tie rows, {len(bad)} differing edges at "
+          f"no near-tie row")
+    check(not bad, f"refreshed edges differ away from near ties: {bad[:10]}")
+    check(rel <= 1e-5, f"refreshed sigma differs from the host's by {rel}")
+    rec = knn_kernel_phase(E, k)
+    print(f"knn_topk at the refresh's shape N={E.shape[0]} D={E.shape[1]} "
+          f"k={k}: {rec['ms']:.3f} ms, bound {rec['bound'][0]:.3f} ms "
+          f"({rec['bound'][1]}), {100 * rec['bound'][0] / rec['ms']:.1f} % "
+          f"of it; plain {rec['plain_ms']:.3f} ms")
+    return {"launches": {"build": build_counts["knn_topk"],
+                         "refreshes": run_counts["knn_topk"]},
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+            "shape": list(E.shape), "k": k, "stats": stats,
+            "churn": mgr.last_churn, "edge_diff": len(diff),
+            "run_s": run_s}
+
+
 #: K11 against its plain version on the same key tiles: float32 within the
 #: reference test's atol; bfloat16 within one bf16 ulp of the output's
 #: scale, |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the output
@@ -1284,15 +1621,25 @@ def ptxas_entries(name: str) -> list[tuple[str, dict]]:
 
 
 #: The redesigned kernels (K3 and K5; K1, K2 and K10, which shares K1's
-#: template; K4 on K1's pipeline and K6 on K2's): wrapper name -> (source,
-#: the kernel's name in its mangled symbol, up to the character after it).
+#: template; K4 on K1's pipeline, K6 on K2's and K7 on K3's tile): wrapper
+#: name -> (source, the kernel's name in its mangled symbol, up to the
+#: character after it).
 REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
               "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_btermE"),
               "graph_reg_fwd": ("graph_reg", "reg_fwd_partialsILb1E"),
               "graph_reg_bwd_dlogp": ("graph_reg", "reg_bwd_dlogpE"),
               "graph_reg_pairwise": ("graph_reg", "reg_fwd_partialsILb0E"),
               "graph_reg_bsp_fwd": ("graph_reg_bsp", "bsp_fwd_partialsE"),
-              "graph_reg_bsp_dlogp": ("graph_reg_bsp", "bsp_bwd_dlogpE")}
+              "graph_reg_bsp_dlogp": ("graph_reg_bsp", "bsp_bwd_dlogpE"),
+              "graph_reg_bsp_dw": ("graph_reg_bsp", "bsp_bwd_dwE")}
+
+
+def resident_blocks(registers: int, smem: int, threads: int = 256) -> int:
+    """Blocks an SM holds at once, by the compiler's report: registers
+    (allocated 8 a thread at a time, 64K an SM), shared memory (228 KB an
+    SM, 1 KB reserved a block) and 2,048 threads."""
+    regs = -(-registers // 8) * 8 * threads
+    return min(65536 // regs, (228 * 1024) // (smem + 1024), 2048 // threads)
 
 
 def redesign_build_report() -> dict:
@@ -1307,9 +1654,16 @@ def redesign_build_report() -> dict:
               f"in {src}.cu")
         rec[wrapper] = r = hits[0]
         check(r["spill_bytes"] == 0, f"{kernel} spills: {r}")
+        if wrapper in ("graph_reg_bwd_dw", "graph_reg_bsp_dw"):
+            r["blocks_per_sm"] = resident_blocks(r["registers"],
+                                                 r["static_smem_bytes"])
         print(f"{kernel} (-Xptxas -v): {r['registers']} registers, "
               f"{r['static_smem_bytes']} bytes of static shared memory, "
-              f"{r['spill_bytes']} bytes spilled")
+              f"{r['spill_bytes']} bytes spilled"
+              + (f", {r['blocks_per_sm']} blocks an SM (256 threads)"
+                 if "blocks_per_sm" in r else ""))
+    check(rec["graph_reg_bsp_dw"]["blocks_per_sm"] >= 3,
+          "K7 holds fewer than three blocks an SM")
     return rec
 
 
@@ -1693,14 +2047,15 @@ def legacy_graph_reg_calls(lib) -> dict:
 #: calls such a library through these.
 LEGACY_BSP = {"graph_reg_bsp_fwd_n_partials": ("I", "I"),
               "graph_reg_bsp_fwd": tuple("PPPPPPIIIIIFFFPPP"),
-              "graph_reg_bsp_dlogp": tuple("PPPPPPPPIIIIIFFFPP")}
+              "graph_reg_bsp_dlogp": tuple("PPPPPPPPIIIIIFFFPP"),
+              "graph_reg_bsp_dw": tuple("PPPPIIIIFFPP")}
 
 
 def legacy_bsp_calls(lib) -> dict:
-    """K4 and K6 through a library of the interface before their
-    workspaces, as the wrappers call them: wrapper name -> fn(logp, W,
-    bterm, rows, cols, valid, g, bt, gc, kappa, ge, p) (K4 ignores bterm
-    and g)."""
+    """K4, K6 and K7 through a library of the interface before K4's and
+    K6's workspaces, as the wrappers call them: wrapper name -> fn(logp,
+    W, bterm, rows, cols, valid, g, bt, gc, kappa, ge, p) for K4 and K6
+    (K4 ignores bterm and g), fn(logp, occ, g, bt, gc, ge, p) for K7."""
     import ctypes
     import torch
     from repro_torch.kernels import graph_reg as gr
@@ -1735,7 +2090,16 @@ def legacy_bsp_calls(lib) -> dict:
             stream()), "graph_reg_bsp_dlogp")
         return out
 
-    return {"graph_reg_bsp_fwd": fwd, "graph_reg_bsp_dlogp": dlogp}
+    def dw(logp, occ, g, bt, gc, ge, p):
+        k, B, C = logp.shape
+        out = torch.empty(k, B, B, device="cuda")
+        gr._raise_on(lib.graph_reg_bsp_dw(
+            p.data_ptr(), logp.data_ptr(), occ.data_ptr(), g.data_ptr(), k,
+            B, C, bt, gc, ge, out.data_ptr(), stream()), "graph_reg_bsp_dw")
+        return out
+
+    return {"graph_reg_bsp_fwd": fwd, "graph_reg_bsp_dlogp": dlogp,
+            "graph_reg_bsp_dw": dw}
 
 
 #: C entry points of K8 and K9 in a checkout from before their workspaces
@@ -1979,6 +2343,32 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
               f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
               f"(rounds {rounds}); outputs equal bit for bit")
         records[name] = rec
+    # K7 (redesigned on K3's tile, bits kept): in turns on the path's
+    # layout, then bits alone at the ragged shapes below.
+    def k7_pair(logp, occ, g, bt, p):
+        def call():
+            return bsp.bsp_bwd_dw(logp, occ, g, bt, gamma, 0.5, p=p)
+        if legacy_bsp:
+            return call, lambda: legacy_bsp["graph_reg_bsp_dw"](
+                logp, occ, g, bt, gamma, 0.5, p)
+        return call, swapped(call, bsp, libs["graph_reg_bsp"])
+
+    occ = torch.from_numpy(lay.arrays()[6])[None].cuda()
+    call, run_other = k7_pair(logp5, occ, g, LAYOUT_BT, p5)
+    this, other = call(), run_other()
+    torch.cuda.synchronize()
+    check(torch.equal(this, other), f"graph_reg_bsp_dw: this checkout's "
+          f"kernel and {root}'s differ")
+    rounds = {"ms": [], "against_ms": []}
+    for _ in range(2):
+        rounds["ms"].append(graph_ms(call))
+        rounds["against_ms"].append(graph_ms(run_other))
+    rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+    rec["rounds"] = rounds
+    print(f"graph_reg_bsp_dw [path, CUDA graphs, in turns]: this checkout "
+          f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
+          f"(rounds {rounds}); outputs equal bit for bit")
+    records["graph_reg_bsp_dw"] = rec
     bsp_shapes = []
     for (k, Bx, Cx, bt), kind in zip(
             ((3, 1001, 100, 32), (1, 1001, 200, 96), (2, 1000, 39, 64),
@@ -1989,18 +2379,19 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
         px = torch.exp(logpx)
         gx = torch.tensor([0.5, -2.0, 0.25][:k], device="cuda")
         bx = ref.bsp_bwd_bterm_ref(logpx, Wx, *arrays[3:6], bt)
-        for name in this_bsp:
-            call, run_other = bsp_pair(name, logpx, Wx, bx, *arrays[:3], gx,
-                                       bt, px)
+        pairs = {name: bsp_pair(name, logpx, Wx, bx, *arrays[:3], gx, bt,
+                                px) for name in this_bsp}
+        pairs["graph_reg_bsp_dw"] = k7_pair(logpx, arrays[6], gx, bt, px)
+        for name, (call, run_other) in pairs.items():
             this, other = call(), run_other()
             torch.cuda.synchronize()
             where = f"{name} [k={k} B={Bx} C={Cx} bt={bt} {kind}]"
             check(torch.equal(this, other), f"{where}: this checkout's "
                   f"kernel and {root}'s differ")
             bsp_shapes.append(where)
-    print(f"K4 and K6 equal {root}'s bit for bit at "
+    print(f"K4, K6 and K7 equal {root}'s bit for bit at "
           f"{', '.join(bsp_shapes)}")
-    for name in this_bsp:
+    for name in (*this_bsp, "graph_reg_bsp_dw"):
         records[name]["bit_equal_shapes"] = [
             where for where in bsp_shapes if where.startswith(f"{name} [")]
 
@@ -2067,9 +2458,8 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None, metavar="DIR",
-                    help="also time the redesigned K1-K6 and K8-K10 in "
-                         "turns with the same entry points built from "
-                         "DIR's sources")
+                    help="also time the redesigned K1-K10 in turns with "
+                         "the same entry points built from DIR's sources")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2173,6 +2563,9 @@ def main() -> int:
           f"beside {DEVICE_EPOCH_LOSS!r} before K8's redesign (equal: "
           f"{dev_graph['row']['loss/total'] == DEVICE_EPOCH_LOSS})")
     device_weights_phase(exp, graph["exp"], dev_graph["row"])
+    checkpoint_phase(exp)
+    guard_phase(exp, dense["steps"])
+    online = online_phase(exp)
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 
@@ -2260,7 +2653,9 @@ def main() -> int:
                 **({"against": {"dir": str(args.against),
                                 **against[name]}} if against else {})}
                if name in builds else {}),
-            **{key: rec[key] for key in ("note", "global_route", "P×P")
+            **({"online_refresh": online} if name == "knn_topk" else {}),
+            **{key: rec[key] for key in ("note", "global_route", "P×P",
+                                         "floor_ms", "by_mask_ms")
                if key in rec}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 The same dataclasses, fields and validation as the reference package's
 ``repro.api.config``, so one config document drives either package; here
 ``ObjectiveConfig.hyper()`` and ``.tiles()`` build this package's objects.
-Sections whose features belong to later slices of the port (execution
-strategies, resilience, online refresh) are kept for the round trip; the
-port's entry points refuse their non-default settings.
+The ``sync_mesh`` and ``async_ps`` strategies belong to a later slice of
+the port: their settings are kept for the round trip, and the port's entry
+points refuse them.
 
 One ``ExperimentConfig`` captures everything the paper's pipeline needs —
 corpus synthesis, affinity graph, balanced partition, meta-batch synthesis,

@@ -8,7 +8,11 @@ half (``build``) is the reference's logic on the port's copies of the
 numpy/scipy modules; ``run`` trains with :func:`train_dnn_ssl`.
 
 Pre-built artifacts (corpus, graph, plan) can be injected through the
-constructor so sweeps don't re-run graph construction per point.
+constructor so sweeps don't re-run graph construction per point, and a
+fault injector (``repro_torch.resilience.FaultInjector``) for chaos runs.
+With ``OnlineConfig.refresh_every > 0`` the experiment holds an
+:class:`~repro_torch.online.OnlineManager` (``self.online``) that rebuilds
+the graph from the model's hidden activations between epochs.
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ class Experiment:
     def __init__(self, config: ExperimentConfig, *, corpus=None,
                  eval_data: tuple[np.ndarray, np.ndarray] | None = None,
                  graph=None, plan=None, hierarchy_cache=None,
-                 device: str | torch.device = "cuda"):
+                 injector=None, device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.corpus = corpus          # SyntheticCorpus (labels already dropped)
@@ -74,7 +78,9 @@ class Experiment:
         self.graph = graph            # AffinityGraph
         self.plan = plan              # MetaBatchPlan
         self.hierarchy_cache = hierarchy_cache
+        self.injector = injector      # repro_torch.resilience.FaultInjector
         self.pipeline: Callable | None = None   # epoch-factory callable
+        self.online = None            # repro_torch.online.OnlineManager
         self._built = False
 
     # ------------------------------------------------------------------ build
@@ -83,10 +89,6 @@ class Experiment:
         if self._built:
             return self
         cfg = self.config
-        if cfg.online.active:
-            raise NotImplementedError(
-                "online graph refresh (OnlineConfig.refresh_every > 0) is not "
-                "ported to repro_torch yet (engine extras slice)")
         if self.corpus is None:
             self.corpus, self.eval_data = self._make_data()
         if self.graph is None:
@@ -113,9 +115,10 @@ class Experiment:
                 partitioner=PARTITIONER.get(cfg.partition.method),
                 coarsen_to=cfg.partition.coarsen_to)
         factory = PIPELINE.get(cfg.batch.pipeline)
-        # The stream pipeline retries a failed replan under the replan
-        # supervisor, as in the reference; fault injection belongs to the
-        # engine-extras slice (``train_dnn_ssl`` refuses an injector).
+        # Extra keys are swallowed by factories that don't need them: the
+        # stream pipeline retries a failed replan under the replan
+        # supervisor, fires the injector's replan site and records each
+        # batch's node indices for the online refresh.
         self.pipeline = factory(
             self.corpus, self.graph, self.plan,
             batch_size=cfg.batch.batch_size,
@@ -131,11 +134,47 @@ class Experiment:
             shuffle_blocks=cfg.batch.shuffle_blocks,
             hierarchy_cache=self._hierarchy_cache(),
             supervisor=self._replan_supervisor(),
-            fault_injector=None,
-            record_indices=False,
+            fault_injector=self.injector,
+            record_indices=cfg.online.active,
             layout_bt=cfg.batch.layout_bt)
+        if cfg.online.active:
+            self.online = self._make_online_manager()
         self._built = True
         return self
+
+    def _make_online_manager(self):
+        """The :class:`~repro_torch.online.OnlineManager` bound to this
+        experiment's stream: refreshes the affinity graph from captured
+        embeddings every ``online.refresh_every`` epochs (its top-k on
+        this experiment's device with ``online.backend="device"``) and
+        serves ``insert``/``evict`` for dynamic corpora."""
+        from repro_torch.online import OnlineManager
+        cfg = self.config
+        return OnlineManager(
+            self.pipeline.stream, self.corpus, self.graph, cfg.online,
+            batch_size=cfg.batch.batch_size,
+            n_classes=self.corpus.n_classes,
+            tol=cfg.partition.tol, coarsen_to=cfg.partition.coarsen_to,
+            shuffle_blocks=cfg.batch.shuffle_blocks,
+            partitioner=PARTITIONER.get(cfg.partition.method),
+            embed_fn=self._embed_fn(), seed=cfg.data.seed,
+            device=self.device)
+
+    def _embed_fn(self):
+        """Chunked clean forward to the tapped hidden layer, on the params'
+        device — fills capture gaps and embeds freshly inserted rows."""
+        from repro_torch.models.dnn import dnn_hidden
+        tap = self.config.online.tap
+
+        @torch.no_grad()
+        def embed(params, X, batch: int = 4096):
+            device = params["layers"][0]["w"].device
+            outs = [dnn_hidden(params, torch.from_numpy(np.ascontiguousarray(
+                        X[s: s + batch], np.float32)).to(device),
+                        layer=tap).cpu().numpy()
+                    for s in range(0, len(X), batch)]
+            return np.concatenate(outs) if outs else np.empty((0, 0))
+        return embed
 
     def _replan_supervisor(self):
         """The reference's supervisor for the stream's replan builder:
@@ -230,6 +269,18 @@ class Experiment:
             dropout=t.dropout)
         pairwise = resolve_pairwise(cfg.objective.pairwise,
                                     tiles=self.tiles())
+        capture_fn = capture_epochs = on_epoch_end = None
+        if self.online is not None:
+            from repro_torch.models.dnn import dnn_hidden
+            tap = cfg.online.tap
+
+            def capture_fn(params, batch):
+                # batch["x"] is (k_workers, P, d): the tapped layer per
+                # worker row, stacked by the engine into (steps, k, P, H).
+                return dnn_hidden(params, batch["x"], layer=tap)
+
+            capture_epochs = self.online.capture_epoch
+            on_epoch_end = self.online.on_epoch_end
         t0 = time.time()
         res = train_dnn_ssl(
             self.pipeline,
@@ -252,7 +303,11 @@ class Experiment:
             checkpoint_every=ex.checkpoint_every,
             checkpoint_dir=ex.checkpoint_dir,
             resume=ex.resume,
-            resilience=cfg.resilience)
+            resilience=cfg.resilience,
+            injector=self.injector,
+            capture_fn=capture_fn,
+            capture_epochs=capture_epochs,
+            on_epoch_end=on_epoch_end)
         seconds = time.time() - t0
         final = res.history[-1] if res.history else {}
         return ExperimentResult(config=cfg, history=res.history,

@@ -10,10 +10,10 @@
 // copied with 16-byte cp.async and no masks, whatever D and the inputs'
 // alignment (x at D = 351 has 1,404-byte rows, not a multiple of 16).
 //
-// The sum order is the graph_reg_tiles.cuh xy_tile's, so the products and
-// every d2 built from them keep their bits: each output is one fmaf chain
-// over the features in increasing order, from +0; a padded feature adds
-// fmaf(0, 0, acc) == acc.  No TF32, no tensor cores.
+// Each product keeps the bits of the strip kernels K8 and K9 replaced,
+// and so does every d2 built from it: one fmaf chain over the features in
+// increasing order, from +0; a padded feature adds fmaf(0, 0, acc) ==
+// acc.  No TF32, no tensor cores.
 //
 // Threads: 256 as a 16 x 16 grid, (ty, tx) = (tid / 16, tid % 16).  Thread
 // (ty, tx) holds rows 64h + 4ty + e (h < kBM/64, e < 4) and columns 64h +

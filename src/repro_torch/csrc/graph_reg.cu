@@ -26,8 +26,9 @@
 // every SM; their entry points first copy logP (and P) into class-padded
 // rows (pad_classes) in a workspace the caller allocates, of the size
 // graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.  K1's
-// pipeline and the A half of K2's live in graph_reg_tiles.cuh, where the
-// block-sparse K4 and K6 (graph_reg_bsp.cu) run them over listed tiles.
+// pipeline, the A half of K2's and K3's tile live in graph_reg_tiles.cuh,
+// where the block-sparse K4, K6 and K7 (graph_reg_bsp.cu) run them over
+// listed or occupied tiles.
 // Padding is done with masks elsewhere (graph_reg_tiles.cuh).
 //
 // No float atomics: every output element and every partial sum has exactly
@@ -222,144 +223,17 @@ reg_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
     cluster.sync();   // block 1's shared memory outlives block 0's reads
 }
 
-// K3: dW = -g*(gc*P logP^T + ge*H(p) 1^T), (B, B) per worker, written
-// once.  Its time goes to staging P and logP, the product loop and the
-// B*B stores; the design keeps each small:
-//
-// * one block per (64 x 128 output tile, worker): 578 blocks at the
-//   path's B = 2176, three resident per SM (at most 85 registers a
-//   thread); 256 threads, each with a 4 x 8 register tile (rows ty*4..,
-//   columns tx*4.. and 64+tx*4..);
-// * the tile's P and logP rows (and logP of its columns) are staged once
-//   for up to kDwK classes (all of them at C <= 40) with cp.async, every
-//   copy of the chunk in flight at once, transposed to class-major in
-//   shared memory with an XOR swizzle of 4-float groups, so the
-//   transposing stores are conflict-free and every read of the product
-//   loop is one 16-byte load (a warp reads 2 row groups, broadcast, and
-//   16 column groups);
-// * H(p_i) once per row per block, from the staged rows: lane l sums the
-//   classes c = l (mod 32) in increasing c and the warp adds the lanes
-//   with warp_sum, row_entropy's order, so h has its bits;
-// * 16-byte streaming stores (__stcs) along j where B is a multiple of 4
-//   and dW is 16-byte aligned, masked scalar stores otherwise; rows and
-//   columns past B are masked, never padded in memory.
-//
-// Each S element starts at +0 and adds fmaf(P[i,c], logP[j,c], acc) in
-// increasing c (zero-filled classes past C add exact zeros), then
-// -gz*(gc*acc + ge*h) as K7 writes it, so K3 equals K7 bit for bit on a
-// full mask.  Bound by bytes (the B*B output) and, about equally, by the
-// 2*B*B*C flops; no tensor cores, which would change the sum's order.
-constexpr int kDwRows = 64, kDwCols = 128, kDwK = 40;
-
-// Column of element (row, k) in a class-major swizzled tile: 4-float
-// groups XORed with k mod 8.
-__device__ __forceinline__ int dw_swz(int row, int k) {
-    return ((((row >> 2) ^ (k & 7))) << 2) | (row & 3);
-}
-
+// K3: dW = -g*(gc*P logP^T + ge*H(p) 1^T), (B, B) per worker, every
+// element written.  The body is dw_tile (graph_reg_tiles.cuh), which K7
+// (graph_reg_bsp.cu) runs over the occupied tiles of a layout, so K3
+// equals K7 bit for bit on a full mask.
 __global__ void __launch_bounds__(kThreads, 3)
 reg_bwd_dw(const float* __restrict__ P, const float* __restrict__ L,
            const float* __restrict__ g, int B, int C, float gc, float ge,
            int vec, float* __restrict__ dW) {
-    __shared__ __align__(16) float Ps[kDwK][kDwRows];   // P[i0 + i, c]
-    __shared__ __align__(16) float Li[kDwK][kDwRows];   // logP[i0 + i, c]
-    __shared__ __align__(16) float Ls[kDwK][kDwCols];   // logP[j0 + j, c]
-    __shared__ float Hs[kDwRows];
-    const int z = blockIdx.z, i0 = blockIdx.y * kDwRows;
-    const int j0 = blockIdx.x * kDwCols;
-    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-    const int warp = tid >> 5, lane = tid & 31;
-    P += (int64_t)z * B * C;
-    L += (int64_t)z * B * C;
-    dW += (int64_t)z * B * B;
-    const float gz = g[z];
-
-    float acc[4][8] = {};
-    float hpart[kDwRows / 8] = {};   // warp w: rows 8w .. 8w+7
-    // Staging lanes: 8 classes x 4 consecutive rows per warp instruction.
-    const int kk = lane >> 2, rq = lane & 3;
-    for (int c0 = 0; c0 < C; c0 += kDwK) {
-        const int kc = min(kDwK, C - c0);
-        const int kpad = (kc + 7) & ~7;
-        if (c0 > 0) __syncthreads();   // the previous chunk's reads are done
-        // Every copy of the chunk in flight at once (cp.async, 4 bytes,
-        // zero-filled where masked), then one wait.
-        for (int k0 = 0; k0 < kpad; k0 += 8) {
-            const int k = k0 + kk;
-            for (int rb = warp; rb < kDwRows / 4; rb += 8) {
-                const int row = rb * 4 + rq, i = i0 + row;
-                const bool ok = i < B && k < kc;
-                const int64_t at = ok ? (int64_t)i * C + c0 + k : 0;
-                cp_async4(&Ps[k][dw_swz(row, k)], P + at, ok ? 4 : 0);
-                cp_async4(&Li[k][dw_swz(row, k)], L + at, ok ? 4 : 0);
-            }
-            for (int rb = warp; rb < kDwCols / 4; rb += 8) {
-                const int col = rb * 4 + rq, j = j0 + col;
-                const bool ok = j < B && k < kc;
-                cp_async4(&Ls[k][dw_swz(col, k)],
-                          L + (ok ? (int64_t)j * C + c0 + k : 0), ok ? 4 : 0);
-            }
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        // The entropy terms of this chunk: lane's classes c = lane (mod
-        // 32), increasing.
-        for (int k = (lane - c0 % 32 + 32) % 32; k < kc; k += 32)
-#pragma unroll
-            for (int rr = 0; rr < kDwRows / 8; ++rr) {
-                const int row = warp * (kDwRows / 8) + rr;
-                hpart[rr] = fmaf(Ps[k][dw_swz(row, k)],
-                                 Li[k][dw_swz(row, k)], hpart[rr]);
-            }
-#pragma unroll 8
-        for (int k = 0; k < kpad; ++k) {
-            const int x = k & 7;
-            const float4 a = *reinterpret_cast<const float4*>(
-                &Ps[k][(ty ^ x) << 2]);
-            const float4 b0 = *reinterpret_cast<const float4*>(
-                &Ls[k][(tx ^ x) << 2]);
-            const float4 b1 = *reinterpret_cast<const float4*>(
-                &Ls[k][((16 + tx) ^ x) << 2]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                                 b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < 8; ++c)
-                    acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-        }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kDwRows / 8; ++rr) {
-        const float h = -warp_sum(hpart[rr]);
-        if (lane == 0) Hs[warp * (kDwRows / 8) + rr] = h;
-    }
-    __syncthreads();   // Hs written by other warps
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty * 4 + r;
-        if (i >= B) continue;
-        const float h = Hs[ty * 4 + r];
-        float v[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v[c] = -gz * (gc * acc[r][c] + ge * h);
-        float* row = dW + (int64_t)i * B;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int j = j0 + half * 64 + tx * 4;
-            const float* w = v + 4 * half;
-            if (vec && j < B) {
-                __stcs(reinterpret_cast<float4*>(row + j),
-                       make_float4(w[0], w[1], w[2], w[3]));
-            } else {
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    if (j + e < B) __stcs(row + j + e, w[e]);
-            }
-        }
-    }
+    const int z = blockIdx.z;
+    dw_tile(P + (int64_t)z * B * C, L + (int64_t)z * B * C, g[z], B, C, gc,
+            ge, vec, DwDense{}, dW + (int64_t)z * B * B);
 }
 
 }  // namespace

@@ -24,16 +24,18 @@
 // The TPU kernels walk a list as one ordered grid, find a strip's first and
 // last entries from the neighbouring entries, and keep scratch alive from
 // one grid step to the next.  CUDA blocks run in no order, so here a block
-// owns rows of one tile line (bt must be a multiple of 32), its first warp
-// finds the line's entries in the sorted major coordinate and compacts
-// their valid tiles, in list order, into shared memory (compact_line), and
-// the block walks them in that order; entries with valid=0 (sentinels and
-// tail padding) add nothing.  Inside an entry the sums run in the dense
-// kernels' orders: K4 is K1's pipeline over the listed tiles' 64-column
-// pieces and K6 the A half of K2's over their 32-j pieces (both in
-// graph_reg_tiles.cuh), K5 runs j increasing as K2's W^T P, K7 K3's
-// tiles; so on a full mask with bt a multiple of 64 K4 equals K1, K5∘K6
-// equals K2 and K7 equals K3 bit for bit.  K4 and K6 read a class-padded
+// of K4, K5 or K6 owns rows of one tile line (bt must be a multiple of
+// 32), its first warp finds the line's entries in the sorted major
+// coordinate and compacts their valid tiles, in list order, into shared
+// memory (compact_line), and the block walks them in that order; entries
+// with valid=0 (sentinels and tail padding) add nothing.  Inside an entry
+// the sums run in the dense kernels' orders: K4 is K1's pipeline over the
+// listed tiles' 64-column pieces and K6 the A half of K2's over their
+// 32-j pieces, K5 runs j increasing as K2's W^T P.  K7 reads no list: it
+// is K3's dW tile over the dense output's 64 x 128 pieces, masked by occ
+// (dw_tile; all three shared bodies are in graph_reg_tiles.cuh).  So on a
+// full mask with bt a multiple of 64 K4 equals K1, K5∘K6 equals K2 and K7
+// equals K3 bit for bit (K7 at any bt).  K4 and K6 read a class-padded
 // copy of logP that their entry points write into a workspace the caller
 // allocates (graph_reg_bsp_fwd_workspace / graph_reg_bsp_dlogp_workspace).
 // No float atomics: every output element and partial has one writer, and
@@ -367,46 +369,28 @@ bsp_bwd_dlogp(const float* __restrict__ P, const float* __restrict__ L,
     }
 }
 
-// K7: one block per (32 x 64 output piece, worker), as K3.  A piece that
-// touches no occupied tile writes zeros without computing its S tile; an
-// occupied one writes K3's value where occ == 1 and zero elsewhere (a
-// 64-column piece spans two tiles when bt = 32).
-__global__ void __launch_bounds__(kThreads)
+// K7: K3's dw_tile (graph_reg_tiles.cuh) over the 64 x 128 pieces of
+// worker z's dW, each element kept where its tile is occupied and zero
+// elsewhere; a piece that touches no occupied tile stores its zeros and
+// nothing else.  Pieces run in row-major order (x = column piece), so a
+// tile row's live and dead pieces are spread over consecutive blocks.  At
+// the path's shape (k = 1, B = 2176, bt = 128) 120 of the 578 pieces are
+// live (60 of 289 tiles occupied, two pieces a tile); the floor is the
+// dense output's 18.9 MB of stores.
+__global__ void __launch_bounds__(kThreads, 3)
 bsp_bwd_dw(const float* __restrict__ P, const float* __restrict__ L,
            const int* __restrict__ occ, const float* __restrict__ g,
-           int B, int C, int bt, float gc, float ge, float* __restrict__ dW) {
-    __shared__ float Ps[kChunk][kRows + 1];
-    __shared__ float Ls[kChunk][kCols + 1];
-    const int z = blockIdx.z, i0 = blockIdx.y * kRows, j0 = blockIdx.x * kCols;
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    const int nt = (B + bt - 1) / bt;
-    P += (int64_t)z * B * C;
-    L += (int64_t)z * B * C;
-    dW += (int64_t)z * B * B;
-    const int* orow = occ + (int64_t)z * nt * nt + (int64_t)(i0 / bt) * nt;
-    const float gz = g[z];
-
-    const int jlast = min(j0 + kCols, B) - 1;
-    bool live = false;                      // the same in every thread
-    for (int tj = j0 / bt; tj <= jlast / bt; ++tj) live |= orow[tj] == 1;
-    float acc[4][2] = {};
-    if (live) s_tile(P, L, B, C, i0, j0, Ps, Ls, acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty + 8 * r;
-        if (i >= B) continue;
-        const float h = live ? row_entropy(P, L, C, i) : 0.f;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            const int j = j0 + tx + 32 * c;
-            if (j < B)
-                dW[(int64_t)i * B + j] = orow[j / bt] == 1
-                    ? -gz * (gc * acc[r][c] + ge * h) : 0.f;
-        }
-    }
+           int B, int C, int bt, float gc, float ge, int vec,
+           float* __restrict__ dW) {
+    const int z = blockIdx.z, nt = (B + bt - 1) / bt;
+    dw_tile(P + (int64_t)z * B * C, L + (int64_t)z * B * C, g[z], B, C, gc,
+            ge, vec, DwOccupied{occ + (int64_t)z * nt * nt, nt, bt},
+            dW + (int64_t)z * B * B);
 }
 
-bool bad_tile_edge(int bt) { return bt <= 0 || bt % kRows != 0; }
+// A block's rows lie in one tile row, in whole 32-row strips (K4's
+// chains): the tile edge must be a positive multiple of 32.
+bool bad_tile_edge(int bt) { return bt <= 0 || bt % 32 != 0; }
 
 }  // namespace
 
@@ -574,11 +558,14 @@ int graph_reg_bsp_dw(const void* p, const void* logp, const void* occ,
                      const void* g, int k, int B, int C, int bt, float gc,
                      float ge, void* dW, void* stream) {
     if (bad_tile_edge(bt)) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((B + kCols - 1) / kCols, (B + kRows - 1) / kRows, k);
+    // 16-byte stores need 16-byte rows: B a multiple of 4 and dW aligned.
+    const int vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(dW) % 16 == 0;
+    const dim3 grid((B + kDwCols - 1) / kDwCols, (B + kDwRows - 1) / kDwRows,
+                    k);
     bsp_bwd_dw<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(logp),
         static_cast<const int*>(occ), static_cast<const float*>(g), B, C, bt,
-        gc, ge, static_cast<float*>(dW));
+        gc, ge, vec, static_cast<float*>(dW));
     return static_cast<int>(cudaGetLastError());
 }
 

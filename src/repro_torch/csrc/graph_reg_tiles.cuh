@@ -2,8 +2,9 @@
 // (graph_reg.cu, K1-K3 and K10) and the block-sparse ones
 // (graph_reg_bsp.cu, K4-K7):
 //
-//   * the strip tile (xy_tile / s_tile) of K7, whose sum orders the
-//     pipelines below keep;
+//   * the dW tile (dw_tile), one template for K3 over every 64 x 128
+//     piece of the output and K7 over the pieces that touch an occupied
+//     tile;
 //   * the class padding (pad_classes) of the pipelines' inputs;
 //   * K1's pipeline (fwd_partials), which K10 runs without its degree
 //     terms and K4 over a strip's listed column tiles, and its second
@@ -13,8 +14,9 @@
 //   * the compaction of a tile line's listed entries (compact_line), by
 //     which K4, K5 and K6 find the tiles they walk.
 //
-// So on a full occupancy mask (bt a multiple of 64) K4 equals K1 and
-// K5∘K6 equals K2 bit for bit: the same sums in the same orders.
+// So on a full occupancy mask (bt a multiple of 64) K4 equals K1, K5∘K6
+// equals K2 and K7 equals K3 bit for bit: the same sums in the same
+// orders.
 //
 // Padding is done with masks, never with values: rows, columns and classes
 // outside (B, B, C) are loaded as 0 for p, logp and W alike, so they drop
@@ -28,62 +30,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps: ty = warp (0..7), tx = lane
-constexpr int kRows = 32;       // row strip of K1/K3/K4/K7
-constexpr int kCols = 64;       // column tile of the S = P logP^T tile
-constexpr int kChunk = 16;      // class chunk of the S contraction
+constexpr int kThreads = 256;   // 8 warps
 
 __device__ __forceinline__ float warp_sum(float v) {
     // Fixed butterfly order: deterministic, every lane ends with the sum.
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
-}
-
-// acc[r][c] += sum_k X[i0+ty+8r, k] * Y[j0+tx+32c, k] over all k < D, for
-// X (N, D) and Y (M, D).  Thread (ty, tx) owns rows ty+8r (r<4) and columns
-// tx+32c (c<2) of the 32 x 64 tile; a warp reads 32 consecutive columns
-// (conflict-free) and one broadcast row from shared memory.  The k-th term
-// of every output is added in increasing k, one fmaf each.
-__device__ __forceinline__ void xy_tile(
-        const float* __restrict__ X, const float* __restrict__ Y,
-        int N, int M, int D, int i0, int j0,
-        float (*Xs)[kRows + 1], float (*Ys)[kCols + 1], float acc[4][2]) {
-    const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-        for (int e = tid; e < kRows * kChunk; e += kThreads) {
-            const int i = e / kChunk, k = e % kChunk;
-            const bool ok = (i0 + i < N) && (c0 + k < D);
-            Xs[k][i] = ok ? X[(int64_t)(i0 + i) * D + c0 + k] : 0.f;
-        }
-        for (int e = tid; e < kCols * kChunk; e += kThreads) {
-            const int j = e / kChunk, k = e % kChunk;
-            const bool ok = (j0 + j < M) && (c0 + k < D);
-            Ys[k][j] = ok ? Y[(int64_t)(j0 + j) * D + c0 + k] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-            float a[4], b[2];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) a[r] = Xs[k][ty + 8 * r];
-#pragma unroll
-            for (int c = 0; c < 2; ++c) b[c] = Ys[k][tx + 32 * c];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-        }
-        __syncthreads();
-    }
-}
-
-// The regularizer's S tile: acc[r][c] += sum_k P[i0+ty+8r, k] *
-// logP[j0+tx+32c, k] over all C classes, P and logP both (B, C).
-__device__ __forceinline__ void s_tile(
-        const float* __restrict__ P, const float* __restrict__ L,
-        int B, int C, int i0, int j0,
-        float (*Ps)[kRows + 1], float (*Ls)[kCols + 1], float acc[4][2]) {
-    xy_tile(P, L, B, B, C, i0, j0, Ps, Ls, acc);
 }
 
 // H(p_i) = -sum_c p_ic logp_ic for row i, summed by one warp (lane-strided
@@ -150,6 +102,199 @@ inline int launch_pad(const float* X, const float* Y, int64_t rows, int C,
     pad_classes<<<dim3(blocks, Y ? 2 : 1), kThreads, 0, s>>>(X, Y, rows, C,
                                                            outX, outY);
     return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The dW tile (dw_tile): K3 and K7.
+//
+// dW = -g*(gc*P logP^T + ge*H(p) 1^T), (B, B) per worker, written once;
+// K7 writes it on the tiles its occupancy mask marks and exact zeros
+// elsewhere.  The time goes to staging P and logP, the product loop and
+// the B*B stores; the design keeps each small:
+//
+// * one block per (64 x 128 output piece, worker): 578 blocks at the
+//   path's B = 2176, three resident per SM (at most 85 registers a
+//   thread); 256 threads, each with a 4 x 8 register tile (rows ty*4..,
+//   columns tx*4.. and 64+tx*4..);
+// * the piece's P and logP rows (and logP of its columns) are staged once
+//   for up to kDwK classes (all of them at C <= 40) with cp.async, every
+//   copy of the chunk in flight at once, transposed to class-major in
+//   shared memory with an XOR swizzle of 4-float groups, so the
+//   transposing stores are conflict-free and every read of the product
+//   loop is one 16-byte load (a warp reads 2 row groups, broadcast, and
+//   16 column groups);
+// * H(p_i) once per row per block, from the staged rows: lane l sums the
+//   classes c = l (mod 32) in increasing c and the warp adds the lanes
+//   with warp_sum, row_entropy's order, so h has its bits;
+// * 16-byte streaming stores (__stcs) along j where B is a multiple of 4
+//   and dW is 16-byte aligned, masked scalar stores otherwise; rows and
+//   columns past B are masked, never padded in memory.
+//
+// The occupancy predicate decides per piece and per element.  DwDense
+// (K3) takes everything, and the compiler drops its tests.  DwOccupied
+// (K7) reads the mask: a piece that touches no occupied tile (the same
+// test in every thread, so the block takes one branch) stages nothing,
+// computes no entropy and stores zeros through the same stores; a live
+// piece runs the whole body and zeroes each thread's values whose tile is
+// not occupied (a thread's 4 rows lie in one tile row and each of its two
+// 4-column groups in one tile column, bt being a multiple of 32; at bt =
+// 32 a piece spans 2 x 4 tiles).
+//
+// Each S element starts at +0 and adds fmaf(P[i,c], logP[j,c], acc) in
+// increasing c (zero-filled classes past C add exact zeros), then
+// -gz*(gc*acc + ge*h), so K7 equals K3 bit for bit on a full mask.  Bound
+// by bytes (the B*B output) and, about equally for K3, by the 2*B*B*C
+// flops; no tensor cores, which would change the sum's order, and no
+// atomics.
+constexpr int kDwRows = 64, kDwCols = 128, kDwK = 40;
+
+// Column of element (row, k) in a class-major swizzled tile: 4-float
+// groups XORed with k mod 8.
+__device__ __forceinline__ int dw_swz(int row, int k) {
+    return ((((row >> 2) ^ (k & 7))) << 2) | (row & 3);
+}
+
+struct DwDense {
+    __device__ bool piece(int, int, int) const { return true; }
+    __device__ bool at(int, int) const { return true; }
+};
+
+// One worker's (nt, nt) occupancy mask, nt = ceil(B / bt).
+struct DwOccupied {
+    const int* __restrict__ occ;
+    int nt, bt;
+    // Whether the piece at (i0, j0) touches an occupied tile.
+    __device__ bool piece(int i0, int j0, int B) const {
+        const int ti1 = (min(i0 + kDwRows, B) - 1) / bt;
+        const int tj1 = (min(j0 + kDwCols, B) - 1) / bt;
+        bool live = false;
+        for (int ti = i0 / bt; ti <= ti1; ++ti)
+            for (int tj = j0 / bt; tj <= tj1; ++tj)
+                live |= occ[ti * nt + tj] == 1;
+        return live;
+    }
+    // Whether element (i, j), i, j < B, lies on an occupied tile.
+    __device__ bool at(int i, int j) const {
+        return occ[(i / bt) * nt + j / bt] == 1;
+    }
+};
+
+// The block's piece of worker z's dW (blockIdx = (column piece, row
+// piece, worker)); P, L and dW already point at worker z's rows.
+template <class Occ>
+__device__ __forceinline__ void dw_tile(
+        const float* __restrict__ P, const float* __restrict__ L, float gz,
+        int B, int C, float gc, float ge, int vec, const Occ& occ,
+        float* __restrict__ dW) {
+    __shared__ __align__(16) float Ps[kDwK][kDwRows];   // P[i0 + i, c]
+    __shared__ __align__(16) float Li[kDwK][kDwRows];   // logP[i0 + i, c]
+    __shared__ __align__(16) float Ls[kDwK][kDwCols];   // logP[j0 + j, c]
+    __shared__ float Hs[kDwRows];
+    const int i0 = blockIdx.y * kDwRows, j0 = blockIdx.x * kDwCols;
+    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const int warp = tid >> 5, lane = tid & 31;
+    const bool live = occ.piece(i0, j0, B);   // uniform across the block
+
+    float acc[4][8] = {};
+    if (live) {
+        float hpart[kDwRows / 8] = {};   // warp w: rows 8w .. 8w+7
+        // Staging lanes: 8 classes x 4 consecutive rows per warp
+        // instruction.
+        const int kk = lane >> 2, rq = lane & 3;
+        for (int c0 = 0; c0 < C; c0 += kDwK) {
+            const int kc = min(kDwK, C - c0);
+            const int kpad = (kc + 7) & ~7;
+            if (c0 > 0) __syncthreads();   // the previous chunk's reads
+            // Every copy of the chunk in flight at once (cp.async, 4
+            // bytes, zero-filled where masked), then one wait.
+            for (int k0 = 0; k0 < kpad; k0 += 8) {
+                const int k = k0 + kk;
+                for (int rb = warp; rb < kDwRows / 4; rb += 8) {
+                    const int row = rb * 4 + rq, i = i0 + row;
+                    const bool ok = i < B && k < kc;
+                    const int64_t at = ok ? (int64_t)i * C + c0 + k : 0;
+                    cp_async4(&Ps[k][dw_swz(row, k)], P + at, ok ? 4 : 0);
+                    cp_async4(&Li[k][dw_swz(row, k)], L + at, ok ? 4 : 0);
+                }
+                for (int rb = warp; rb < kDwCols / 4; rb += 8) {
+                    const int col = rb * 4 + rq, j = j0 + col;
+                    const bool ok = j < B && k < kc;
+                    cp_async4(&Ls[k][dw_swz(col, k)],
+                              L + (ok ? (int64_t)j * C + c0 + k : 0),
+                              ok ? 4 : 0);
+                }
+            }
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+            // The entropy terms of this chunk: lane's classes c = lane
+            // (mod 32), increasing.
+            for (int k = (lane - c0 % 32 + 32) % 32; k < kc; k += 32)
+#pragma unroll
+                for (int rr = 0; rr < kDwRows / 8; ++rr) {
+                    const int row = warp * (kDwRows / 8) + rr;
+                    hpart[rr] = fmaf(Ps[k][dw_swz(row, k)],
+                                     Li[k][dw_swz(row, k)], hpart[rr]);
+                }
+#pragma unroll 8
+            for (int k = 0; k < kpad; ++k) {
+                const int x = k & 7;
+                const float4 a = *reinterpret_cast<const float4*>(
+                    &Ps[k][(ty ^ x) << 2]);
+                const float4 b0 = *reinterpret_cast<const float4*>(
+                    &Ls[k][(tx ^ x) << 2]);
+                const float4 b1 = *reinterpret_cast<const float4*>(
+                    &Ls[k][((16 + tx) ^ x) << 2]);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+                const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                     b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                    for (int c = 0; c < 8; ++c)
+                        acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+            }
+        }
+#pragma unroll
+        for (int rr = 0; rr < kDwRows / 8; ++rr) {
+            const float h = -warp_sum(hpart[rr]);
+            if (lane == 0) Hs[warp * (kDwRows / 8) + rr] = h;
+        }
+        __syncthreads();   // Hs written by other warps
+    }
+    // Whether each of the thread's two 4-column groups is written with
+    // values (its rows share one tile row).
+    const int ib = i0 + ty * 4;
+    bool on[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int j = j0 + half * 64 + tx * 4;
+        on[half] = live && ib < B && j < B && occ.at(ib, j);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int i = ib + r;
+        if (i >= B) continue;
+        const float h = live ? Hs[ty * 4 + r] : 0.f;
+        float* row = dW + (int64_t)i * B;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int j = j0 + half * 64 + tx * 4;
+            float w[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                w[e] = on[half] ? -gz * (gc * acc[r][4 * half + e] + ge * h)
+                                : 0.f;
+            if (vec && j < B) {
+                __stcs(reinterpret_cast<float4*>(row + j),
+                       make_float4(w[0], w[1], w[2], w[3]));
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (j + e < B) __stcs(row + j + e, w[e]);
+            }
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------

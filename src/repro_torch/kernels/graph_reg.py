@@ -45,8 +45,9 @@ f32 without tensor cores):
   block computes a 64×128 tile of P·logPᵀ from P and logP rows staged
   once, class-major, in shared memory (4×8 values a thread), adds ge·H_i
   (one entropy per row per block) and writes the tile with 16-byte
-  streaming stores.  Its sums are K7's, bit for bit.  Training never asks
-  for it (W carries no gradient).
+  streaming stores.  Its body (``dw_tile``) is K7's, so the two agree bit
+  for bit on a full mask.  Training never asks for it (W carries no
+  gradient).
 
 * ``reg_pairwise`` — K10, replaces ``graph_reg_pairwise_pallas`` /
   ``_graph_reg_kernel``: the bare cross term −Σ W⊙(P·logPᵀ) of one

@@ -40,10 +40,13 @@ and 67 TFLOP/s f32 without tensor cores):
   2 rows × 4 classes a thread, the listed tiles' 32-j pieces of W and of a
   class-padded logP streamed through a ``cp.async`` ring.
 * ``bsp_bwd_dw`` — K7, replaces ``_bsp_bwd`` pass 3 / ``_bsp_dw_kernel``.
-  Writes the dense P×P dW (18.9 MB, 5.7 µs): bound by bytes.  32×64
-  blocks on the dense kernels' tile code, with the S tile computed only
-  where ``occ`` marks a tile occupied and exact zeros written elsewhere;
-  its values equal K3's bit for bit.  Training never asks for it.
+  Writes the dense P×P dW (18.9 MB, 5.7 µs): bound by bytes.
+  Redesigned for Hopper on K3's tile (``dw_tile`` in
+  ``csrc/graph_reg_tiles.cuh``): 64×128 pieces, swizzled ``cp.async``
+  staging, H from the staged rows and 16-byte streaming stores; a piece
+  that touches no occupied tile stores its zeros and nothing else, a live
+  one zeroes what lies off the occupied tiles.  Its values equal K3's bit
+  for bit on a full mask.  Training never asks for it.
 
 The kernels take any tile edge bt that is a positive multiple of 32 (a
 block's rows lie in one tile row, in whole 32-row strips for K4's

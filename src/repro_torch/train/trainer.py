@@ -5,10 +5,11 @@ Reproduces the paper's §3 protocol: AdaGrad, base lr 1e-3, effective lr
 the reference's signature; it builds the :class:`TrainState` and the Eq.-3
 step and hands the loop to :class:`repro_torch.train.engine.Engine`.
 
-Features that later slices of the port bring raise ``NotImplementedError``
-naming the slice instead of being ignored: the ``sync_mesh`` and
-``async_ps`` strategies, checkpointing and resume, the non-finite guard and
-fault injection, and the capture hooks of the online graph refresh.
+Checkpointing and resume, the non-finite guard, fault injection and the
+capture hooks of the online graph refresh run as in the reference (see
+:mod:`repro_torch.train.engine`).  The ``sync_mesh`` and ``async_ps``
+strategies belong to a later slice of the port and raise
+``NotImplementedError`` naming it instead of being ignored.
 """
 from __future__ import annotations
 
@@ -101,7 +102,17 @@ def train_dnn_ssl(
     staleness bound belongs to ``async_ps``.  ``prefetch > 0`` stages each
     batch that many steps ahead.  Dropout draws from a ``torch.Generator``
     seeded from ``seed``; its stream cannot match the reference's threefry
-    keys.
+    keys.  A checkpoint holds the generator's state, so ``resume=True``
+    draws the dropout masks an uninterrupted run would.
+
+    ``resilience`` (a ``ResilienceConfig``) turns on the engine's failure
+    defenses — the non-finite guard, checkpoint integrity and retention,
+    the staging supervisor; ``injector`` (a
+    :class:`~repro_torch.resilience.faults.FaultInjector`) arms fault
+    injection.  ``capture_fn(params, batch)`` taps per-step embeddings on
+    the epochs ``capture_epochs`` selects, and ``on_epoch_end(epoch,
+    params, captures)`` receives them stacked on the host: the online
+    graph refresh's hook (:mod:`repro_torch.online`).
     """
     device = resolve_device(device)
     strategy = strategy or ("sync_mesh" if mesh is not None else "sequential")
@@ -110,15 +121,6 @@ def train_dnn_ssl(
     if strategy != "sequential":
         raise KeyError(f"unknown strategy {strategy!r}; the port has "
                        "'sequential' (later slices: 'sync_mesh', 'async_ps')")
-    if checkpoint_every > 0 or resume:
-        raise _later_slice("checkpointing and resume", "engine extras")
-    if injector is not None or (resilience is not None and (
-            resilience.nonfinite_guard or resilience.drop_overstale)):
-        raise _later_slice("the non-finite guard and fault injection",
-                           "engine extras")
-    if capture_fn is not None or capture_epochs is not None:
-        raise _later_slice("capture hooks (online graph refresh)",
-                           "engine extras")
 
     opt = opt or adagrad()
     if params is None:
@@ -140,14 +142,18 @@ def train_dnn_ssl(
         s.step += 1
         return metrics
 
-    engine = Engine(step_fn, device=device, prefetch=prefetch)
+    engine = Engine(step_fn, device=device, prefetch=prefetch,
+                    checkpoint_every=checkpoint_every,
+                    checkpoint_dir=checkpoint_dir, resilience=resilience,
+                    injector=injector, capture_fn=capture_fn)
     schedule = lr_schedule or parallel_lr_schedule(base_lr, n_workers,
                                                    lr_reset_epochs)
     if eval_fn is None and eval_data is not None:
         def eval_fn(p):
             return {"eval/acc": evaluate_dnn(p, *eval_data)}
     res = engine.run(pipeline_epoch, state=state, n_epochs=n_epochs,
-                     lr_schedule=schedule, eval_fn=eval_fn,
+                     lr_schedule=schedule, eval_fn=eval_fn, resume=resume,
+                     capture_epochs=capture_epochs,
                      on_epoch_end=on_epoch_end)
     return TrainResult(params=res.state.params, history=res.history,
                        state=res.state)

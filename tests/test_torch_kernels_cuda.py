@@ -334,6 +334,58 @@ def test_redesigned_k4_and_k6_match_plain_versions(cuda, B, bt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bt", [32, 64, 96, 128, 160, 256])
+@pytest.mark.parametrize("B", [1, 33, 130, 1000, 1001])
+def test_redesigned_k7_matches_plain_version_and_k3(cuda, B, bt):
+    """K7 on K3's tile (dw_tile): k 1 and 3, C 1 to 200 (K3's class chunks
+    of 40), every mask kind, B not a multiple of 4 (scalar stores) and
+    pieces spanning several tiles (bt < 128); exact zeros off the occupied
+    tiles, repeats bit-identical, and K3's bits on a full mask.  gc != ge:
+    at B = 1 the single entry is -g·h·(ge - gc), zero when they are equal,
+    and no tolerance relative to the output holds that."""
+    for k in (1, 3):
+        g = torch.tensor([0.5, -2.0, 0.25][:k], device=cuda)
+        for C in (1, 39, 200):
+            for kind in MASK_KINDS:
+                logp, _, arrays = _bsp_case(k, B, C, bt, kind)
+                logp, occ = logp.to(cuda), arrays[6].to(cuda)
+                a = bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, 0.5)
+                b = bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, 0.5)
+                torch.cuda.synchronize()
+                assert torch.equal(a, b), (k, C, kind)
+                live = occ.repeat_interleave(bt, -2).repeat_interleave(
+                    bt, -1)[:, :B, :B]
+                assert bool((a[live == 0] == 0).all()), (k, C, kind)
+                _close(a.cpu().numpy(), ref.bsp_bwd_dw_ref(
+                    logp, occ, g, bt, GAMMA, 0.5).cpu().numpy())
+                if kind == "full":
+                    assert torch.equal(a, gr.reg_bwd_dw(logp, g, GAMMA, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1000, 1001])
+def test_k7_writes_an_unaligned_output(cuda, B):
+    """The library's K7 into a view one float past an aligned buffer: the
+    16-byte stores need an aligned dW, so it must take the scalar stores
+    and write what the wrapper's own output holds."""
+    bt = 64
+    logp, _, arrays = _bsp_case(2, B, 39, bt, "tail-padded")
+    logp, occ = logp.to(cuda), arrays[6].to(cuda)
+    p = torch.exp(logp)
+    g = torch.tensor([0.5, -2.0], device=cuda)
+    buf = torch.full((2 * B * B + 2,), float("nan"), device=cuda)
+    view = buf[1:-1].view(2, B, B)
+    rc = bsp._lib().graph_reg_bsp_dw(
+        p.data_ptr(), logp.data_ptr(), occ.data_ptr(), g.data_ptr(), 2, B,
+        39, bt, GAMMA, 0.5, view.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(view, bsp.bsp_bwd_dw(logp, occ, g, bt, GAMMA, 0.5))
+    assert bool(buf[0].isnan()) and bool(buf[-1].isnan())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,B,C,T,bt", [(1, 2176, 39, 88, 128),
                                         (3, 1001, 100, 400, 32),
                                         (1, 1001, 200, 40, 96),

@@ -128,3 +128,20 @@ def test_supervisor_copy_is_the_reference_module():
         for key in ("replan@1", "prefetch"):
             assert [tp.delay(key, a) for a in range(6)] == \
                 [jp.delay(key, a) for a in range(6)]
+
+
+def test_faults_copy_is_the_reference_module():
+    """``repro_torch/resilience/faults.py`` is the reference's module with
+    ``repro.`` imports rewritten (it has none): numpy only, and the same
+    fault plans from the same seeds."""
+    from pathlib import Path
+
+    import repro.resilience.faults as jfaults
+    import repro_torch.resilience.faults as tfaults
+    want = Path(jfaults.__file__).read_text().replace("repro.",
+                                                      "repro_torch.")
+    assert Path(tfaults.__file__).read_text() == want
+    for seed in (0, 5):
+        kw = dict(n_epochs=3, steps_per_epoch=7, per_site=2)
+        assert tfaults.FaultPlan.from_seed(seed, **kw).to_json() == \
+            jfaults.FaultPlan.from_seed(seed, **kw).to_json()

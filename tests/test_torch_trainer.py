@@ -137,15 +137,34 @@ def test_experiment_with_block_layout_matches_reference(monkeypatch):
 @pytest.mark.parametrize("over,match", [
     (dict(execution=ExecutionConfig(strategy="sync_mesh")), "strategies"),
     (dict(execution=ExecutionConfig(strategy="async_ps")), "strategies"),
-    (dict(execution=ExecutionConfig(checkpoint_every=1,
-                                    checkpoint_dir="ckpt")), "checkpoint"),
-    (dict(resilience=ResilienceConfig(nonfinite_guard=True)), "guard"),
-    (dict(batch=BatchConfig(batch_size=96, pipeline="metabatch_stream"),
-          online=OnlineConfig(refresh_every=1)), "online"),
 ])
 def test_later_slice_features_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         Experiment(_tiny(**over), device="cpu").run()
+
+
+@pytest.mark.parametrize("feature", ["checkpoint", "guard", "online"])
+def test_engine_extras_run_through_experiment(feature, tmp_path):
+    """Checkpointing, the non-finite guard and the online refresh, which
+    the port refused before the engine extras were ported, now run."""
+    over = {
+        "checkpoint": dict(execution=ExecutionConfig(
+            checkpoint_every=1, checkpoint_dir=str(tmp_path))),
+        "guard": dict(resilience=ResilienceConfig(nonfinite_guard=True)),
+        "online": dict(batch=BatchConfig(batch_size=96,
+                                         pipeline="metabatch_stream"),
+                       online=OnlineConfig(refresh_every=1)),
+    }[feature]
+    exp = Experiment(_tiny(**over), device="cpu")
+    res = exp.run()
+    assert [r["epoch"] for r in res.history] == [0, 1]
+    assert np.isfinite(res.final["loss/total"])
+    if feature == "checkpoint":
+        assert (tmp_path / "LATEST").read_text() == "ckpt_00002"
+    elif feature == "guard":
+        assert res.final["guard/skipped_total"] == 0
+    else:
+        assert exp.online.stats["refreshes"] == 2
 
 
 def test_cli_dump_config_and_cpu_run(tmp_path, capsys):
