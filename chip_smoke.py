@@ -108,12 +108,25 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    history equal the uninterrupted run's bit for bit); the non-finite
    guard (a NaN batch and an inf batch in one epoch: exactly 2 steps
    skipped, params finite, launches the epoch's plus the replayed
-   windows'; without the guard the params end non-finite); the online
+   windows' of ``guard_window`` chunks of ``scan_chunk`` steps; without
+   the guard the params end non-finite); the online
    graph refresh (the stream pipeline, its graph built on K8 and
    refreshed on K8 after each of 2 epochs from the top hidden layer, N
    20,000 × D 2000: K8 once for the build and once per refresh, churn and
    repair or re-plan printed, the refreshed graph against the host graph
-   of the same embeddings, K8 checked and timed at that shape);
+   of the same embeddings, K8 checked and timed at that shape); then the
+   execution strategies at k = 4 (``strategies_phase``): a sequential and
+   a ``sync_mesh`` epoch on a world-size-1 NCCL group, equal bit for bit
+   (loss/total, history, params), the NCCL version printed; an
+   ``async_ps`` epoch on 1-worker batches, repeated bit for bit, and its
+   checkpoint (params, AdaGrad state, 4 snapshots) resumed bit for bit;
+   each epoch K1 and K2 once per step and no other kernel, ms/step by
+   the host clock; the chaos driver's three phases on the card
+   (``chaos_phase``: every site fired, skips as planned, phase C = phase
+   A bit for bit, phase A's fired coordinates the plan's); and the
+   guard's cost on a clean epoch (``guard_overhead_phase``: off and on in
+   five interleaved pairs at ``scan_chunk`` 1 and 16, the median per-pair
+   ratio printed, not checked);
 11. a step breakdown of both paths (``repro_torch.bench.profile_step``
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
@@ -380,7 +393,7 @@ def graph_build_phase(exp) -> dict:
     print(f"device vs host graph: same edge structure {same}, max |ΔW| on "
           f"it {dw:.3e}; same meta-batch plan {plan_same}; padded batch P "
           f"{exp_dev.pipeline.__self__.pad} (host {exp.pipeline.__self__.pad})")
-    # The weights on the edges both graphs hold (ROADMAP §3 item 2).
+    # The weights on the edges both graphs hold.
     ch, cd = g_host.W.tocoo(), g_dev.W.tocoo()
     _, ih, idv = np.intersect1d(ch.row.astype(np.int64) * n + ch.col,
                                 cd.row.astype(np.int64) * n + cd.col,
@@ -1241,7 +1254,8 @@ def train_phase(exp, kernels: tuple[str, ...], label: str) -> dict:
     check(counts == want, f"{label}: launches {counts}, expected {want} "
           "(each path kernel once per step, no other kernel)")
     return {"counts": counts, "steps": steps, "steady_ms": 1e3 * steady,
-            "host_ms": 1e3 * timed.host_s / steps, "row": row}
+            "host_ms": 1e3 * timed.host_s / steps, "row": row,
+            "params": res.params}
 
 
 def device_weights_phase(exp, exp_dev, dev_row: dict) -> None:
@@ -1429,8 +1443,9 @@ def guard_phase(exp, steps: int) -> dict:
     configuration with a NaN batch at step 3 and an inf batch at step 11
     (fault injection), ``nonfinite_guard=True``.  Exactly the two steps
     are skipped, the params stay finite, and the launches are the epoch's
-    plus one replay of each tainted window (``guard_window`` steps); the
-    same faults without the guard leave the params non-finite."""
+    plus one replay of each tainted window (``guard_window`` chunks of
+    ``scan_chunk`` steps, cut at the epoch's end); the same faults without
+    the guard leave the params non-finite."""
     import numpy as np
     from repro_torch.api import Experiment, ResilienceConfig
     from repro_torch.kernels import graph_reg as gr
@@ -1453,7 +1468,8 @@ def guard_phase(exp, steps: int) -> dict:
     cfg = ResilienceConfig(nonfinite_guard=True)
     res, counts, secs = run(cfg)
     row = res.history[0]
-    w = cfg.guard_window
+    chunk = extras_config().execution.scan_chunk
+    w = cfg.guard_window * chunk if chunk else steps
     replayed = sum(min(w, steps - s) for s in range(0, steps, w)
                    if any(s <= p < s + w for p in poisoned))
     want = {name: (steps + replayed if name in ("graph_reg_fwd",
@@ -1461,7 +1477,8 @@ def guard_phase(exp, steps: int) -> dict:
                    else 0) for name in counts}
     finite = bool(all_finite(res.params))
     print(f"guard phase: NaN batch at step 3, inf at step 11, guard window "
-          f"{w}: guard/skipped_total {row['guard/skipped_total']}, "
+          f"{cfg.guard_window} chunks of {chunk} steps ({w} steps): "
+          f"guard/skipped_total {row['guard/skipped_total']}, "
           f"guard/skipped mean {row['guard/skipped']!r}, params finite "
           f"{finite}, loss/total {row['loss/total']!r}, {secs:.2f}s; "
           f"launches {counts} ({steps} steps + {replayed} replayed)")
@@ -1560,6 +1577,209 @@ def online_phase(exp) -> dict:
             "shape": list(E.shape), "k": k, "stats": stats,
             "churn": mgr.last_churn, "edge_diff": len(diff),
             "run_s": run_s}
+
+
+def guard_overhead_phase(exp, pairs: int = 8) -> dict:
+    """The guard's cost on a clean full-width epoch (the paper's
+    configuration, no fault): epochs with the guard off and on in turns,
+    ``pairs`` pairs, the first of a pair alternating (off-on, on-off, ...)
+    so that a drift along the sequence cancels, at ``scan_chunk`` 1
+    (windows of ``guard_window`` steps) and at the default; the median of
+    the per-pair ratios of the epochs' seconds (the history row's wall
+    time, which ends with the metric fetch).  Printed, not checked: the
+    host's time varies between runs."""
+    import dataclasses
+    import statistics
+    from repro_torch.api import Experiment, ResilienceConfig
+
+    base = extras_config()
+
+    def epoch_s(chunk: int, guard: bool) -> float:
+        cfg = extras_config(
+            execution=dataclasses.replace(base.execution, scan_chunk=chunk),
+            resilience=ResilienceConfig(nonfinite_guard=guard))
+        res = Experiment(cfg, corpus=exp.corpus, eval_data=exp.eval_data,
+                         graph=exp.graph, plan=exp.plan,
+                         device="cuda").run()
+        return res.history[0]["seconds"]
+
+    out = {}
+    for chunk in (1, base.execution.scan_chunk):
+        epoch_s(chunk, True)                     # warm-up, not counted
+        times = []
+        for i in range(pairs):
+            first = epoch_s(chunk, bool(i % 2))
+            second = epoch_s(chunk, not i % 2)
+            times.append((second, first) if i % 2 else (first, second))
+        ratios = [on / off for off, on in times]
+        med = statistics.median(ratios)
+        out[chunk] = {"median_ratio": med, "ratios": ratios,
+                      "off_s": [t[0] for t in times],
+                      "on_s": [t[1] for t in times]}
+        print(f"guard overhead, scan_chunk {chunk} (window "
+              f"{ResilienceConfig().guard_window * chunk} steps): clean "
+              f"epoch off {[round(t[0], 4) for t in times]} s (median "
+              f"{statistics.median(t[0] for t in times):.4f}), on "
+              f"{[round(t[1], 4) for t in times]} s (median "
+              f"{statistics.median(t[1] for t in times):.4f}); per-pair "
+              f"on/off {[round(r, 4) for r in ratios]}, median {med:.4f} "
+              f"({100 * (med - 1):+.2f} %; the reference's limit +5 %)")
+    return out
+
+
+def strategies_phase(exp) -> dict:
+    """The execution strategies at the paper's width, k = 4 workers,
+    through ``Experiment(cfg, device="cuda")`` on the host experiment's
+    corpus, graph and plan: a sequential epoch and a ``sync_mesh`` epoch
+    on a world-size-1 NCCL group, whose ``loss/total``, history and final
+    params must be equal bit for bit; an ``async_ps`` epoch (max_staleness
+    2, dropout 0, 1-worker batches) with a finite ``loss/total``, repeated
+    bit for bit; then its checkpoint (the live params, AdaGrad state and
+    the 4 snapshots) and a resume past it, whose final checkpoint and
+    history equal the uninterrupted run's bit for bit.  Each epoch
+    launches K1 and K2 once a step and no other kernel (counts at 0 just
+    before, read just after, ``train_phase``) and prints its ms/step."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.core.ssl_loss import tree_leaves
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.train.engine import data_group
+
+    base = extras_config()
+    path = ("graph_reg_fwd", "graph_reg_bwd_dlogp")
+
+    def cfg_of(strategy: str, **execution):
+        dropout = 0.0 if strategy == "async_ps" else base.train.dropout
+        return extras_config(
+            train=dataclasses.replace(base.train, n_workers=4,
+                                      dropout=dropout),
+            execution=dataclasses.replace(base.execution, strategy=strategy,
+                                          max_staleness=2, **execution))
+
+    def epoch(strategy: str, label: str) -> dict:
+        e = Experiment(cfg_of(strategy), corpus=exp.corpus,
+                       eval_data=exp.eval_data, graph=exp.graph,
+                       plan=exp.plan, device="cuda").build()
+        return train_phase(e, path, label)
+
+    def rows(history):
+        return [{k: v for k, v in r.items() if k != "seconds"}
+                for r in history]
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    group = data_group(4, "cuda")
+    print(f"sync_mesh group: {type(group).__name__}, world size "
+          f"{group.size()}, rank {group.rank()}; NCCL {nccl}")
+    seq = epoch("sequential", "sequential k=4")
+    mesh = epoch("sync_mesh", "sync_mesh k=4 (R=1, NCCL)")
+    equal = (same(seq["params"], mesh["params"])
+             and seq["row"]["loss/total"] == mesh["row"]["loss/total"]
+             and rows([seq["row"]]) == rows([mesh["row"]]))
+    print(f"sync_mesh vs sequential at k=4: loss/total "
+          f"{mesh['row']['loss/total']!r} vs {seq['row']['loss/total']!r}, "
+          f"params and history bit-equal {equal}; {mesh['steady_ms']:.3f} "
+          f"vs {seq['steady_ms']:.3f} ms/step")
+    check(equal, "sync_mesh at world size 1 is not the sequential run bit "
+          "for bit")
+    check(seq["steps"] == mesh["steps"], "the two epochs ran other steps")
+
+    run1 = epoch("async_ps", "async_ps k=4")
+    run2 = epoch("async_ps", "async_ps k=4, repeat")
+    check(np.isfinite(run1["row"]["loss/total"]),
+          "non-finite loss/total on the async_ps path")
+    repeat = (same(run1["params"], run2["params"])
+              and rows([run1["row"]]) == rows([run2["row"]]))
+    print(f"async_ps repeat bit-equal {repeat}; {run1['steps']} steps of "
+          f"1-worker batches")
+    check(repeat, "the async_ps epoch is not bit-reproducible")
+
+    root = ROOT / "build" / "chip_smoke_async"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def ckpt_run(n_epochs: int, name: str, resume: bool = False):
+        cfg = cfg_of("async_ps", checkpoint_every=1,
+                     checkpoint_dir=str(root / name), resume=resume)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, n_epochs=n_epochs))
+        e = Experiment(cfg, corpus=exp.corpus, eval_data=exp.eval_data,
+                       graph=exp.graph, plan=exp.plan, device="cuda")
+        gr.reset_launch_counts()
+        res, secs = sync_time(e.run)
+        return res, gr.launch_counts(), secs
+
+    full, _, full_s = ckpt_run(2, "full")
+    ckpt_run(1, "stopped")
+    resumed, res_counts, res_s = ckpt_run(2, "stopped", resume=True)
+    first = root / "stopped" / "ckpt_00001.npz"
+    with np.load(first) as z:
+        keys = [key for key in z.files if not key.startswith("__dtype__")]
+        n_snap = sum(key.startswith("snapshots::") for key in keys)
+        ages, t = z["ages"].tolist(), int(z["t"])
+    n_bytes = first.stat().st_size
+    with np.load(root / "full" / "ckpt_00002.npz") as x, \
+            np.load(root / "stopped" / "ckpt_00002.npz") as y:
+        differ = [key for key in x.files
+                  if not np.array_equal(x[key], y[key])]
+    print(f"async_ps checkpoint: {n_bytes / 1e6:.1f} MB, {len(keys)} arrays "
+          f"({n_snap} of the 4 snapshots), ages {ages}, t {t}; uninterrupted "
+          f"2 epochs {full_s:.2f}s; resume of epoch 1 {res_s:.2f}s, "
+          f"launches {res_counts}; final checkpoint arrays differing: "
+          f"{differ or 'none'}; history equal "
+          f"{rows(resumed.history) == rows(full.history)}")
+    check(n_snap == 4 * 2 * (base.train.n_hidden + 1),
+          "the async checkpoint does not hold the 4 snapshots")
+    check(not differ and rows(resumed.history) == rows(full.history),
+          f"the resumed async run differs: {differ}")
+    check(res_counts == {name: (run1["steps"] if name in path else 0)
+                         for name in res_counts},
+          f"the resumed async run launched {res_counts}")
+    shutil.rmtree(root)
+    return {"nccl": nccl, "sequential": seq, "sync_mesh": mesh,
+            "async_ps": run1, "async_ckpt_bytes": n_bytes}
+
+
+def chaos_phase() -> dict:
+    """The chaos driver's three phases on the card (its config is the
+    reference's own: async_ps k = 3, the stream pipeline re-partitioning
+    every epoch, guard, checkpoints, a fault at every site): every site
+    fires, the guard's skips equal the planned poisoned batches, phase C
+    (resumed past the corrupted LATEST) equals phase A bit for bit, and
+    the fired coordinates of phase A are the plan's (``chaos_plan`` is
+    the reference's, held to it by the CPU tests)."""
+    import shutil
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.resilience.chaos import run_chaos
+
+    root = ROOT / "build" / "chip_smoke_chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    gr.reset_launch_counts()
+    report, secs = sync_time(lambda: run_chaos(7, workdir=str(root),
+                                               device="cuda"))
+    counts = gr.launch_counts()
+    fired = {(f["site"], f["epoch"], f["step"])
+             for f in report["phases"]["uninterrupted"]["fired"]}
+    planned = {(e["site"], e["epoch"], e["step"]) for e in report["plan"]}
+    print(f"chaos (seed 7, {report['device']}): {secs:.2f}s, ok "
+          f"{report['ok']}, all sites fired {report['all_sites_fired']}, "
+          f"skips {report['phases']['uninterrupted']['skipped_total']} of "
+          f"{report['planned_poisoned_batches']} planned, resume "
+          f"bit-identical {report['resume_bit_identical']}, phase A fired "
+          f"the plan's coordinates {fired == planned}; launches {counts} "
+          f"(pairwise 'ref')")
+    check(report["ok"] and report["all_sites_fired"]
+          and report["skip_counts_match"] and report["resume_bit_identical"],
+          f"the chaos run failed: {json.dumps(report)[:2000]}")
+    check(fired == planned, f"phase A fired {sorted(fired)}, planned "
+          f"{sorted(planned)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "ok": report["ok"]}
 
 
 #: K11 against its plain version on the same key tiles: float32 within the
@@ -2566,6 +2786,9 @@ def main() -> int:
     checkpoint_phase(exp)
     guard_phase(exp, dense["steps"])
     online = online_phase(exp)
+    strategies_phase(exp)
+    chaos_phase()
+    guard_overhead_phase(exp)
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
 

@@ -11,7 +11,7 @@ from .config import (BatchConfig, DataConfig, ExecutionConfig,
                      ResilienceConfig, TrainConfig)
 from .experiment import Experiment, ExperimentResult
 from .registry import (AFFINITY, OPTIMIZER, PAIRWISE, PARTITIONER, PIPELINE,
-                       Registry, resolve_pairwise)
+                       STRATEGY, Registry, resolve_pairwise)
 
 __all__ = [
     "ExperimentConfig", "DataConfig", "GraphConfig", "PartitionConfig",
@@ -19,5 +19,5 @@ __all__ = [
     "ExecutionConfig", "ResilienceConfig", "OnlineConfig",
     "Experiment", "ExperimentResult",
     "Registry", "AFFINITY", "PARTITIONER", "PIPELINE", "PAIRWISE",
-    "OPTIMIZER", "resolve_pairwise",
+    "STRATEGY", "OPTIMIZER", "resolve_pairwise",
 ]

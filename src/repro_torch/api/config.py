@@ -304,11 +304,11 @@ class ExecutionConfig:
     ``strategy`` names a STRATEGY registry entry (``"sequential"``,
     ``"sync_mesh"``, ``"async_ps"``); ``None`` (the default) infers it from
     the legacy ``TrainConfig.execution`` shorthand — an *explicit* name
-    always wins.  ``scan_chunk`` steps are compiled into one donated
-    ``lax.scan`` (0 = the whole epoch in one scan — fastest, but stages
-    every batch of the epoch at once; the bounded default keeps memory
-    flat).  ``prefetch`` chunks are staged host→device ahead of compute (0
-    turns prefetching off).  ``checkpoint_every > 0`` saves the full engine
+    always wins.  ``scan_chunk`` steps make one chunk (0 = the whole
+    epoch), the unit in which the fault sites and the guard windows count,
+    as in the reference, which compiles each chunk into one ``lax.scan``;
+    the eager engine only groups them.  ``prefetch`` batches are staged
+    host→device ahead of compute (0 turns prefetching off).  ``checkpoint_every > 0`` saves the full engine
     carry every N epochs into ``checkpoint_dir``; ``resume=True`` restores
     the newest checkpoint exactly (rng and step included).
     ``max_staleness`` is the ``async_ps`` worker lag in server steps.
@@ -354,7 +354,8 @@ class ResilienceConfig:
     ``halt_after_consecutive=K > 0`` a ``NonFiniteHaltError`` is raised
     on host once K steps in a row were skipped (checked at window edges).
     Larger ``guard_window`` amortizes the fetch further but retains that
-    many placed chunks (device batches) for a possible replay.
+    many chunks of batches (the port keeps their pinned host copies and
+    copies them to the device again) for a possible replay.
 
     ``checkpoint_checksums`` writes/verifies a ``.sha256`` sidecar per
     checkpoint; a corrupt LATEST target then falls back to the newest

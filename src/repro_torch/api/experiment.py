@@ -2,7 +2,8 @@
 
 ``Experiment(config, device="cuda").run()`` drives the whole pipeline from
 an ``ExperimentConfig``: corpus → affinity graph → balanced partition →
-meta-batch synthesis → Eq.-3 objective → sequential SGD on the GPU, every
+meta-batch synthesis → Eq.-3 objective → sequential, k-worker synchronous
+(``sync_mesh``) or stale-gradient (``async_ps``) SGD on the GPU, every
 stage resolved by name through :mod:`repro_torch.api.registry`.  The host
 half (``build``) is the reference's logic on the port's copies of the
 numpy/scipy modules; ``run`` trains with :func:`train_dnn_ssl`.
@@ -115,6 +116,10 @@ class Experiment:
                 partitioner=PARTITIONER.get(cfg.partition.method),
                 coarsen_to=cfg.partition.coarsen_to)
         factory = PIPELINE.get(cfg.batch.pipeline)
+        # The async parameter server consumes 1-worker batches round-robin
+        # (k lives in the engine strategy, not the pipeline).
+        pipeline_workers = (1 if self._strategy() == "async_ps"
+                            else cfg.train.n_workers)
         # Extra keys are swallowed by factories that don't need them: the
         # stream pipeline retries a failed replan under the replan
         # supervisor, fires the injector's replan site and records each
@@ -122,7 +127,7 @@ class Experiment:
         self.pipeline = factory(
             self.corpus, self.graph, self.plan,
             batch_size=cfg.batch.batch_size,
-            n_workers=cfg.train.n_workers,
+            n_workers=pipeline_workers,
             with_neighbor=cfg.batch.with_neighbor,
             pad_factor=cfg.batch.pad_factor,
             pad_headroom=cfg.batch.pad_headroom,

@@ -13,7 +13,7 @@ import importlib
 from typing import Any, Callable, Iterable
 
 __all__ = ["Registry", "AFFINITY", "PARTITIONER", "PIPELINE", "PAIRWISE",
-           "OPTIMIZER", "resolve_pairwise"]
+           "STRATEGY", "OPTIMIZER", "resolve_pairwise"]
 
 
 class Registry:
@@ -101,6 +101,19 @@ PAIRWISE.register("fused", "repro_torch.kernels.ops:graph_regularizer_fused")
 PAIRWISE.register("blocksparse",
                   "repro_torch.kernels.ops:graph_regularizer_blocksparse")
 PAIRWISE.register("auto", "repro_torch.kernels.ops:graph_regularizer_auto")
+
+#: ``(engine) -> strategy``: how the eager engine
+#: (:mod:`repro_torch.train.engine`) runs a step:
+#:   * ``"sequential"`` — the k-worker step on one device;
+#:   * ``"sync_mesh"``  — the paper's k-worker synchronous SGD over a
+#:     ``torch.distributed`` group: each rank takes its share of the worker
+#:     axis, gradients are gathered and summed in rank order;
+#:   * ``"async_ps"``   — the §4 stale-gradient parameter-server simulation
+#:     (per-worker snapshots, round-robin pushes).
+STRATEGY = Registry("strategy")
+STRATEGY.register("sequential", "repro_torch.train.engine:SequentialStrategy")
+STRATEGY.register("sync_mesh", "repro_torch.train.engine:SyncMeshStrategy")
+STRATEGY.register("async_ps", "repro_torch.train.engine:AsyncPSStrategy")
 
 #: ``(**hyper) -> repro_torch.optim.Optimizer``
 OPTIMIZER = Registry("optimizer")

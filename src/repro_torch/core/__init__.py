@@ -14,6 +14,9 @@ from .partition import (PartitionResult, edge_cut, partition_graph,
 from .ssl_loss import (SSLHyper, entropy, graph_regularizer,
                        pairwise_cross_entropy_term, ssl_objective,
                        ssl_objective_kl_form)
+from .stats import (batch_label_entropy, connectivity_distribution,
+                    entropy_distribution, random_batches,
+                    within_batch_connectivity)
 
 __all__ = [
     "AffinityGraph", "build_affinity_graph",
@@ -23,4 +26,6 @@ __all__ = [
     "epoch_plan_seed", "NeighborSampler", "concat_batch_indices",
     "SSLHyper", "ssl_objective", "ssl_objective_kl_form",
     "graph_regularizer", "pairwise_cross_entropy_term", "entropy",
+    "within_batch_connectivity", "batch_label_entropy",
+    "connectivity_distribution", "entropy_distribution", "random_batches",
 ]

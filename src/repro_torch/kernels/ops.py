@@ -322,5 +322,5 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "flash_attention_gqa is forward only: its backward (the "
             "reference's _flash_bwd_tiles) is ported with the LM training "
-            "slice (ROADMAP.md §1 item 3)")
+            "slice of the LM stack")
     return flash_attention.flash_attention_gqa(q, k, v, causal=causal)

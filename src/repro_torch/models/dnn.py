@@ -50,9 +50,15 @@ def init_dnn(cfg: DNNConfig, generator: torch.Generator | int = 0, *,
 
 def dnn_forward(params: dict, x: Tensor, *,
                 generator: torch.Generator | None = None,
-                dropout: float = 0.0) -> Tensor:
+                dropout: float = 0.0,
+                workers: tuple[int, int] | None = None) -> Tensor:
     """x: (..., input_dim) -> logits (..., n_classes).  Dropout runs only
-    with a ``generator`` (on ``x``'s device) and ``dropout > 0``."""
+    with a ``generator`` (on ``x``'s device) and ``dropout > 0``.
+
+    ``workers = (first, k)`` says that ``x``'s leading axis holds workers
+    ``first, first + 1, ...`` of a k-worker batch: each mask is drawn for
+    the whole ``(k, ...)`` activation and sliced, so a rank that holds a
+    share of the workers drops what the whole batch's step would."""
     h = x
     n = len(params["layers"])
     for i, layer in enumerate(params["layers"]):
@@ -60,8 +66,12 @@ def dnn_forward(params: dict, x: Tensor, *,
         if i < n - 1:
             h = torch.relu(h)
             if generator is not None and dropout > 0.0:
-                keep = torch.rand(h.shape, generator=generator,
+                shape = (h.shape if workers is None
+                         else (workers[1],) + h.shape[1:])
+                keep = torch.rand(shape, generator=generator,
                                   device=h.device) < 1.0 - dropout
+                if workers is not None:
+                    keep = keep[workers[0]: workers[0] + h.shape[0]]
                 h = torch.where(keep, h / (1.0 - dropout), 0.0)
     return h
 

@@ -14,7 +14,7 @@ Head h reads KV head h // (H / KV).
 
 Sliding windows (ATTN_SWA, ring caches) and cross-attention wait for the
 slice that ports ``chunked_attention`` and its backward with the LM
-training stack (``ROADMAP.md`` §1 item 3); they raise here.
+training stack (the LM training slice); they raise here.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from ...kernels.ref import NEG_INF, scale_queries
 from .common import apply_rope, variance_scaling
 
 _LATER = ("is ported with chunked_attention and its backward in the LM "
-          "training slice (ROADMAP.md §1 item 3)")
+          "training slice of the LM stack")
 
 
 # ------------------------------------------------------------------ params

@@ -19,7 +19,7 @@ Entry points:
 
 Only ATTN layers with dense FFNs are ported.  The other layer kinds, MoE
 FFNs, ``first_layer_dense``, modality front ends and ``forward`` (the
-training/SSL head) wait for later slices (``ROADMAP.md`` §1 item 3) and
+training/SSL head) wait for later slices of the LM stack and
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -48,7 +48,7 @@ _SLICE = {
 def _unported(what: str, when: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes {when} in a later slice of the "
-        f"LM stack (ROADMAP.md §1 item 3)")
+        f"LM stack")
 
 
 def check_supported(cfg: ModelConfig) -> None:

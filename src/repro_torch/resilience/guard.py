@@ -1,13 +1,14 @@
 """Non-finite guard primitives (the reference's ``repro.resilience.guard``).
 
 The engine runs the reference's two-speed guard on an eager loop.  The hot
-path runs the plain step; once per window of ``guard_window`` steps one
-:func:`all_finite` reduction over the window's per-step metrics and the
-state at its end folds into a ``tainted`` flag, and one host fetch reads
-it.  Only a tainted window is replayed from the backup taken at its start
-(params, optimizer state, generator state and step), one step at a time:
-a poisoned step keeps the state it started from, as if the batch had never
-been drawn, and is counted.  The guard state the engine keeps is::
+path runs the plain step; once per window of ``guard_window`` chunks of
+``scan_chunk`` steps one :func:`all_finite` reduction over the window's
+per-step metrics and the state at its end folds into a ``tainted`` flag,
+and one host fetch reads it.  Only a tainted window is replayed from the
+backup of the strategy's carry taken at its start (params, optimizer
+state, generator state and step; ``async_ps``'s snapshots, ages and t),
+one step at a time: a poisoned step keeps the carry it started from, as
+if the batch had never been drawn, and is counted.  The guard state the engine keeps is::
 
     (skipped_total, consecutive, worst_consecutive, tainted)
 

@@ -37,12 +37,15 @@ def _unflatten(tree, leaves: list):
 
 def dnn_ssl_loss(params, batch: dict, cfg: DNNConfig, hyper: SSLHyper, *,
                  generator: torch.Generator | None = None,
-                 dropout: float = 0.0, pairwise=None):
+                 dropout: float = 0.0, pairwise=None,
+                 workers: tuple[int, int] | None = None):
     """Mean Eq.-3 loss over the k stacked concatenated batches.
 
     Padding rows get zero label mask and zero affinity (``W`` masked by the
     outer product of ``valid``); the ``mean`` reduction still divides the
-    graph term by the padded size P, as the reference does.  When the
+    graph term by the padded size P, as the reference does.  ``workers``
+    (see :func:`~repro_torch.models.dnn.dnn_forward`) places the batch's
+    workers in a larger batch for the dropout draw.  When the
     pipeline attached a block layout (all ``tile_*`` keys, worker axis
     leading) it goes to layout-aware pairwise entries, which skip W's
     unoccupied tiles.
@@ -50,7 +53,7 @@ def dnn_ssl_loss(params, batch: dict, cfg: DNNConfig, hyper: SSLHyper, *,
     layout = (tuple(batch[k] for k in _TILE_KEYS)
               if all(batch.get(k) is not None for k in _TILE_KEYS) else None)
     logits = dnn_forward(params, batch["x"], generator=generator,
-                         dropout=dropout)
+                         dropout=dropout, workers=workers)
     valid = batch["valid"].to(torch.float32)
     mask = batch["label_mask"] * valid
     Wm = batch["W"] * valid[..., :, None] * valid[..., None, :]
@@ -62,14 +65,16 @@ def dnn_ssl_loss(params, batch: dict, cfg: DNNConfig, hyper: SSLHyper, *,
 
 def dnn_ssl_grads(params, batch: dict, *, cfg: DNNConfig, hyper: SSLHyper,
                   generator: torch.Generator | None = None,
-                  dropout: float = 0.0, pairwise=None):
+                  dropout: float = 0.0, pairwise=None,
+                  workers: tuple[int, int] | None = None):
     """``(grads, metrics)`` of the Eq.-3 loss at ``params``; ``grads``
     mirrors the params' nest.  The metrics are 0-d device tensors."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = dnn_ssl_loss(
             _unflatten(params, leaves), batch, cfg, hyper,
-            generator=generator, dropout=dropout, pairwise=pairwise)
+            generator=generator, dropout=dropout, pairwise=pairwise,
+            workers=workers)
         grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss/total"] = loss.detach()

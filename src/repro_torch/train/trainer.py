@@ -1,15 +1,16 @@
-"""Sequential SSL training for the paper's experiments (PyTorch port).
+"""Sequential, data-parallel and asynchronous SSL training for the paper's
+experiments (PyTorch port).
 
 Reproduces the paper's §3 protocol: AdaGrad, base lr 1e-3, effective lr
 ``1e-3·k`` reset after 10 epochs, dropout 0.2.  :func:`train_dnn_ssl` keeps
-the reference's signature; it builds the :class:`TrainState` and the Eq.-3
-step and hands the loop to :class:`repro_torch.train.engine.Engine`.
+the reference's signature; it builds the :class:`TrainState`, the Eq.-3
+step and gradient functions, picks an execution strategy (``sequential``,
+``sync_mesh`` or ``async_ps``, STRATEGY registry names) and hands the loop
+to :class:`repro_torch.train.engine.Engine`.
 
 Checkpointing and resume, the non-finite guard, fault injection and the
-capture hooks of the online graph refresh run as in the reference (see
-:mod:`repro_torch.train.engine`).  The ``sync_mesh`` and ``async_ps``
-strategies belong to a later slice of the port and raise
-``NotImplementedError`` naming it instead of being ignored.
+capture hooks of the online graph refresh run under every strategy, as in
+the reference (see :mod:`repro_torch.train.engine`).
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from repro_torch.convert import to_torch
 from repro_torch.core.ssl_loss import SSLHyper
 from repro_torch.device import resolve_device
 from repro_torch.models.dnn import DNNConfig, dnn_forward, init_dnn
-from repro_torch.optim import Optimizer, adagrad, parallel_lr_schedule
-from repro_torch.train.engine import Engine, TrainState
-from repro_torch.train.train_step import dnn_ssl_step
+from repro_torch.optim import (Optimizer, adagrad, constant_lr,
+                               parallel_lr_schedule)
+from repro_torch.train.engine import Engine, TrainState, data_group
+from repro_torch.train.train_step import dnn_ssl_grads, dnn_ssl_step
 
 __all__ = ["TrainResult", "train_dnn_ssl", "evaluate_dnn"]
 
@@ -50,11 +52,6 @@ def evaluate_dnn(params, X: np.ndarray, y: np.ndarray,
         pred = torch.argmax(dnn_forward(params, xb), dim=-1)
         correct += (pred == yb).sum()
     return int(correct.item()) / len(X)
-
-
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({slice_name} slice)")
 
 
 def train_dnn_ssl(
@@ -97,13 +94,22 @@ def train_dnn_ssl(
     GPU and the plain version on the CPU — or is a resolved callable.
     ``params`` (tensors or numpy arrays in the reference layout, e.g. the
     reference's init) replaces the seeded init; it is copied, never updated
-    in place.  ``scan_chunk`` and ``max_staleness`` are accepted so configs
-    carry over: there is no scan to chunk in eager PyTorch, and the
-    staleness bound belongs to ``async_ps``.  ``prefetch > 0`` stages each
-    batch that many steps ahead.  Dropout draws from a ``torch.Generator``
-    seeded from ``seed``; its stream cannot match the reference's threefry
-    keys.  A checkpoint holds the generator's state, so ``resume=True``
-    draws the dropout masks an uninterrupted run would.
+    in place.
+
+    ``strategy`` names a STRATEGY registry entry; when omitted it is
+    ``"sync_mesh"`` if ``mesh`` (a ``torch.distributed`` process group) is
+    given, else ``"sequential"``.  ``"sync_mesh"`` without ``mesh`` reduces
+    over :func:`~repro_torch.train.engine.data_group`: the default process
+    group (``torchrun``) or a world-size-1 group of this process.  The
+    synchronous strategies keep the lr·k rule (``parallel_lr_schedule``);
+    ``"async_ps"`` runs the §4 stale-gradient regime (``max_staleness``
+    server steps of lag) at the constant base lr and refuses dropout.
+    ``scan_chunk`` groups steps into the chunks the fault sites and the
+    guard windows count (there is no scan in eager PyTorch).  ``prefetch >
+    0`` stages each batch that many steps ahead.  Dropout draws from a
+    ``torch.Generator`` seeded from ``seed``; its stream cannot match the
+    reference's threefry keys.  A checkpoint holds the generator's state,
+    so ``resume=True`` draws the dropout masks an uninterrupted run would.
 
     ``resilience`` (a ``ResilienceConfig``) turns on the engine's failure
     defenses — the non-finite guard, checkpoint integrity and retention,
@@ -116,11 +122,15 @@ def train_dnn_ssl(
     """
     device = resolve_device(device)
     strategy = strategy or ("sync_mesh" if mesh is not None else "sequential")
-    if strategy in ("sync_mesh", "async_ps"):
-        raise _later_slice(f"strategy {strategy!r}", "execution strategies")
-    if strategy != "sequential":
-        raise KeyError(f"unknown strategy {strategy!r}; the port has "
-                       "'sequential' (later slices: 'sync_mesh', 'async_ps')")
+    if strategy == "sync_mesh" and mesh is None:
+        mesh = data_group(n_workers, device)
+    if strategy == "async_ps" and dropout > 0.0:
+        # The async server pushes no dropout stream to its workers: refuse
+        # rather than train another model than the caller configured.
+        raise ValueError(
+            "strategy 'async_ps' does not support dropout (the stale-"
+            f"gradient workers draw no masks); got dropout={dropout}. "
+            "Set dropout=0.0 explicitly.")
 
     opt = opt or adagrad()
     if params is None:
@@ -142,12 +152,26 @@ def train_dnn_ssl(
         s.step += 1
         return metrics
 
-    engine = Engine(step_fn, device=device, prefetch=prefetch,
-                    checkpoint_every=checkpoint_every,
+    def grad_fn(p: dict, batch: dict, generator=None, workers=None):
+        # sync_mesh: its workers' share with the dropout stream; async_ps:
+        # at a stale snapshot, without generator, so without dropout.
+        return dnn_ssl_grads(p, batch, cfg=cfg, hyper=hyper,
+                             generator=generator,
+                             dropout=dropout if generator is not None
+                             else 0.0,
+                             pairwise=pairwise, workers=workers)
+
+    engine = Engine(step_fn, device=device, grad_fn=grad_fn, opt=opt,
+                    strategy=strategy, mesh=mesh, n_workers=n_workers,
+                    max_staleness=max_staleness, scan_chunk=scan_chunk,
+                    prefetch=prefetch, checkpoint_every=checkpoint_every,
                     checkpoint_dir=checkpoint_dir, resilience=resilience,
                     injector=injector, capture_fn=capture_fn)
-    schedule = lr_schedule or parallel_lr_schedule(base_lr, n_workers,
-                                                   lr_reset_epochs)
+    # The lr·k rule makes up for averaging k gradients; the async server
+    # applies each pushed gradient alone, so it keeps the base lr.
+    schedule = lr_schedule or (
+        constant_lr(base_lr) if strategy == "async_ps"
+        else parallel_lr_schedule(base_lr, n_workers, lr_reset_epochs))
     if eval_fn is None and eval_data is not None:
         def eval_fn(p):
             return {"eval/acc": evaluate_dnn(p, *eval_data)}

@@ -6,6 +6,7 @@ points run on the GPU unless asked for the CPU, and raise without one.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +44,20 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+#: A roadmap item cited by number ("§1 item 3"), which a re-anchored
+#: roadmap renumbers: messages name the slice in words instead.
+ITEM_NUMBER = re.compile(r"\bitem\s+\d+|§\s*\d+(\.\d+)?\s+item", re.I)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_message_cites_a_roadmap_item_number(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [node.value for node in ast.walk(tree)
+           if isinstance(node, ast.Constant) and isinstance(node.value, str)
+           and ITEM_NUMBER.search(node.value)]
+    assert not bad, f"{path.name} cites a roadmap item by number: {bad}"
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = sorted(".".join(("repro_torch",) + tuple(
         part for part in p.relative_to(PORT).with_suffix("").parts
@@ -52,7 +67,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "    __import__(m)\n"
             "import repro_torch.api.registry as r\n"
             "for reg in (r.AFFINITY, r.PARTITIONER, r.PIPELINE, r.PAIRWISE,"
-            " r.OPTIMIZER):\n"
+            " r.STRATEGY, r.OPTIMIZER):\n"
             "    [reg.get(n) for n in reg.names()]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -85,6 +100,23 @@ def test_entry_points_raise_without_cuda(no_cuda):
         resolve_device("meta")
     assert resolve_device("cpu").type == "cpu"
     assert Experiment(ExperimentConfig(), device="cpu").device.type == "cpu"
+
+
+def test_strategy_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.core.ssl_loss import SSLHyper
+    from repro_torch.examples import parallel_ssl
+    from repro_torch.models.dnn import DNNConfig
+    from repro_torch.resilience.chaos import run_chaos
+    from repro_torch.train import train_dnn_ssl_async
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_dnn_ssl_async(lambda: iter(()), cfg=DNNConfig(),
+                            hyper=SSLHyper())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_chaos(7)
+    for strategy in ("sync_mesh", "async_ps"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            parallel_ssl.main(["--strategy", strategy, "--epochs", "0"])
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -145,3 +145,35 @@ def test_faults_copy_is_the_reference_module():
         kw = dict(n_epochs=3, steps_per_epoch=7, per_site=2)
         assert tfaults.FaultPlan.from_seed(seed, **kw).to_json() == \
             jfaults.FaultPlan.from_seed(seed, **kw).to_json()
+
+
+def test_stats_copy_is_the_reference_module_and_bit_identical(built):
+    """``repro_torch/core/stats.py`` is the reference's module with
+    ``repro.`` imports rewritten (it has none); the Eq.-5 connectivity and
+    the batch label entropy, their distributions and ``random_batches``
+    equal the reference's bit for bit on the same graph and batches."""
+    from pathlib import Path
+
+    import repro.core.stats as jstats
+    import repro_torch.core.stats as tstats
+    want = Path(jstats.__file__).read_text().replace("repro.",
+                                                     "repro_torch.")
+    assert Path(tstats.__file__).read_text() == want
+    assert tcore.within_batch_connectivity is tstats.within_batch_connectivity
+    (jc, jg, jp, _), (tc, tg, tp, _) = built["make_meta_batch_pipeline"]
+    rand = [pkg.random_batches(len(tc.y), 128, rng=np.random.default_rng(3))
+            for pkg in (jstats, tstats)]
+    for a, b in zip(*rand):
+        np.testing.assert_array_equal(a, b)
+    for batches in (list(tp.meta_batches), rand[1]):
+        np.testing.assert_array_equal(
+            tstats.connectivity_distribution(tg, batches),
+            jstats.connectivity_distribution(jg, batches))
+        np.testing.assert_array_equal(
+            tstats.entropy_distribution(tc.y, batches, tc.n_classes),
+            jstats.entropy_distribution(jc.y, batches, jc.n_classes))
+    b = tp.meta_batches[0]
+    assert tstats.within_batch_connectivity(tg, b) == \
+        jstats.within_batch_connectivity(jg, b)
+    assert tstats.batch_label_entropy(tc.y, b, 8) == \
+        jstats.batch_label_entropy(jc.y, b, 8)

@@ -399,9 +399,11 @@ def test_guard_counters_survive_resume(small_setup, tmp_path):
 
 # ------------------------------------------------------ supervised staging
 def test_staging_crash_is_retried_under_the_supervisor(small_setup):
+    """A prefetch event's step is a chunk: with one-step chunks, chunk 1
+    is the put of step 1's batch."""
     inj = FaultInjector(FaultPlan((FaultEvent("prefetch", epoch=0, step=1,
                                               mode="crash"),)))
-    res = run(small_setup, n_epochs=1, injector=inj,
+    res = run(small_setup, n_epochs=1, injector=inj, scan_chunk=1,
               resilience=ResilienceConfig(max_retries=2, backoff_base=0.0,
                                           backoff_max=0.0))
     assert [f["site"] for f in inj.fired()] == ["prefetch"]
