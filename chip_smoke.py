@@ -146,7 +146,33 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    counts at 0 just before the prefill (K11 exactly 28 times, nothing
    else) and again before the decode (no kernel at all), logits finite,
    prefill ms, decode ms/token, tok/s and peak device memory;
-13. the ``{"kernels": [...]}`` line, then the result line.
+13. the LM training path with the paper's sequence-level objective
+   (``lm_kernel_phase`` to ``lm_train_phase``): K1 and K2 at the LM
+   head's shapes, (k, B, C) = (1, 16, 151936), (2, 16, 151936) and (1,
+   17, 32000) with the example's γ = 0.05, κ = 1e-4, held against their
+   plain versions, repeated bit for bit and timed beside them with their
+   share of the bound; ``qwen2-1.5b`` at full width, 2 layers, f32: one
+   ``lm_loss`` forward and backward on the card against the CPU (the
+   example's first batch, 8 sequences of 64 tokens, W from the host
+   graph; metrics within rtol 1e-4, each gradient leaf within 1e-3 of its
+   largest |value|); then the full model (28 layers, bf16, weights from a
+   seed on the card) through ``lm_train_step`` with AdaGrad on the
+   example's pipeline (512 sequences, bag-of-tokens k-NN graph, k = 10,
+   meta-batches of 8 with a sampled neighbour): 16 sequences of 4,096
+   tokens a step, 6 steps with the counts at 0 just before and read just
+   after (K1 and K2 exactly once a step, nothing else), every loss
+   finite, ms/step over steps 2-6, tokens/s and peak device memory; 2
+   steps of ``lm_supervised_step`` (no kernel); one more step timed
+   apart (forward and backward, update);
+14. sliding windows (``swa_parity_phase``, ``swa_serve_phase``): a
+   2-layer full-width f32 cut with every layer ATTN_SWA at window 256,
+   prompt 640, on the card against the CPU (prefill logits, ring caches,
+   4 greedy decode steps); then ``config_for_shape(qwen2-1.5b,
+   long_500k)`` at full depth in bf16 (window 8,192), batch 1, prompt
+   10,240, 16 greedy decode steps through ``serve_lm``'s functions, no
+   kernel launched, prefill ms, ms/token and peak memory;
+15. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
+   head records under ``lm_train``), then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -2200,6 +2226,427 @@ def serve_phase() -> dict:
     return rec
 
 
+#: The LM training phases (``lm_kernel_phase`` to ``swa_serve_phase``):
+#: γ and κ of the example, the card-vs-CPU tolerances of the 2-layer
+#: full-width cuts (losses and metrics rtol; each gradient leaf within
+#: LM_GRAD_TOL of its largest |value|), the LM-head shapes (k, B, C) of K1
+#: and K2, and the steps of the full model.
+LM_GAMMA, LM_KAPPA = 0.05, 1e-4
+LM_RTOL = 1e-4
+LM_GRAD_TOL = 1e-3
+LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000))
+LM_STEPS, LM_SUPERVISED_STEPS = 6, 2
+#: The card's name and power limit (``nvidia-smi``), set by ``main`` and
+#: printed beside the LM phases' numbers.
+CARD = "card not queried"
+#: K1 at the LM head sums C ≈ 1.5e5 float32 products a pair of rows in one
+#: fixed-order chain each (the plain version's cuBLAS product sums in
+#: blocks), and L is a difference of two positive sums (γ·Σ W·Hc and
+#: Σ (κ + γ·deg)·H) far larger than L itself.  So both are held to the
+#: float64 value within 4·√C·u·M, u = 2^-24 and M = γ·Σ W·Hc + Σ (κ +
+#: γ·deg)·H, the sum of the magnitudes: the round-off of a C-term float32
+#: chain grows as √C·u of the terms' magnitude (4 standard deviations).
+K1_LM_RULE = ("|Δ vs float64| ≤ 4·√C·2^-24·M, M = γ·Σ W·Hc + Σ (κ + "
+              "γ·deg)·H")
+
+
+def compare_conditioned(name: str, got, want64, scale64, C: int) -> dict:
+    """Hold ``got`` to the float64 value ``want64`` within 4·√C·2^-24 of
+    ``scale64`` (:data:`K1_LM_RULE`)."""
+    err = float((got.double() - want64).abs().max())
+    tol = 4.0 * math.sqrt(C) * 2.0 ** -24 * float(scale64.abs().max())
+    rec = {"max_abs_err": err, "tol": tol, "err_over_tol": err / tol,
+           "tol_rule": K1_LM_RULE}
+    print(f"{name}: |Δ vs float64| {err:.3e}, tol {tol:.3e} "
+          f"({K1_LM_RULE}), err/tol {err / tol:.3f}")
+    check(err <= tol, f"{name} is farther than {K1_LM_RULE} from float64 "
+          f"(err/tol {err / tol:.3f})")
+    return rec
+
+
+def lm_inputs(k: int, B: int, C: int, seed: int):
+    """logP of (k, B, C) random logits, a symmetric dense W (an affinity
+    block of B sequences, half its entries non-zero) and g = 1/B."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(
+        (2.0 * rng.standard_normal((k, B, C))).astype(np.float32)).cuda()
+    W = rng.random((k, B, B)) * (rng.random((k, B, B)) < 0.5)
+    W = torch.from_numpy((W + W.transpose(0, 2, 1)).astype(np.float32))
+    g = torch.full((k,), 1.0 / B, dtype=torch.float32, device="cuda")
+    return torch.log_softmax(logits, dim=-1).contiguous(), W.cuda(), g
+
+
+def lm_kernel_phase() -> dict:
+    """K1 and K2 at the LM head's shapes: held to their plain versions,
+    repeated bit for bit, timed from CUDA graphs in turns with them; the
+    records at the path's (1, 16, 151936)."""
+    import torch
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import ref
+
+    gc, kap = LM_GAMMA, LM_KAPPA
+    records = {}
+    for k, B, C in LM_HEAD_SHAPES:
+        logp, W, g = lm_inputs(k, B, C, seed=B + k)
+        pk = torch.exp(logp)
+        runs = {
+            "graph_reg_fwd": (
+                lambda: gr.reg_forward(logp, W, gc, kap, gc, p=pk),
+                lambda: ref.reg_forward_ref(logp, W, gc, kap, gc)),
+            "graph_reg_bwd_dlogp": (
+                lambda: gr.reg_bwd_dlogp(logp, W, g, gc, kap, gc, p=pk),
+                lambda: ref.reg_bwd_dlogp_ref(logp, W, g, gc, kap, gc)),
+        }
+        s_flops = 2.0 * B * B * C
+        # Each input read once (logP, P = exp(logP), W, g), each output
+        # written once: the wrappers are given P, as the autograd
+        # Function gives it.
+        bounds = {
+            "graph_reg_fwd": bound_ms(4.0 * k * (2 * B * C + B * B + 1),
+                                      k * (s_flops + 2.0 * B * B
+                                           + 4.0 * B * C)),
+            "graph_reg_bwd_dlogp": bound_ms(
+                4.0 * k * (3 * B * C + B * B + 1),
+                k * (2 * s_flops + B * B + 8.0 * B * C)),
+        }
+        lp64, W64 = logp.double(), W.double()
+        for name, (kern, plain) in runs.items():
+            a, b, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            label = f"{name} [LM head k={k} B={B} C={C}]"
+            check(torch.equal(a, b), f"{label}: two launches on the same "
+                  "inputs differ")
+            if name == "graph_reg_fwd":
+                want64 = ref.reg_forward_ref(lp64, W64, gc, kap, gc)
+                scale64 = ref.reg_forward_ref(lp64, W64, gc, -kap, -gc)
+                err = compare_conditioned(label, a, want64, scale64, C)
+                compare_conditioned(f"{label}, plain version", want, want64,
+                                    scale64, C)
+            else:
+                err = compare(label, a, want)
+            rec = dict(err, **timed(kern, plain),
+                       bound=bounds[name], shape=(k, B, C),
+                       **gr.launch_plan(name, k, B, C))
+            rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+            print(f"{label} [{CARD}]: {rec['ms']:.5f} ms (plain version "
+                  f"{rec['plain_ms']:.5f} ms, no library call), bound "
+                  f"{rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
+                  f"{100 * rec['share_of_bound']:.1f} % of it; "
+                  f"{rec['rows_per_block']} rows a block, "
+                  f"{rec['dynamic_smem_bytes']} bytes of dynamic shared "
+                  f"memory")
+            if (k, B, C) == LM_HEAD_SHAPES[0]:
+                records[name] = rec
+    return records
+
+
+def lm_parity_phase() -> None:
+    """qwen2-1.5b at full width, 2 layers, float32: one ``lm_loss`` forward
+    and backward with the SSL term on the card (K1 and K2 once each)
+    against the same call on the CPU (plain versions), from one set of
+    params and the example's first batch: 8 sequences of 64 tokens, one
+    SSL group of 8, W from the host graph."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.core import SSLHyper
+    from repro_torch.core.ssl_loss import tree_leaves
+    from repro_torch.examples import train_lm_ssl
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_step import lm_grads
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2,
+                              dtype="float32")
+    data = train_lm_ssl.build_data(cfg.vocab_size, 64, 4)
+    batch = next(train_lm_ssl.batches(data, 4, 1, "cpu"))
+    hyper = SSLHyper(gamma=LM_GAMMA, kappa=LM_KAPPA, weight_decay=0.0)
+    params = {"cuda": tf.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7))}
+    params["cpu"] = to_torch(params["cuda"], "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gr.reset_launch_counts()
+        out[dev] = lm_grads(params[dev],
+                            {k: v.to(dev) for k, v in batch.items()},
+                            cfg=cfg, hyper=hyper, pairwise="auto")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = gr.launch_counts()
+            check(counts == {n: int(n in ("graph_reg_fwd",
+                                          "graph_reg_bwd_dlogp"))
+                             for n in counts},
+                  f"the card's lm_loss launched {counts}")
+    (g_gpu, m_gpu), (g_cpu, m_cpu) = out["cuda"], out["cpu"]
+    check(set(m_gpu) == set(m_cpu) and "ssl/graph" in m_cpu,
+          f"lm_loss metrics {sorted(m_gpu)} / {sorted(m_cpu)}")
+    worst = {}
+    for key, want in m_cpu.items():
+        got, want = float(m_gpu[key]), float(want)
+        tol = LM_RTOL * max(1.0, abs(want))
+        worst[key] = (got, want)
+        check(abs(got - want) <= tol, f"lm parity: {key} {got!r} on the "
+              f"card vs {want!r} on the CPU (tol {tol:g})")
+    leaf_err = 0.0
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max()) / max(scale, 1e-30)
+        leaf_err = max(leaf_err, err)
+        check(err <= LM_GRAD_TOL, f"lm parity: a gradient leaf of shape "
+              f"{tuple(b.shape)} differs by {err:.3e} of its largest |value|")
+    print(f"lm parity (qwen2-1.5b full width, {cfg.n_layers} layers, f32, 8 "
+          f"sequences of 64 tokens, 1 SSL group, card vs CPU): " + ", ".join(
+              f"{k} {g:.7g} / {w:.7g}" for k, (g, w) in worst.items())
+          + f" (rtol {LM_RTOL:g}) [{CARD}]; worst gradient leaf "
+          f"{leaf_err:.3e} of its "
+          f"largest |value| (≤ {LM_GRAD_TOL:g}); launches {counts}")
+
+
+def lm_train_phase() -> dict:
+    """qwen2-1.5b at full width and depth (bf16, weights from a seed on the
+    card): ``lm_train_step`` with AdaGrad on the example's pipeline, 16
+    sequences of 4,096 tokens a step, counts at 0 just before the steps
+    and read just after (K1 and K2 once a step, nothing else); then
+    ``lm_supervised_step``, which launches no kernel."""
+    import math
+    import torch
+    from repro_torch.bench import LM_TRAIN, lm_train_setup
+    from repro_torch.examples import train_lm_ssl
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.train.train_step import (lm_grads, lm_supervised_step,
+                                              lm_train_step)
+
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    run = lm_train_setup(cuda)
+    setup_s = time.perf_counter() - t0
+    cfg, params, opt, state = run["cfg"], run["params"], run["opt"], \
+        run["state"]
+    n_steps = LM_STEPS + LM_SUPERVISED_STEPS + 1
+    batches = train_lm_ssl.batches(run["data"], LM_TRAIN["batch"], n_steps,
+                                   cuda)
+    B = 2 * LM_TRAIN["batch"]
+    tokens = B * LM_TRAIN["seq_len"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    step_s, host_s, rows = [], [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        host_s.append(time.perf_counter() - t0)
+        check(tuple(batch["tokens"].shape) == (B, LM_TRAIN["seq_len"]),
+              f"an LM batch of {tuple(batch['tokens'].shape)}")
+        (_, _, metrics), s = sync_time(lambda: lm_train_step(
+            params, state, batch, cfg=cfg, hyper=run["hyper"], opt=opt,
+            lr=train_lm_ssl.LR, pairwise="auto"))
+        step_s.append(s)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    counts = gr.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == {n: LM_STEPS * (n in ("graph_reg_fwd",
+                                          "graph_reg_bwd_dlogp"))
+                     for n in counts},
+          f"{LM_STEPS} LM steps launched {counts}, not K1 and K2 once a "
+          "step and nothing else")
+    for i, row in enumerate(rows):
+        for key in ("loss/ce", "ssl/graph", "loss/total"):
+            check(math.isfinite(row[key]), f"LM step {i}: {key} {row[key]}")
+    gr.reset_launch_counts()
+    sup = []
+    for _ in range(LM_SUPERVISED_STEPS):
+        batch = next(batches)
+        (_, _, metrics), s = sync_time(lambda: lm_supervised_step(
+            params, state, batch, cfg=cfg, opt=opt, lr=train_lm_ssl.LR))
+        sup.append((s, {k: float(v) for k, v in metrics.items()}))
+    scounts = gr.launch_counts()
+    check(not any(scounts.values()),
+          f"lm_supervised_step launched {scounts}")
+    for s, row in sup:
+        check(set(row) == {"loss/ce", "loss/moe_aux", "loss/total"}
+              and all(map(math.isfinite, row.values())),
+              f"a supervised LM step's metrics {row}")
+    # Where a step's time goes: forward, backward and update apart,
+    # between synchronisations (one more step, after the counts).
+    batch = next(batches)
+    (grads, _), fb_s = sync_time(lambda: lm_grads(
+        params, batch, cfg=cfg, hyper=run["hyper"], pairwise="auto"))
+    _, upd_s = sync_time(lambda: opt.update(grads, state, params,
+                                            train_lm_ssl.LR))
+    del grads
+    steady = step_s[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    rec = {"counts": counts, "ms_per_step": ms,
+           "step_ms": [1e3 * s for s in step_s],
+           "tokens_per_s": tokens / (ms / 1e3),
+           "peak_gb": peak / 1e9, "setup_s": setup_s,
+           "host_batch_ms": [1e3 * s for s in host_s],
+           "grads_ms": 1e3 * fb_s, "update_ms": 1e3 * upd_s,
+           "supervised_ms": [1e3 * s for s, _ in sup], "rows": rows}
+    print(f"LM training [{CARD}] (qwen2-1.5b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, V {cfg.vocab_size}, bf16, AdaGrad lr "
+          f"{train_lm_ssl.LR}, γ {LM_GAMMA}, κ {LM_KAPPA}, pairwise auto; "
+          f"{B} sequences × {LM_TRAIN['seq_len']} tokens a step, 1 SSL "
+          f"group; host pipeline {setup_s:.1f}s): steps "
+          + ", ".join(f"{1e3 * s:.1f}" for s in step_s)
+          + f" ms; {ms:.3f} ms/step over steps 2-{LM_STEPS} "
+          f"(synchronised host clock), {rec['tokens_per_s']:.1f} tokens/s, "
+          f"peak device memory {rec['peak_gb']:.3f} GB; host batch "
+          f"assembly and copy " + ", ".join(
+              f"{1e3 * s:.1f}" for s in host_s) + " ms; launches "
+          f"{counts}; one more step apart: lm_loss forward+backward "
+          f"{rec['grads_ms']:.1f} ms, AdaGrad update {rec['update_ms']:.1f} "
+          "ms")
+    for i, row in enumerate(rows):
+        print(f"  LM step {i}: " + ", ".join(
+            f"{k} {row[k]:.6g}" for k in ("loss/ce", "ssl/graph",
+                                          "ssl/supervised", "loss/total")))
+    print(f"LM supervised steps: " + ", ".join(
+        f"{s * 1e3:.1f} ms loss/ce {row['loss/ce']:.6g}" for s, row in sup)
+        + f"; launches {scounts}")
+    del params, state, run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def swa_parity_phase() -> None:
+    """qwen2-1.5b at full width, 2 layers, float32, every layer ATTN_SWA
+    with a window of 256: a 640-token prefill (logits and ring caches) and
+    4 greedy decode steps on the card against the CPU, from one set of
+    params; no K11 launch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ATTN_SWA
+    from repro_torch.serve import serve_lm
+    from repro_torch.serve.decode import sample_tokens
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2,
+                              dtype="float32", block_pattern=(ATTN_SWA,),
+                              sliding_window=256)
+    B, T, steps = 2, 640, 4
+    cuda = torch.device("cuda")
+    params = {"cuda": serve_lm.load_model(cfg, seed=9, device=cuda)}
+    params["cpu"] = to_torch(params["cuda"], "cpu")
+    prompts = serve_lm.make_prompts(cfg, B, T, seed=9, device=cuda).cpu()
+    logits, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        gr.reset_launch_counts()
+        out, caches[dev] = serve_lm.prefill(params[dev], cfg,
+                                            prompts.to(dev), steps)
+        logits[dev] = out["logits"].cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = gr.launch_counts()
+            check(not any(counts.values()),
+                  f"the windowed prefill launched {counts}")
+
+    def close(what, got, want):
+        got, want = got.cpu().float(), want.float()
+        tol = SERVE_RTOL * float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= tol, f"swa parity: {what} differs by {err} > {tol}")
+        return err, tol
+
+    worst = {"prefill logits": close("prefill logits", logits["cuda"],
+                                     logits["cpu"])}
+    ring = caches["cuda"]["layers"][0]
+    check(ring.k.shape[2] == cfg.sliding_window,
+          f"a ring cache of {ring.k.shape[2]} slots")
+    for f in ("k", "v"):
+        worst[f"ring cache {f}"] = close(
+            f"ring cache {f}", getattr(ring, f),
+            getattr(caches["cpu"]["layers"][0], f))
+    for f in ("positions", "valid"):
+        check(torch.equal(getattr(ring, f).cpu(),
+                          getattr(caches["cpu"]["layers"][0], f)),
+              f"swa parity: ring cache {f} differs")
+    cur, flips = prompts[:, -1:], 0
+    for s in range(steps):
+        pos = torch.full((B,), T + s - 1, dtype=torch.int32)
+        lg = {dev: tf.decode_step(params[dev], cfg, caches[dev], cur.to(dev),
+                                  pos.to(dev))[0].cpu() for dev in logits}
+        err, tol = close(f"decode step {s} logits", lg["cuda"], lg["cpu"])
+        worst[f"decode step {s}"] = (err, tol)
+        tc, tg = sample_tokens(lg["cpu"]), sample_tokens(lg["cuda"])
+        top2 = torch.topk(lg["cpu"][:, -1], 2, dim=-1).values
+        differ = (tc != tg)[:, 0]
+        check(bool(((top2[:, 0] - top2[:, 1])[differ] <= tol).all()),
+              f"swa decode step {s}: greedy tokens differ away from a tie")
+        flips += int(differ.sum())
+        cur = tc
+    print(f"swa parity [{CARD}] (qwen2-1.5b full width, {cfg.n_layers} "
+          f"ATTN_SWA layers, window {cfg.sliding_window}, f32, B={B}, "
+          f"T={T}, {steps} greedy steps, card vs CPU, |Δ| ≤ {SERVE_RTOL:g}·max|want|): "
+          + ", ".join(f"{k} {e:.3e} (tol {t:.3e})"
+                      for k, (e, t) in worst.items())
+          + f"; {flips} greedy tokens differ (near ties only)")
+
+
+def swa_serve_phase() -> dict:
+    """``config_for_shape(qwen2-1.5b, long_500k)`` at full depth, bf16
+    (every layer ATTN_SWA, window 8,192): batch 1, a 10,240-token prompt
+    and 16 greedy decode steps through ``serve_lm``'s functions; no kernel
+    of the repo (the windowed prefill runs ``chunked_attention``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES, config_for_shape
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.serve import serve_lm
+
+    cfg = config_for_shape(get_config("qwen2-1.5b"),
+                           INPUT_SHAPES["long_500k"])
+    B, T, steps = 1, 10240, 16
+    cuda = torch.device("cuda")
+    params = serve_lm.load_model(cfg, seed=0, device=cuda)
+    prompts = serve_lm.make_prompts(cfg, B, T, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    (out, cache), prefill_s = sync_time(
+        lambda: serve_lm.prefill(params, cfg, prompts, steps))
+    logits = out["logits"]
+    check(tuple(logits.shape) == (B, T, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"windowed prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    del out, logits
+    ring = cache["layers"][0]
+    check(ring.k.shape[2] == cfg.sliding_window
+          and int(ring.positions.max()) == T - 1
+          and int(ring.positions.min()) == T - cfg.sliding_window,
+          "the ring cache does not hold the last window of positions")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
+        params, cfg, cache, prompts, steps, temperature=0.0))
+    counts = gr.launch_counts()
+    check(not any(counts.values()), f"the windowed serve launched {counts}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a decoded token out of the vocabulary")
+    rec = {"prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_token": 1e3 * decode_s / steps,
+           "peak_prefill_gb": peak_prefill / 1e9,
+           "peak_decode_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "counts": counts}
+    print(f"serve {cfg.name} at long_500k's config [{CARD}] (ATTN_SWA, "
+          f"window {cfg.sliding_window}, {cfg.n_layers} layers, bf16): "
+          f"batch {B}, prompt {T}: prefill {rec['prefill_ms']:.3f} ms (first call), "
+          f"decode {steps} greedy steps {rec['decode_ms_per_token']:.3f} "
+          f"ms/token; peak device memory {rec['peak_prefill_gb']:.3f} GB "
+          f"over the prefill, {rec['peak_decode_gb']:.3f} GB over the "
+          f"decode; launches {counts}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def print_step(label: str, step: dict) -> None:
     print(f"{label} step breakdown: step between CUDA events, back to back "
           f"(includes host launch gaps) {step['step_ms_events']:.3f} ms, "
@@ -2693,7 +3140,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     import numpy
     import scipy
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -2802,6 +3251,17 @@ def main() -> int:
           f" ms of the {serve['prefill_ms']:.3f} ms prefill (kernel phase "
           f"time × launches)")
 
+    lm_records = lm_kernel_phase()
+    lm_parity_phase()
+    lm = lm_train_phase()
+    for name, rec in lm_records.items():
+        print(f"{name} in an LM step [{CARD}]: {rec['ms']:.5f} ms × "
+              f"{lm['counts'][name] // LM_STEPS} launch = "
+              f"{100 * rec['ms'] / lm['ms_per_step']:.4f} % of the "
+              f"{lm['ms_per_step']:.3f} ms step (kernel phase time)")
+    swa_parity_phase()
+    swa_serve_phase()
+
     # K8's and K9's build records: the kernels the path's shapes launch.
     builds = {**redesign_build, "knn_topk": {
         **pw_build["knn_topk"],
@@ -2877,6 +3337,16 @@ def main() -> int:
                                 **against[name]}} if against else {})}
                if name in builds else {}),
             **({"online_refresh": online} if name == "knn_topk" else {}),
+            **({"lm_train": {
+                "path": "lm_train", "shape_k_B_C": lm_records[name]["shape"],
+                "launches": lm["counts"][name],
+                **{key: lm_records[name][key] for key in (
+                    "max_abs_err", "tol", "err_over_tol", "ms", "plain_ms",
+                    "share_of_bound", "rows_per_block",
+                    "dynamic_smem_bytes", "rounds")},
+                "bound_ms": lm_records[name]["bound"][0],
+                "bound_by": lm_records[name]["bound"][1],
+                "library_ms": None}} if name in lm_records else {}),
             **{key: rec[key] for key in ("note", "global_route", "P×P",
                                          "floor_ms", "by_mask_ms")
                if key in rec}})

@@ -5,6 +5,7 @@ a profiled serve.
     PYTHONPATH=src python -m repro_torch.bench [--steps 5] [--out DIR]
                                                [--layout-bt 128]
     PYTHONPATH=src python -m repro_torch.bench --serve [--steps 4]
+    PYTHONPATH=src python -m repro_torch.bench --lm [--steps 2]
 
 builds the paper's configuration (4×2000 DNN, 351→39, batch 1024, 20k
 nodes), stages one real batch and runs ``--steps`` training steps under
@@ -19,9 +20,15 @@ serve path instead (:func:`profile_serve`: ``qwen2-1.5b`` at full width,
 batch 4, prompt 2048): one prefill and ``--steps`` greedy decode steps,
 device time by group (matmuls, K11, everything else), the device's busy
 share of each window, and the peak device memory of each; the kernel
-table goes to ``DIR/serve_profile.txt``.  Needs a GPU; ``chip_smoke.py``
-imports :func:`paper_config`, :func:`time_ms` and :func:`graph_ms` from
-here.
+table goes to ``DIR/serve_profile.txt``.  ``--lm`` profiles ``--steps``
+steps of the LM training path after a warm-up one
+(:func:`profile_lm_train`: ``qwen2-1.5b`` at full width and depth, 16
+sequences of 4,096 tokens a step, the sequence-level SSL term on K1/K2):
+device time by group (matmuls, the regularizer's kernels, everything
+else), the device's busy share and the peak device memory; the kernel
+table goes to ``DIR/lm_train_profile.txt``.  Needs a GPU;
+``chip_smoke.py`` imports :func:`paper_config`, :func:`lm_train_setup`,
+:func:`time_ms` and :func:`graph_ms` from here.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["paper_config", "time_ms", "graph_ms", "profile_step",
-           "profile_serve"]
+__all__ = ["paper_config", "lm_train_setup", "time_ms", "graph_ms",
+           "profile_step", "profile_serve", "profile_lm_train"]
 
 #: Names of this package's kernels in a profiler trace: K1–K3 and the
 #: block-sparse K4–K7, with the second pass of K1 and K4 and the class
@@ -60,6 +67,35 @@ def paper_config(n_epochs: int = 1, layout_bt: int | None = None,
         train=TrainConfig(hidden_dim=2000, n_hidden=4, dropout=0.2,
                           n_epochs=n_epochs),
         batch=BatchConfig(batch_size=1024, layout_bt=layout_bt))
+
+
+#: The LM training configuration: ``train_4k``'s sequence length with its
+#: global batch of 256 cut to one card's 16 sequences (meta-batches of 8,
+#: each concatenated with a sampled neighbour), one SSL group a step.
+LM_TRAIN = {"arch": "qwen2-1.5b", "seq_len": 4096, "batch": 8}
+
+
+def lm_train_setup(device, *, seed: int = 0) -> dict:
+    """What an LM training run of :data:`LM_TRAIN` starts from: the config,
+    the example's host pipeline (``examples.train_lm_ssl.build_data``:
+    512 sequences, bag-of-tokens k-NN graph, meta-batch plan), params
+    drawn on ``device`` from ``seed``, AdaGrad and its state, and the
+    example's SSL hyper-parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SSLHyper
+    from repro_torch.examples import train_lm_ssl
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adagrad
+
+    cfg = get_config(LM_TRAIN["arch"])
+    data = train_lm_ssl.build_data(cfg.vocab_size, LM_TRAIN["seq_len"],
+                                   LM_TRAIN["batch"])
+    params = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed))
+    opt = adagrad()
+    return {"cfg": cfg, "data": data, "params": params, "opt": opt,
+            "state": opt.init(params),
+            "hyper": SSLHyper(gamma=0.05, kappa=1e-4, weight_decay=0.0)}
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -282,6 +318,57 @@ def profile_serve(arch: str = "qwen2-1.5b", batch: int = 4,
     return result
 
 
+def profile_lm_train(steps: int = 2, out: Path | None = None) -> dict:
+    """Profile ``steps`` steps of ``lm_train_step`` on :data:`LM_TRAIN`
+    after one warm-up step; each step takes its batch from the example's
+    pipeline (host assembly and the copy to the card included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import resolve_device
+    from repro_torch.examples import train_lm_ssl
+    from repro_torch.train.train_step import lm_train_step
+
+    dev = resolve_device("cuda")
+    run = lm_train_setup(dev)
+    batches = train_lm_ssl.batches(run["data"], LM_TRAIN["batch"],
+                                   steps + 1, dev)
+
+    def step(batch):
+        lm_train_step(run["params"], run["state"], batch, cfg=run["cfg"],
+                      hyper=run["hyper"], opt=run["opt"],
+                      lr=train_lm_ssl.LR, pairwise="auto")
+
+    step(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups, rows = _device_rows(prof, steps, "graph_reg_kernels")
+    busy = sum(groups.values())
+    result = {"device": torch.cuda.get_device_name(0), **LM_TRAIN,
+              "sequences_per_step": 2 * LM_TRAIN["batch"],
+              "profiled_wall_ms_per_step": wall_ms / steps,
+              "device_ms_per_step": groups,
+              "device_busy_share": busy / (wall_ms / steps),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "lm_train_profile.txt", "w") as fh:
+            fh.write(json.dumps(result) + "\n")
+            for ms, calls, name in rows:
+                fh.write(f"{ms:10.4f} ms/step {calls:8.1f} calls/step  "
+                         f"{name}\n")
+    print("top kernels (device ms per step, calls per step):")
+    for ms, calls, name in rows[:15]:
+        print(f"  {ms:9.4f}  {calls:7.1f}  {name[:110]}")
+    return result
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -289,9 +376,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--layout-bt", type=int, default=None)
     ap.add_argument("--serve", action="store_true",
                     help="profile the LM serve path instead")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile the LM training path instead")
     args = ap.parse_args(argv)
     if args.serve:
         print(json.dumps(profile_serve(steps=args.steps, out=args.out)))
+        return
+    if args.lm:
+        print(json.dumps(profile_lm_train(steps=args.steps, out=args.out)))
         return
     from repro_torch.api import Experiment
     exp = Experiment(paper_config(layout_bt=args.layout_bt),

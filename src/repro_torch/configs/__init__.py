@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port's copy of ``repro/configs`` (the ten data files and this
-registry); ``shapes.py`` comes with the launch slice.
+The port's copy of ``repro/configs``: the ten data files, this registry
+and ``shapes.py`` (the assigned input shapes and ``config_for_shape``).
 
 Perf experiments can override any ModelConfig field without code edits via
 ``REPRO_CFG_OVERRIDES='{"moe_dispatch_groups": 64, "remat_policy": "dots"}'``

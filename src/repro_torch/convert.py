@@ -5,9 +5,12 @@ packages.
 decode cache (numpy leaves) into the port's; ``to_numpy`` turns them back.
 
 The reference keeps its pytrees as nests of dicts and lists with array
-leaves — params ``{"layers": [{"w": (in, out), "b": (out,)}]}``, AdaGrad
-state ``{"accum": <params nest>}`` — and the port keeps the same nests with
-tensor leaves, so a conversion is a leaf-by-leaf copy.  A dataclass node
+leaves — DNN params ``{"layers": [{"w": (in, out), "b": (out,)}]}``, LM
+params ``{"embed", "final_norm", "superblocks": [<layer dict with a
+leading n_superblocks axis>]}``, AdaGrad state ``{"accum": <params
+nest>}`` — and the port keeps the same nests with tensor leaves, so a
+conversion is a leaf-by-leaf copy and both packages can start a step from
+the same state.  A dataclass node
 is carried field by field; the reference's ``KVCache`` becomes the port's
 :class:`~repro_torch.models.layers.attention.KVCache`.  bfloat16 arrays
 (``ml_dtypes.bfloat16``, what numpy holds for a JAX bf16 array) become

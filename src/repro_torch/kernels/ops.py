@@ -33,7 +33,8 @@ with (1, 0, 0), as the reference's does.
 
 :func:`flash_attention_gqa` is the attention forward (K11) of the serve
 path's prefill.  It is forward only and raises on inputs that require a
-gradient: the backward comes with the training slice.
+gradient: training attention runs ``chunked_attention``, which has a
+backward.
 
 ``"auto"`` is the fused entry (the block-sparse one when a layout is
 given) on every device: each wrapper in :mod:`.graph_reg` and
@@ -320,7 +321,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only: it raises if any input requires a gradient."""
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
-            "flash_attention_gqa is forward only: its backward (the "
-            "reference's _flash_bwd_tiles) is ported with the LM training "
-            "slice of the LM stack")
+            "flash_attention_gqa (K11) is forward only, as the reference's "
+            "Pallas kernel is; attention that needs a gradient runs "
+            "repro_torch.models.layers.attention.chunked_attention")
     return flash_attention.flash_attention_gqa(q, k, v, causal=causal)

@@ -11,13 +11,14 @@ import torch.nn.functional as F
 
 
 def variance_scaling(generator: torch.Generator, shape, fan_in: int, *,
-                     scale: float = 1.0,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     scale: float = 1.0, dtype: torch.dtype = torch.float32,
+                     device: str | torch.device | None = None) -> torch.Tensor:
     """Normal init with std sqrt(scale / fan_in), drawn in ``dtype`` from
-    ``generator`` on its device."""
+    ``generator`` on ``device`` (default: the generator's; ``"meta"``
+    gives the shape and dtype and allocates nothing)."""
     std = (scale / max(fan_in, 1)) ** 0.5
     return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=generator.device) * std
+                       device=device or generator.device) * std
 
 
 # ---------------------------------------------------------------- norms
@@ -45,9 +46,10 @@ def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
 
 # ---------------------------------------------------------------- embed
 def init_embedding(generator: torch.Generator, vocab: int, d: int,
-                   dtype: torch.dtype = torch.float32) -> dict:
+                   dtype: torch.dtype = torch.float32, *,
+                   device: str | torch.device | None = None) -> dict:
     return {"table": torch.randn((vocab, d), generator=generator, dtype=dtype,
-                                 device=generator.device) * 0.02}
+                                 device=device or generator.device) * 0.02}
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,13 @@ from .common import activation_fn, variance_scaling
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
              activation: str, dtype: torch.dtype = torch.float32, *,
-             lead: tuple = ()) -> dict:
-    """``lead`` prepends stacking axes (one draw per stacked layer)."""
+             lead: tuple = (),
+             device: str | torch.device | None = None) -> dict:
+    """``lead`` prepends stacking axes (one draw per stacked layer);
+    ``device`` defaults to the generator's."""
     def w(shape, fan_in):
-        return variance_scaling(generator, lead + shape, fan_in, dtype=dtype)
+        return variance_scaling(generator, lead + shape, fan_in, dtype=dtype,
+                                device=device)
 
     if activation == "swiglu":
         return {"wg": w((d_model, d_ff), d_model),

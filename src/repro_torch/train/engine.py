@@ -338,14 +338,30 @@ class SyncMeshStrategy(SequentialStrategy):
         share = self.k // self.size
         self.lo, self.hi = self.rank * share, (self.rank + 1) * share
         self.writes_checkpoints = self.rank == 0
+        self._buffers: dict[tuple, tuple[torch.Tensor, list]] = {}
 
     def place_batch(self, batch, stream=None) -> tuple[dict, dict]:
         mine = {k: v[self.lo:self.hi] for k, v in _as_host_dict(batch).items()}
         return super().place_batch(mine, stream)
 
     def _all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
-        out = [torch.empty_like(t) for _ in range(self.size)]
-        self.group.allgather([out], [t]).wait()
+        """The R ranks' ``t``, in rank order, in this strategy's own
+        buffers: valid until the next call with the same shape and dtype.
+
+        Every call of one shape and dtype sends and receives through the
+        same tensors, which the strategy keeps.  A collective's work can
+        outlive its ``wait()`` on a gloo worker thread; were the work's
+        tensors its last references, that thread would need the
+        interpreter lock to free them, and a thread that asks for it while
+        the interpreter exits ends the process with SIGABRT ("terminate
+        called without an active exception")."""
+        key = (tuple(t.shape), t.dtype, t.device)
+        if key not in self._buffers:
+            self._buffers[key] = (torch.empty_like(t), [
+                torch.empty_like(t) for _ in range(self.size)])
+        send, out = self._buffers[key]
+        send.copy_(t)
+        self.group.allgather([out], [send]).wait()
         return out
 
     def body(self, carry: TrainState, batch: dict, lr: float) -> dict:

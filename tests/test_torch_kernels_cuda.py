@@ -801,3 +801,87 @@ def test_reduced_prefill_on_the_card_matches_cpu(cuda):
         np.testing.assert_allclose(
             getattr(cache["layers"][0], f).cpu().numpy(),
             getattr(cache_cpu["layers"][0], f).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", [(1, 16, 151936), (2, 16, 151936),
+                                   (1, 17, 32000)])
+def test_regularizer_kernels_at_the_lm_heads_shapes(cuda, k, B, C):
+    """K1 and K2 at the LM training path's shapes (B sequences of one SSL
+    group, C the vocabulary), with the example's γ = 0.05, κ = 1e-4.  K1
+    sums C float32 products a pair of rows in one fixed-order chain each,
+    and its L is a difference of two positive sums far larger than L: K1
+    and its plain version are held to the float64 value within 4·√C·2^-24
+    of M = γ·Σ W·Hc + Σ (κ + γ·deg)·H, the sum of the magnitudes (the
+    round-off of a C-term chain grows as √C·u).  K2 sums over B only: the
+    usual rule."""
+    probs = [_problem(B, C, seed=s, density=0.5) for s in range(k)]
+    logp = torch.stack([p[0] for p in probs]).to(cuda)
+    W = torch.stack([p[1] for p in probs]).to(cuda)
+    W = W + W.mT
+    g = torch.full((k,), 1.0 / B, device=cuda)
+    gamma, kappa = 0.05, 1e-4
+    got = [gr.reg_forward(logp, W, gamma, kappa, gamma),
+           gr.reg_bwd_dlogp(logp, W, g, gamma, kappa, gamma)]
+    again = [gr.reg_forward(logp, W, gamma, kappa, gamma),
+             gr.reg_bwd_dlogp(logp, W, g, gamma, kappa, gamma)]
+    want = [ref.reg_forward_ref(logp, W, gamma, kappa, gamma),
+            ref.reg_bwd_dlogp_ref(logp, W, g, gamma, kappa, gamma)]
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    lp64, W64 = logp.double(), W.double()
+    want64 = ref.reg_forward_ref(lp64, W64, gamma, kappa, gamma)
+    M = ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma)
+    tol = 4.0 * C ** 0.5 * 2.0 ** -24 * float(M.abs().max())
+    for value in (got[0], want[0]):
+        assert float((value.double() - want64).abs().max()) <= tol
+    _close(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.cuda
+def test_full_width_lm_loss_on_the_card_matches_cpu(cuda):
+    """qwen2-1.5b at full width, 2 layers, float32: one ``lm_loss`` forward
+    and backward with the SSL term (K1 and K2 once each) on the card
+    against the CPU's plain path, from the same params and batch: metrics
+    within rtol 1e-4, each gradient leaf within 1e-3 of its largest
+    |value|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.core.ssl_loss import SSLHyper, tree_leaves
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_step import lm_grads
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2,
+                              dtype="float32")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (8, 33))
+    W = rng.random((1, 8, 8)) * (rng.random((1, 8, 8)) < 0.5)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:]),
+             "W": torch.tensor(W + W.transpose(0, 2, 1), dtype=torch.float32),
+             "seq_labels": torch.from_numpy(
+                 rng.integers(0, 8, (1, 8)).astype(np.int32)),
+             "seq_label_mask": torch.tensor([[1.0, 0, 0, 1, 0, 0, 0, 0]])}
+    hyper = SSLHyper(gamma=0.05, kappa=1e-4, weight_decay=0.0)
+    g_cpu, m_cpu = lm_grads(params, batch, cfg=cfg, hyper=hyper,
+                            pairwise="auto")
+    gr.reset_launch_counts()
+    g_gpu, m_gpu = lm_grads(to_torch(params, cuda),
+                            {k: v.to(cuda) for k, v in batch.items()},
+                            cfg=cfg, hyper=hyper, pairwise="auto")
+    torch.cuda.synchronize()
+    counts = gr.launch_counts()
+    assert counts == {**{n: 0 for n in counts}, "graph_reg_fwd": 1,
+                      "graph_reg_bwd_dlogp": 1}
+    for key, want in m_cpu.items():
+        np.testing.assert_allclose(float(m_gpu[key]), float(want),
+                                   rtol=1e-4, atol=1e-4 * max(
+                                       1.0, abs(float(want))))
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=0,
+                                   atol=1e-3 * float(np.abs(b).max()))

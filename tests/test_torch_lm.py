@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import ARCH_IDS, get_config as jax_config  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.models.layers import attention as jattn  # noqa: E402
 from repro.models.layers.attention import KVCache as JaxKVCache  # noqa: E402
 from repro.serve import decode as jdecode  # noqa: E402
 from repro_torch.configs import ARCH_IDS as PORT_ARCH_IDS  # noqa: E402
@@ -251,15 +252,30 @@ def test_unported_layer_kinds_raise(arch):
 
 
 def test_windows_and_cross_attention_raise():
+    """Cross-attention still raises; a sliding window no longer does: its
+    attention block (T 8 past a window of 4, through chunked_attention)
+    and its ring cache match the reference's."""
+    cfg_j = jax_config("qwen2-1.5b").reduced()
     cfg = get_config("qwen2-1.5b").reduced()
-    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
-    p = tf._block(params, 0)[0]["attn"]
-    x = torch.zeros(1, 8, cfg.d_model)
-    pos = torch.arange(8)[None]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attn.attention_block(p, x, pos, theta=cfg.rope_theta, window=4)
+    params_j = jax.device_get(jtf.init_params(cfg_j, jax.random.PRNGKey(0)))
+    pj = jax.tree.map(lambda a: a[0], params_j["superblocks"][0]["attn"])
+    p = tf._block(to_torch(params_j), 0)[0]["attn"]
+    x = np.random.default_rng(0).normal(size=(2, 8, cfg.d_model)).astype(
+        np.float32)
+    pos = np.tile(np.arange(8, dtype=np.int32), (2, 1))
+    want, cache_j = jattn.attention_block(
+        pj, jnp.asarray(x), jnp.asarray(pos), theta=cfg.rope_theta, window=4,
+        return_kv=True)
+    got, cache_t = attn.attention_block(
+        p, torch.from_numpy(x), torch.from_numpy(pos).long(),
+        theta=cfg.rope_theta, window=4, return_kv=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    for f in ("k", "v", "positions", "valid"):
+        a, b = np.asarray(getattr(cache_j, f)), getattr(cache_t, f).numpy()
+        assert a.shape == b.shape == (2, 4) + a.shape[2:], f
+        np.testing.assert_allclose(b, a, atol=1e-4)
     with pytest.raises(NotImplementedError, match="cross-attention"):
-        attn.cross_attention_block(p, x, None, None)
+        attn.cross_attention_block(p, torch.from_numpy(x), None, None)
 
 
 def test_serve_lm_runs_on_the_cpu(capsys):

@@ -18,6 +18,7 @@ a ``prefetch`` or ``worker`` event at chunk c fires before step
 ``c·scan_chunk``.
 """
 import dataclasses
+import gc
 import json
 import os
 import time
@@ -318,6 +319,13 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
                 json.dump(rows(res.history), f)
     finally:
         dist.destroy_process_group()
+        # destroy_process_group does not join a gloo group's worker
+        # threads: freeing the group does, and the engines hold it in
+        # reference cycles.  Free it while the interpreter is alive: a
+        # worker that frees a Python tensor after finalization has begun
+        # aborts the process ("terminate called without an active
+        # exception").
+        gc.collect()
 
 
 @pytest.fixture(scope="module")
