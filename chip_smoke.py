@@ -171,14 +171,35 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    long_500k)`` at full depth in bf16 (window 8,192), batch 1, prompt
    10,240, 16 greedy decode steps through ``serve_lm``'s functions, no
    kernel launched, prefill ms, ms/token and peak memory;
-15. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
-   head records under ``lm_train``), then the result line.
+15. the rest of the LM stack (``flash_attention_hd112_phase`` to
+   ``family_train_phase``): K11 at kimi-k2's head dim 112 (FMA route), q
+   (4, 2048, 64, 112) against k, v (4, 2048, 8, 112) in bf16 and a ragged
+   f32 case, held to its plain version, repeated bit for bit, timed in
+   turns beside it and SDPA, with its bound; the ``reduced()`` configs of
+   mixtral-8x7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
+   jamba-1.5-large-398b and xlstm-125m in f32 on the card against the CPU
+   (prefill logits, every cache or state leaf and 4 greedy decode steps
+   within atol 1e-4, MoE experts and keep masks equal, two card runs
+   equal bit for bit); each family served at full width with depth cut
+   to one card (:data:`FAMILY_CUTS`, printed on its line): batch 4,
+   prompt 2048, 32 greedy decode steps, cache 2080, the VLM with seeded
+   (4, 1601, 1280) modality embeddings, K11 launches counted from 0 just
+   before the timed prefill (2 kimi, 4 llama, 1 jamba, 0 mixtral and
+   xLSTM), logits finite, prefill ms, ms/token, tok/s, peak memory and
+   the MoE assignments dropped by capacity; then two ``lm_train_step``s
+   each of mixtral (full width, 2 layers) and xlstm-125m (whole) at the
+   example's 16 × 128 tokens: loss terms finite, ``moe_aux`` > 0, K1 and
+   K2 once a step, ms/step and peak memory;
+16. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
+   head records under ``lm_train``, K11 at hd 112 as
+   ``flash_attention_hd112``), then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import subprocess
@@ -1979,6 +2000,12 @@ def flash_attention_build_report() -> dict:
     return rec
 
 
+#: K11 at llama-3.2-vision's and jamba's head layout (both d_model 8192,
+#: 64 query heads on 8 KV heads of 128): their prefill's shape, B 4 × T
+#: 2048, bf16 on the tensor-core route.
+LLAMA_ATTN = (4, 2048, 64, 8, 128)
+
+
 def fa_smem(hd: int) -> int:
     """Dynamic shared memory of the tensor-core K11 kernel: Q and two (K,
     V) stages of 128 rows × hd bf16, three mbarriers, 1024 bytes of
@@ -1988,8 +2015,9 @@ def fa_smem(hd: int) -> int:
 
 def flash_attention_phase() -> dict:
     """K11 at the serve path's prefill shape in bf16 (the path's dtype,
-    tensor-core route) and f32 (FMA route), at a ragged T and with Tq < Tk;
-    returns the records by case."""
+    tensor-core route) and f32 (FMA route), at a ragged T, with Tq < Tk,
+    and at llama-3.2-vision's and jamba's prefill shape (:data:`LLAMA_ATTN`,
+    64 query heads on 8 KV heads); returns the records by case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1998,10 +2026,12 @@ def flash_attention_phase() -> dict:
     B, T, H, KV, hd = 4, 2048, 12, 2, 128
     gen = torch.Generator(device="cuda").manual_seed(11)
     records = {}
-    for label, Tq, Tk, dtype in (("path bf16", T, T, torch.bfloat16),
-                                 ("path f32", T, T, torch.float32),
-                                 ("ragged bf16", 1000, 1000, torch.bfloat16),
-                                 ("Tq<Tk bf16", 512, T, torch.bfloat16)):
+    for label, Tq, Tk, H, KV, dtype in (
+            ("path bf16", T, T, H, KV, torch.bfloat16),
+            ("path f32", T, T, H, KV, torch.float32),
+            ("ragged bf16", 1000, 1000, H, KV, torch.bfloat16),
+            ("Tq<Tk bf16", 512, T, H, KV, torch.bfloat16),
+            ("llama/jamba bf16", T, T) + LLAMA_ATTN[2:4] + (torch.bfloat16,)):
         q, k, v = (torch.randn(B, t, h, hd, generator=gen, device="cuda")
                    .to(dtype) for t, h in ((Tq, H), (Tk, KV), (Tk, KV)))
         route, bk = fa.route(dtype, hd), fa.block_k(dtype, hd)
@@ -2068,14 +2098,6 @@ def flash_attention_phase() -> dict:
     print(f"flash_attention [path bf16]: {path['ms'] / path['library_ms']:.3f}"
           f"× SDPA's time in the same call")
     return records
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
 
 
 def serve_parity_phase() -> None:
@@ -2168,7 +2190,7 @@ def serve_phase() -> dict:
     params, load_s = sync_time(
         lambda: serve_lm.load_model(cfg, seed=0, device=cuda))
     weights = torch.cuda.memory_allocated() - base
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = serve_lm.param_count(params)
     check(n_params == cfg.param_count(), f"{n_params} params drawn, "
           f"param_count() says {cfg.param_count()}")
     prompts = serve_lm.make_prompts(cfg, B, T, seed=0, device=cuda)
@@ -2230,11 +2252,14 @@ def serve_phase() -> dict:
 #: γ and κ of the example, the card-vs-CPU tolerances of the 2-layer
 #: full-width cuts (losses and metrics rtol; each gradient leaf within
 #: LM_GRAD_TOL of its largest |value|), the LM-head shapes (k, B, C) of K1
-#: and K2, and the steps of the full model.
+#: and K2 (qwen2-1.5b's V at k 1 and 2, a ragged B, and the SSL heads of
+#: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304), and
+#: the steps of the full model.
 LM_GAMMA, LM_KAPPA = 0.05, 1e-4
 LM_RTOL = 1e-4
 LM_GRAD_TOL = 1e-3
-LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000))
+LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000),
+                  (1, 16, 32000), (1, 16, 50304))
 LM_STEPS, LM_SUPERVISED_STEPS = 6, 2
 #: The card's name and power limit (``nvidia-smi``), set by ``main`` and
 #: printed beside the LM phases' numbers.
@@ -2643,6 +2668,416 @@ def swa_serve_phase() -> dict:
           f"over the prefill, {rec['peak_decode_gb']:.3f} GB over the "
           f"decode; launches {counts}")
     del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: K11 at kimi-k2's head dim: its prefill's shape, B 4 × T 2048, 64 query
+#: heads on 8 KV heads of 112 (7168 / 64), bf16 on the FMA route.
+KIMI_ATTN = (4, 2048, 64, 8, 112)
+
+
+def flash_attention_hd112_phase() -> dict:
+    """K11 at head dim 112: kimi's prefill shape in bf16 (the path's) and a
+    ragged f32 case, each held to its plain version on the route's 64-key
+    tiles and repeated bit for bit; the path's case timed in turns beside
+    its plain version and ``scaled_dot_product_attention``, with its bound.
+    Returns the path case's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, T, H, KV, hd = KIMI_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    path = None
+    for label, b, t, dtype in (("kimi bf16", B, T, torch.bfloat16),
+                               ("ragged f32", 1, 1000, torch.float32)):
+        q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
+                   .to(dtype) for h in (H, KV, KV))
+        route, bk = fa.route(dtype, hd), fa.block_k(dtype, hd)
+        check(route == "fma" and bk == 64, f"hd 112 takes the {route} route")
+
+        def kern():
+            return fa.flash_attention_gqa(q, k, v, causal=True)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=True, block_k=bk)
+
+        a, b2, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        where = (f"flash_attention hd 112 [{label}, {route} route, {bk}-key "
+                 f"tiles: q {tuple(q.shape)}, k/v {tuple(k.shape)}]")
+        check(torch.equal(a, b2), f"{where}: two launches differ")
+        err = (a.float() - want.float()).abs()
+        if dtype == torch.float32:
+            tol = torch.full_like(err, ATTN_F32_ATOL)
+        else:
+            w = want.float().abs()
+            tol = 2.0 ** -8 * w.max() + 2.0 ** -7 * w
+        over = float((err / tol).max())
+        print(f"{where}: max_abs_err={float(err.max()):.3e} "
+              f"err/tol={over:.3f} ({ATTN_TOL_RULE})")
+        check(math.isfinite(over) and over <= 1.0,
+              f"{where} disagrees with its plain version")
+        if label != "kimi bf16":
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        rec = {"max_abs_err": float(err.max()), "tol": float(tol.max()),
+               "tol_rule": ATTN_TOL_RULE, "err_over_tol": over,
+               "kernel_route": route, "block_k": bk, **timed(kern, plain,
+                                                             sdpa)}
+        flops = 4.0 * hd * B * H * attn_pairs(T, T)
+        rec["bound"] = bound_ms(
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            flops, BF16_FLOP_PER_S)
+        rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
+        rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+        rec["note"] = ("library_ms is torch.nn.functional.scaled_dot_"
+                       "product_attention(is_causal=True, enable_gqa=True) "
+                       "at hd 112, timed only, in turns with the kernel")
+        print(f"{where} [{CARD}]: {rec['ms']:.4f} ms; plain "
+              f"{rec['plain_ms']:.4f} ms; SDPA {rec['library_ms']:.4f} ms "
+              f"(rounds {rec['rounds']}); bound {rec['bound'][0]:.5f} ms "
+              f"({rec['bound'][1]}); {rec['tflop_per_s']:.1f} TFLOP/s, "
+              f"{100 * rec['share_of_bound']:.2f} % of the bound; "
+              f"{rec['ms'] / rec['library_ms']:.3f}× SDPA's time")
+        path = rec
+        del q, k, v, a, b2, want
+    torch.cuda.empty_cache()
+    return path
+
+
+#: The five families served at full width on one card: (config fields
+#: cut, the cut in words).  Depth is cut to what one H100 holds; jamba's
+#: experts too (with 16, one super-block is 45.2e9 params, 90.5 GB).
+FAMILY_CUTS = {
+    "mixtral-8x7b": ({"n_layers": 4}, "4 of 32 layers"),
+    "kimi-k2-1t-a32b": ({"n_layers": 2}, "2 of 61 layers: the dense first "
+                        "block and one MoE layer (384 experts, top 8)"),
+    "llama-3.2-vision-90b": ({"n_layers": 5}, "5 of 100 layers: one "
+                             "super-block (4 ATTN + XATTN)"),
+    "jamba-1.5-large-398b": ({"n_layers": 8, "n_experts": 4},
+                             "one super-block, 8 of 72 layers; experts 16 -> "
+                             "4 per MoE layer, top 2 kept"),
+    "xlstm-125m": ({}, "nothing"),
+}
+#: K11 launches a prefill of each cut makes: one a causal self-attention
+#: layer without a window (mixtral's are ATTN_SWA, xLSTM has none).
+FAMILY_K11 = {"mixtral-8x7b": 0, "kimi-k2-1t-a32b": 2,
+              "llama-3.2-vision-90b": 4, "jamba-1.5-large-398b": 1,
+              "xlstm-125m": 0}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Records the experts (G, A) and capacity keep mask (G, A) of every
+    ``apply_moe`` call made inside the ``with``, by wrapping ``moe.slots``
+    (on their device, no host sync); yields the list."""
+    from repro_torch.models.layers import moe
+    routes, slots = [], moe.slots
+
+    def recording(top_e, n_experts, cap):
+        out = slots(top_e, n_experts, cap)
+        routes.append((top_e, out[1]))
+        return out
+
+    moe.slots = recording
+    try:
+        yield routes
+    finally:
+        moe.slots = slots
+
+
+def dropped_share(routes) -> float | None:
+    """Share of the recorded assignments dropped by capacity."""
+    if not routes:
+        return None
+    kept = sum(int(keep.sum()) for _, keep in routes)
+    return 1.0 - kept / sum(keep.numel() for _, keep in routes)
+
+
+def family_serve_phase(arch: str) -> dict:
+    """One family at full width through ``serve_lm``'s functions (bf16,
+    weights and, for the VLM, (4, 1601, 1280) modality embeddings from a
+    seed on the card): batch 4, prompt 2048, cache 2080, a warm-up prefill
+    (xLSTM's at a 128-token prompt), then the timed one with the counts at
+    0 just before (K11 :data:`FAMILY_K11` times, nothing else), 32 greedy
+    decode steps (no kernel); logits finite; MoE drop shares printed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ATTN
+    from repro_torch.serve import serve_lm
+
+    over, cut = FAMILY_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), **over)
+    B, T, steps = 4, 2048, 32
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, load_s = sync_time(
+        lambda: serve_lm.load_model(cfg, seed=0, device=cuda))
+    weights = torch.cuda.memory_allocated() - base
+    n_params = serve_lm.param_count(params)
+    prompts = serve_lm.make_prompts(cfg, B, T, seed=0, device=cuda)
+    modality = serve_lm.make_modality(cfg, B, seed=0, device=cuda)
+    warm_T = 128 if arch == "xlstm-125m" else T
+    warm, warm_s = sync_time(lambda: serve_lm.prefill(
+        params, cfg, prompts[:, :warm_T], steps, modality))
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    with recorded_routes() as routes:
+        (out, cache), prefill_s = sync_time(
+            lambda: serve_lm.prefill(params, cfg, prompts, steps, modality))
+    counts = gr.launch_counts()
+    k11 = sum(kind == ATTN for kind in cfg.layer_kinds())
+    check(k11 == FAMILY_K11[arch], f"{arch}: {k11} causal layers")
+    check(counts == {n: k11 * (n == "flash_attention") for n in counts},
+          f"{arch}: the prefill launched {counts}, not K11 {k11} times and "
+          "nothing else")
+    logits = out["logits"]
+    check(tuple(logits.shape) == (B, T, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: prefill logits {tuple(logits.shape)} {logits.dtype}, "
+          f"finite {bool(torch.isfinite(logits).all())}")
+    prefill_drop = dropped_share(routes)
+    check(cfg.is_moe == (prefill_drop is not None),
+          f"{arch}: {len(routes)} MoE calls in the prefill")
+    peak_prefill = torch.cuda.max_memory_allocated() - base
+    del out, logits, routes
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    with recorded_routes() as routes:
+        (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
+            params, cfg, cache, prompts, steps, temperature=0.0))
+    decode_drop = dropped_share(routes)
+    del routes
+    last, _ = tf.decode_step(params, cfg, cache, toks[:, -1:], torch.full(
+        (B,), T + steps - 1, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    dcounts = gr.launch_counts()
+    check(not any(dcounts.values()), f"{arch}: the decode launched {dcounts}")
+    check(bool(torch.isfinite(last).all()), f"{arch}: non-finite decode "
+          "logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{arch}: a decoded token out of the vocabulary")
+    rec = {"cut": cut, "n_layers": cfg.n_layers, "params": n_params,
+           "weights_gb": weights / 1e9, "load_s": load_s,
+           "first_prefill_ms": 1e3 * warm_s, "warm_prompt": warm_T,
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_token": 1e3 * decode_s / steps,
+           "tok_per_s": B * steps / decode_s,
+           "peak_prefill_gb": peak_prefill / 1e9,
+           "peak_decode_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "k11_launches": counts["flash_attention"],
+           "prefill_dropped": prefill_drop, "decode_dropped": decode_drop}
+    del params, cache, prompts, modality
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    drops = ("" if prefill_drop is None else
+             f"; assignments dropped by capacity: prefill "
+             f"{100 * prefill_drop:.3f} %, decode {100 * decode_drop:.3f} %")
+    print(f"serve {arch} [{CARD}] (full width, cut: {cut}; "
+          f"{cfg.n_layers} layers, bf16, {n_params / 1e9:.3f}e9 params in "
+          f"the tree, {rec['weights_gb']:.3f} GB, drawn in {load_s:.2f}s): "
+          f"batch {B}, prompt {T}, cache {T + steps}: prefill "
+          f"{rec['prefill_ms']:.3f} ms (first call {rec['first_prefill_ms']:.3f}"
+          f" ms at a {warm_T}-token prompt), K11 launches "
+          f"{rec['k11_launches']}; decode {steps} greedy steps "
+          f"{rec['decode_ms_per_token']:.3f} ms/token, "
+          f"{rec['tok_per_s']:.1f} tok/s; peak device memory "
+          f"{rec['peak_prefill_gb']:.3f} GB over the prefill, "
+          f"{rec['peak_decode_gb']:.3f} GB over the decode{drops}; "
+          f"logits finite; phase {rec['phase_s']:.1f}s")
+    return rec
+
+
+def family_parity_phase() -> None:
+    """The five families' ``reduced()`` configs in f32 (XATTN gates set to
+    0.5; at their init value 0 the cross-attention adds nothing): a prefill
+    of 2 × 64 tokens and 4 greedy decode steps on the CPU, then twice on
+    the card from the same params, fed the CPU's tokens; logits within
+    atol 1e-4 of the CPU's and every cache or state leaf within 1e-4 of
+    max(1, its largest |value|), MoE experts and keep masks equal at
+    every call, and the two card runs equal bit for bit.  Prints the
+    worst logits step and the worst state leaf by name, with its |Δ| and
+    largest |value|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import leaf_paths, to_torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import serve_lm
+    from repro_torch.serve.decode import sample_tokens
+
+    B, T, steps, atol = 2, 64, 4, 1e-4
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    for arch in FAMILY_CUTS:
+        cfg = get_config(arch).reduced()
+        params = {"cuda": serve_lm.load_model(cfg, seed=13, device=cuda)}
+        for layer in params["cuda"]["superblocks"]:
+            if "gate" in layer.get("attn", {}):
+                layer["attn"]["gate"].fill_(0.5)
+        params["cpu"] = to_torch(params["cuda"], "cpu")
+        prompts = serve_lm.make_prompts(cfg, B, T, seed=13, device=cuda)
+        mem = serve_lm.make_modality(cfg, B, seed=13, device=cuda)
+        feed = []                       # the CPU's greedy tokens
+
+        def run(dev: str) -> dict:
+            with recorded_routes() as routes:
+                out, cache = serve_lm.prefill(
+                    params[dev], cfg, prompts.to(dev), steps,
+                    None if mem is None else mem.to(dev))
+                logits, cur = [out["logits"].cpu()], prompts[:, -1:].cpu()
+                for s in range(steps):
+                    pos = torch.full((B,), T + s - 1, dtype=torch.int32)
+                    lg, cache = tf.decode_step(params[dev], cfg, cache,
+                                               cur.to(dev), pos.to(dev))
+                    logits.append(lg.cpu())
+                    if dev == "cpu":
+                        feed.append(sample_tokens(logits[-1]))
+                    cur = feed[s]
+            names = ["prefill logits"] + [f"decode step {s} logits"
+                                          for s in range(steps)]
+            states = leaf_paths(cache)
+            return {"names": names + [p for p, _ in states],
+                    "out": logits + [t.cpu() for _, t in states],
+                    "routes": [(e.cpu(), k.cpu()) for e, k in routes]}
+
+        cpu, gpu, again = run("cpu"), run("cuda"), run("cuda")
+        check(gpu["names"] == cpu["names"], f"{arch}: the card's cache "
+              "tree differs from the CPU's")
+        worst = {"logits": (0.0, "", 0.0, 0.0), "states": (0.0, "", 0.0, 0.0)}
+        abs_state = (0.0, "", 0.0)      # the state leaf of largest |Δ|
+        for i, (name, a, b) in enumerate(zip(cpu["names"], gpu["out"],
+                                             cpu["out"])):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{arch} parity: {name} {tuple(a.shape)} {a.dtype} vs "
+                  f"{tuple(b.shape)} {b.dtype}")
+            if not a.numel():
+                continue
+            # Logits within atol; a cache or state leaf within atol of its
+            # largest |value| when that passes 1: sLSTM's stabiliser m, a
+            # running max of summed log gates, grows with T (243.5 at T =
+            # 68 on xlstm-125m's reduced config, where the card and the
+            # CPU differ by 1.45e-4, 6e-7 of it).
+            kind = "logits" if i <= steps else "states"
+            err = float((a.float() - b.float()).abs().max())
+            top = float(b.float().abs().max())
+            scale = 1.0 if kind == "logits" else max(1.0, top)
+            worst[kind] = max(worst[kind], (err / scale, name, err, top))
+            if kind == "states":
+                abs_state = max(abs_state, (err, name, top))
+            check(err <= atol * scale, f"{arch} parity: card vs CPU differ "
+                  f"by {err} in {name} {tuple(a.shape)} (largest |value| "
+                  f"{top})")
+        check(len(gpu["routes"]) == len(cpu["routes"]),
+              f"{arch}: {len(gpu['routes'])} MoE calls on the card, "
+              f"{len(cpu['routes'])} on the CPU")
+        for (ea, ka), (eb, kb) in zip(gpu["routes"], cpu["routes"]):
+            check(torch.equal(ea, eb) and torch.equal(ka, kb),
+                  f"{arch}: MoE routing differs between card and CPU")
+        check(all(torch.equal(a, b) for a, b in zip(gpu["out"], again["out"]))
+              and all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                      for a, b in zip(gpu["routes"], again["routes"])),
+              f"{arch}: two card runs differ")
+        lg, st = worst["logits"], worst["states"]
+        print(f"family parity {arch} [{CARD}] (reduced, f32, B={B}, T={T}, "
+              f"{steps} greedy decode steps, card vs CPU): worst |Δ| "
+              f"{lg[2]:.3e} over the logits ({lg[1]}; atol {atol:g}); worst "
+              f"state leaf of {len(cpu['out']) - steps - 1} {st[1]}: |Δ| "
+              f"{st[2]:.3e}, largest |value| {st[3]:.4g}, "
+              f"{st[0]:.3e} of max(1, largest |value|) (≤ {atol:g}); "
+              f"largest state |Δ| {abs_state[0]:.3e} in {abs_state[1]} "
+              f"(largest |value| {abs_state[2]:.4g}); "
+              f"{len(cpu['routes'])} MoE calls routed alike; two card runs "
+              "equal bit for bit")
+        del params
+    print(f"family parity: {time.perf_counter() - t0:.1f}s")
+
+
+#: LM training of two families at the example's 16 × 128 tokens a step
+#: (meta-batches of 8 with a sampled neighbour): mixtral at full width, 2
+#: layers, and xlstm-125m whole.
+FAMILY_TRAIN = {"mixtral-8x7b": {"n_layers": 2}, "xlstm-125m": {}}
+FAMILY_TRAIN_STEPS, FAMILY_SEQ_LEN, FAMILY_BATCH = 2, 128, 8
+
+
+def family_train_phase(arch: str) -> dict:
+    """``lm_train_step`` with AdaGrad on the example's pipeline (bf16,
+    weights from a seed on the card): every loss term finite, ``moe_aux``
+    > 0 for an MoE config, K1 and K2 once a step on the SSL head and no
+    other kernel; ms/step and peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SSLHyper
+    from repro_torch.examples import train_lm_ssl
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adagrad
+    from repro_torch.serve import serve_lm
+    from repro_torch.train.train_step import lm_train_step
+
+    cfg = dataclasses.replace(get_config(arch), **FAMILY_TRAIN[arch])
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    data = train_lm_ssl.build_data(cfg.vocab_size, FAMILY_SEQ_LEN,
+                                   FAMILY_BATCH)
+    host_s = time.perf_counter() - t0
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    opt = adagrad()
+    state = opt.init(params)
+    hyper = SSLHyper(gamma=LM_GAMMA, kappa=LM_KAPPA, weight_decay=0.0)
+    batches = train_lm_ssl.batches(data, FAMILY_BATCH, FAMILY_TRAIN_STEPS,
+                                   cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gr.reset_launch_counts()
+    rows, step_s = [], []
+    for batch in batches:
+        (_, _, metrics), s = sync_time(lambda: lm_train_step(
+            params, state, batch, cfg=cfg, hyper=hyper, opt=opt,
+            lr=train_lm_ssl.LR, pairwise="auto"))
+        step_s.append(s)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    counts = gr.launch_counts()
+    check(counts == {n: FAMILY_TRAIN_STEPS * (n in ("graph_reg_fwd",
+                                                    "graph_reg_bwd_dlogp"))
+                     for n in counts},
+          f"{arch}: {FAMILY_TRAIN_STEPS} LM steps launched {counts}, not K1 "
+          "and K2 once a step and nothing else")
+    for i, row in enumerate(rows):
+        check(all(math.isfinite(v) for v in row.values()),
+              f"{arch} LM step {i}: {row}")
+        check(not cfg.is_moe or row["loss/moe_aux"] > 0,
+              f"{arch} LM step {i}: moe_aux {row['loss/moe_aux']}")
+    rec = {"step_ms": [1e3 * s for s in step_s], "counts": counts,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "host_pipeline_s": host_s, "rows": rows,
+           "params": serve_lm.param_count(params)}
+    print(f"LM training {arch} [{CARD}] ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, V {cfg.vocab_size}, bf16, {rec['params'] / 1e9:.3f}"
+          f"e9 params, AdaGrad lr {train_lm_ssl.LR}, γ {LM_GAMMA}, κ "
+          f"{LM_KAPPA}, pairwise auto; {2 * FAMILY_BATCH} sequences × "
+          f"{FAMILY_SEQ_LEN} tokens a step; host pipeline {host_s:.1f}s): "
+          f"steps " + ", ".join(f"{ms:.1f}" for ms in rec["step_ms"])
+          + f" ms; peak device memory {rec['peak_gb']:.3f} GB; launches "
+          f"{counts}; " + "; ".join(
+              ", ".join(f"{k} {row[k]:.6g}" for k in sorted(row))
+              for row in rows))
+    del params, state
     torch.cuda.empty_cache()
     return rec
 
@@ -3262,6 +3697,20 @@ def main() -> int:
     swa_parity_phase()
     swa_serve_phase()
 
+    t_families = time.perf_counter()
+    attn112 = flash_attention_hd112_phase()
+    family_parity_phase()
+    served = {arch: family_serve_phase(arch) for arch in FAMILY_CUTS}
+    kimi = served["kimi-k2-1t-a32b"]
+    print(f"serve prefill kimi-k2-1t-a32b [{CARD}]: K11 at hd 112 "
+          f"{attn112['ms']:.4f} ms × {kimi['k11_launches']} launches = "
+          f"{attn112['ms'] * kimi['k11_launches']:.3f} ms of the "
+          f"{kimi['prefill_ms']:.3f} ms prefill (kernel phase time × "
+          f"launches)")
+    trained = {arch: family_train_phase(arch) for arch in FAMILY_TRAIN}
+    print(f"the LM stack's families (K11 at hd 112, parity, serve, "
+          f"training): {time.perf_counter() - t_families:.1f}s")
+
     # K8's and K9's build records: the kernels the path's shapes launch.
     builds = {**redesign_build, "knn_topk": {
         **pw_build["knn_topk"],
@@ -3350,6 +3799,26 @@ def main() -> int:
             **{key: rec[key] for key in ("note", "global_route", "P×P",
                                          "floor_ms", "by_mask_ms")
                if key in rec}})
+    b_ms, b_by = attn112["bound"]
+    kernels.append({
+        "name": "flash_attention_hd112", "route": "cuda",
+        "source": flash_attention.SOURCE,
+        "replaces": REPLACES["flash_attention"],
+        "launches": kimi["k11_launches"],
+        "path": "serve_prefill kimi-k2-1t-a32b",
+        **{key: attn112[key] for key in (
+            "max_abs_err", "tol", "tol_rule", "err_over_tol", "ms",
+            "plain_ms", "library_ms", "rounds", "kernel_route", "block_k",
+            "tflop_per_s", "note")},
+        "kernel_ms": attn112["ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "share_of_bound": b_ms / attn112["ms"],
+        "shape": {"B": KIMI_ATTN[0], "T": KIMI_ATTN[1], "H": KIMI_ATTN[2],
+                  "KV": KIMI_ATTN[3], "hd": KIMI_ATTN[4]}})
+    for entry in kernels:
+        if entry["name"] in ("graph_reg_fwd", "graph_reg_bwd_dlogp"):
+            entry["lm_train_families"] = {
+                arch: rec["counts"][entry["name"]]
+                for arch, rec in trained.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,13 +9,16 @@
 // Query row t sits at absolute position Tk - Tq + t, key j at j.  Query
 // head h reads KV head h / (H / KV), the reference's head order, so the
 // kernel never materialises the repeat of k and v that the Pallas wrapper
-// builds.  T is float or __nv_bfloat16; hd is 16, 32, 64 or 128.
+// builds.  T is float or __nv_bfloat16; hd is 16, 32, 64, 112 or 128.
 //
 // Two routes, chosen by flash_attention_fwd from dtype and hd: bfloat16
 // with hd 64 or 128 runs the tensor-core kernel of
 // flash_attention_wgmma.cuh (wgmma tiles fed by TMA, softmax in
 // registers, 128-key tiles); float32 (held to atol 3e-5, so no TF32) and
-// bfloat16 with hd 16 or 32 run the FMA kernel below (64-key tiles).
+// bfloat16 with hd 16, 32 or 112 run the FMA kernel below (64-key
+// tiles).  hd 112 is kimi-k2's (7168 / 64): 7 x 16 output columns a
+// thread, 224-byte rows, which the tensor-core kernel's 128-byte swizzled
+// TMA tiles do not cut evenly.
 //
 // K11 replaces repro/kernels/flash_attention.py:flash_attention_fwd_pallas
 // (_flash_fwd_kernel), with its GQA wrapper flash_attention_gqa_pallas.
@@ -252,7 +255,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The FMA route: float32 at every hd, bfloat16 at hd 16 and 32.
+// The FMA route: float32 at every hd, bfloat16 at hd 16, 32 and 112.
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
                 int Tq, int Tk, int H, int KV, int hd, int causal,
@@ -260,6 +263,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
     switch (hd) {
         case 16: return launch<T, 16>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
         case 32: return launch<T, 32>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
+        case 112: return launch<T, 112>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
     }
     if constexpr (sizeof(T) == 4) {
         switch (hd) {

@@ -14,8 +14,8 @@ Two routes (:func:`route`): bfloat16 with head dim 64 or 128 runs on the
 tensor cores (``csrc/flash_attention_wgmma.cuh``: wgmma tiles fed by the
 TMA, the softmax in registers, 128-key tiles), and needs every pointer and
 row stride on a 16-byte boundary (the TMA's rule); float32, held to atol
-3e-5 and so kept off TF32, and bfloat16 with head dim 16 or 32 run a
-float32 FMA loop over 64-key tiles.  A tensor-core call that cannot build
+3e-5 and so kept off TF32, and bfloat16 with head dim 16, 32 or 112
+(kimi-k2's 7168 / 64) run a float32 FMA loop over 64-key tiles.  A tensor-core call that cannot build
 or launch raises; it never falls back to the FMA kernel.
 
 Source note (bound on an H100 SXM at the serve path's shape, q (4, 2048,
@@ -32,8 +32,8 @@ itself, stopping at the diagonal (exact: the tiles past it are no-ops bit
 for bit), and reads KV head h // (H / KV) in place of the wrapper's
 ``jnp.repeat``.
 
-Head dims 16, 32, 64 and 128 and dtypes float32 and bfloat16 are taken, on
-both devices; anything else raises.  The wrapper counts its launches in
+Head dims 16, 32, 64, 112 and 128 and dtypes float32 and bfloat16 are
+taken, on both devices; anything else raises.  The wrapper counts its launches in
 ``flash_attention_gqa.launches``; :func:`repro_torch.kernels.graph_reg.
 launch_counts` reports them with the other kernels'.
 """
@@ -53,7 +53,7 @@ __all__ = ["flash_attention_gqa", "route", "block_k", "HEAD_DIMS",
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
 #: Head dims the kernel is compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Keys per tile of each route (``kBK`` in the sources).
 _BLOCK_K = {"wgmma": 128, "fma": 64}
@@ -61,15 +61,15 @@ _BLOCK_K = {"wgmma": 128, "fma": 64}
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """``"wgmma"`` (tensor cores) for bfloat16 at head dim 64 or 128,
-    ``"fma"`` for float32 and for bfloat16 at head dim 16 or 32; raises on
-    what the kernel does not take."""
+    ``"fma"`` for float32 and for bfloat16 at head dim 16, 32 or 112;
+    raises on what the kernel does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention_gqa: dtype {dtype} not in "
                         f"{list(_DTYPES)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_gqa: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and hd >= 64 else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "fma"
 
 
 def block_k(dtype: torch.dtype, hd: int) -> int:

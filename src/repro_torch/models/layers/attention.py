@@ -19,8 +19,12 @@ Layouts are the reference's: q (B, T, H, hd), k and v (B, T, KV, hd),
 weights ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d).
 Head h reads KV head h // (H / KV).
 
-Cross-attention waits for the slice that ports the modality front ends
-and raises here.
+Cross-attention (XATTN, Flamingo-style) attends to modality memory
+projected once per request (:func:`cross_kv`) through
+``chunked_attention`` without a causal mask, all query positions 0 and
+the keys at ``arange(M)``, as the reference does; K11 stays off it (the
+reference's kernel needs Tk % bk == 0 when it is not causal).  Its
+output passes a tanh gate, a float32 scalar initialised to 0.
 """
 from __future__ import annotations
 
@@ -32,9 +36,6 @@ import torch.nn.functional as F
 from ...kernels import ops
 from ...kernels.ref import NEG_INF, scale_queries
 from .common import apply_rope, variance_scaling
-
-_LATER = ("is ported with the modality front ends in a later slice of the "
-          "LM stack")
 
 
 # ------------------------------------------------------------------ params
@@ -342,10 +343,6 @@ class KVCache:
             positions=torch.zeros(shape, dtype=torch.int32, device=device),
             valid=torch.zeros(shape, dtype=torch.bool, device=device))
 
-    def layer(self, i: int) -> "KVCache":
-        """Layer ``i`` of a stacked cache, as views."""
-        return KVCache(self.k[i], self.v[i], self.positions[i], self.valid[i])
-
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor,
                pos: torch.Tensor) -> "KVCache":
         """Insert one token (k_new: (B, 1, KV, hd)) at slot pos % S, in
@@ -421,5 +418,51 @@ def attention_decode(p, x: torch.Tensor, pos: torch.Tensor, cache: KVCache, *,
     return out_proj(p, o), cache
 
 
-def cross_attention_block(*args, **kwargs):
-    raise NotImplementedError(f"cross-attention (XATTN) {_LATER}")
+# ------------------------------------------------------------ cross-attn
+def init_cross_attention(generator: torch.Generator, d_model: int,
+                         n_heads: int, n_kv_heads: int, hd: int, *,
+                         dtype: torch.dtype = torch.float32,
+                         lead: tuple = (),
+                         device: str | torch.device | None = None) -> dict:
+    """Attention weights without biases and a float32 ``gate`` of 0 (a
+    tanh-gated residual)."""
+    p = init_attention(generator, d_model, n_heads, n_kv_heads, hd,
+                       qkv_bias=False, dtype=dtype, lead=lead, device=device)
+    p["gate"] = torch.zeros(lead, dtype=torch.float32,
+                            device=device or generator.device)
+    return p
+
+
+def gated_out(p, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """tanh(gate) · out_proj(o), in float32, cast to ``dtype``."""
+    return (torch.tanh(p["gate"]) * out_proj(p, o).float()).to(dtype)
+
+
+def cross_attention_block(p, x: torch.Tensor, mem_k: torch.Tensor,
+                          mem_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, T, d) to precomputed memory k, v (B, M,
+    KV, hd): every query at position 0, keys at 0..M−1, no causal mask."""
+    q = _proj(x, p["wq"])
+    M = mem_k.shape[1]
+    pos = torch.arange(M, device=x.device)
+    o = chunked_attention(q, mem_k, mem_v,
+                          torch.zeros(x.shape[1], dtype=torch.long,
+                                      device=x.device), pos,
+                          torch.ones(M, dtype=torch.bool, device=x.device),
+                          causal=False, window=None)
+    return gated_out(p, o, x.dtype)
+
+
+def cross_kv(p, mem: torch.Tensor):
+    """Project modality memory once: (B, M, d) -> k, v (B, M, KV, hd)."""
+    return _proj(mem, p["wk"]), _proj(mem, p["wv"])
+
+
+def cross_decode(p, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """One token's cross-attention to the cached memory k, v: the query at
+    position int32 max − 1, so every valid slot is visible."""
+    pos = torch.full((x.shape[0],), torch.iinfo(torch.int32).max - 1,
+                     dtype=torch.int32, device=x.device)
+    o = decode_attention(_proj(x, p["wq"]), cache.k, cache.v,
+                         cache.positions, cache.valid, pos, window=None)
+    return gated_out(p, o, x.dtype)

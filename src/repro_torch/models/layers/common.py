@@ -44,6 +44,15 @@ def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
     return (nrm * p["scale"] + p["bias"]).to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head group norm (the xLSTM blocks' output norm), over the last
+    axis of x (..., H, hd), in float32, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 # ---------------------------------------------------------------- embed
 def init_embedding(generator: torch.Generator, vocab: int, d: int,
                    dtype: torch.dtype = torch.float32, *,

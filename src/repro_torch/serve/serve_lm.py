@@ -3,14 +3,18 @@
     PYTHONPATH=src python -m repro_torch.serve.serve_lm
     PYTHONPATH=src python -m repro_torch.serve.serve_lm --device cpu --reduced
 
-The port's counterpart of ``examples/serve_lm.py``.  It serves an
+The port's counterpart of ``examples/serve_lm.py``.  It serves any
 architecture of :mod:`repro_torch.configs` (default ``qwen2-1.5b``) at its
 full width on the card, with weights drawn from ``--seed`` (no checkpoint
 is loaded); ``--reduced`` serves the CPU-sized variant the reference demo
-always uses.  The prefill runs every causal self-attention on K11; the
-decode loop then feeds the last prompt token at position ``prompt_len − 1``
-and each sampled token after it, as the reference demo does, against a
-cache of ``prompt_len + steps`` slots.  Prints the prefill's ms, the
+always uses.  A config with ``modality_tokens`` (the VLM) is given
+(batch, modality_tokens, modality_dim) embeddings in the config's dtype,
+drawn from the same seed, the shapes of the reference's
+``launch/inputs.py``.  The prefill runs every causal self-attention
+without a window on K11; the decode loop then feeds the last prompt token
+at position ``prompt_len − 1`` and each sampled token after it, as the
+reference demo does, against a cache of ``prompt_len + steps`` slots.
+Prints the parameter count of the drawn tree, the prefill's ms, the
 decode's ms per token and tokens per second.  ``--device`` defaults to
 ``cuda`` and fails without a GPU.
 """
@@ -44,10 +48,33 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, *,
                          generator=gen, device=device)
 
 
+def make_modality(cfg: ModelConfig, batch: int, *, seed: int,
+                  device: torch.device) -> torch.Tensor | None:
+    """(batch, modality_tokens, modality_dim) standard normal embeddings in
+    the config's dtype for a config with a modality front end, else
+    None."""
+    if not cfg.modality_tokens:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    return torch.randn((batch, cfg.modality_tokens, cfg.modality_dim),
+                       generator=gen, device=device).to(getattr(torch,
+                                                                cfg.dtype))
+
+
+def param_count(params) -> int:
+    """Parameters in the drawn tree (``ModelConfig.param_count`` is the
+    reference's analytic count, which differs for some families)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_count(v) for v in params)
+    return params.numel()
+
+
 def prefill(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
-            steps: int):
+            steps: int, modality: torch.Tensor | None = None):
     """The prompts' logits and the cache, ``prompt_len + steps`` slots."""
-    return tf.prefill(params, cfg, prompts,
+    return tf.prefill(params, cfg, prompts, modality_embeds=modality,
                       cache_len=prompts.shape[1] + steps)
 
 
@@ -91,18 +118,19 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    print(f"serving {cfg.name} ({cfg.param_count() / 1e6:.1f}M params, "
+    params = load_model(cfg, seed=args.seed, device=device)
+    print(f"serving {cfg.name} ({param_count(params) / 1e6:.1f}M params, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) on "
           f"{device}")
-    params = load_model(cfg, seed=args.seed, device=device)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, seed=args.seed,
                            device=device)
+    modality = make_modality(cfg, args.batch, seed=args.seed, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     _sync(device)
     t0 = time.perf_counter()
-    _, cache = prefill(params, cfg, prompts, args.steps)
+    _, cache = prefill(params, cfg, prompts, args.steps, modality)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)

@@ -141,13 +141,16 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, hyper: SSLHyper | None,
     """Next-token CE (+ the sequence-level SSL graph regularizer when
     ``hyper`` is given and the batch holds ``W``) -> (loss, metrics).
 
-    The batch: ``tokens`` and ``targets`` (B, T), optional ``loss_mask``;
+    The batch: ``tokens`` and ``targets`` (B, T), optional ``loss_mask``
+    and ``modality_embeds`` (B, M, modality_dim, for XATTN layers);
     for the SSL term ``W`` (G, b, b) with B = G·b, ``seq_labels`` and
     ``seq_label_mask`` (G, b).  The G groups' pooled logits go, in float32
     as (G, b, V), through one ``ssl_objective`` call with G on the
     kernels' worker axis; the loss adds their mean, as the reference's
     ``vmap`` over groups does."""
-    out = tf.forward(params, cfg, batch["tokens"], with_logits=False)
+    out = tf.forward(params, cfg, batch["tokens"],
+                     modality_embeds=batch.get("modality_embeds"),
+                     with_logits=False)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, dtype=torch.float32,

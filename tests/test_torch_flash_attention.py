@@ -116,6 +116,35 @@ def test_bf16_matches_pallas_kernel_on_the_same_tiles(B, T, H, KV, hd):
     assert np.abs(got - _port(q, k, v)).max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV", [(2, 100, 100, 8, 2),
+                                         (1, 40, 130, 16, 2)])
+def test_head_dim_112_matches_pallas_kernel(dtype, B, Tq, Tk, H, KV):
+    """kimi-k2's head dim (7168 / 64 = 112) on the FMA route's 64-key
+    tiles, ragged and with Tq < Tk, against the reference's Pallas kernel
+    in interpret mode on the same tiles (heads folded into the batch, as
+    ``flash_attention_fwd_pallas`` takes them)."""
+    assert fa.route(dtype, 112) == "fma" and fa.block_k(dtype, 112) == 64
+    q, k, v = _qkv(B, Tq, H, KV, 112, Tk=Tk, seed=4)
+    G = H // KV
+
+    def fold(a, rep):
+        a = np.repeat(a.transpose(0, 2, 1, 3), rep, axis=1)
+        return jnp.asarray(a.reshape(-1, a.shape[2], 112),
+                           jnp.float32 if dtype == torch.float32
+                           else jnp.bfloat16)
+
+    want = np.asarray(flash_attention_fwd_pallas(
+        fold(q, 1), fold(k, G), fold(v, G), causal=True, bq=64, bk=64,
+        interpret=True)).astype(np.float32)
+    want = want.reshape(B, H, Tq, 112).transpose(0, 2, 1, 3)
+    got = _port(q, k, v, dtype=dtype)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=F32_ATOL)
+    else:
+        _bf16_close(got, want)
+
+
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 32),
@@ -137,7 +166,8 @@ def test_route_and_block_k():
     assert fa.route(torch.bfloat16, 128) == "wgmma"
     assert fa.route(torch.bfloat16, 64) == "wgmma"
     for dtype, hd in ((torch.bfloat16, 32), (torch.bfloat16, 16),
-                      (torch.float32, 128), (torch.float32, 16)):
+                      (torch.float32, 128), (torch.float32, 16),
+                      (torch.bfloat16, 112), (torch.float32, 112)):
         assert fa.route(dtype, hd) == "fma"
         assert fa.block_k(dtype, hd) == 64
     assert fa.block_k(torch.bfloat16, 128) == 128

@@ -686,14 +686,18 @@ def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):
                           (1, 40, 100, 8, 2, 64, True),
                           (1, 1000, 1000, 8, 1, 64, True),
                           (2, 130, 300, 12, 2, 128, False),
-                          (12, 256, 256, 12, 2, 128, True)])
+                          (12, 256, 256, 12, 2, 128, True),
+                          (2, 200, 200, 8, 1, 112, True),
+                          (1, 40, 130, 16, 2, 112, True),
+                          (1, 100, 300, 8, 2, 112, False)])
 def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
                                                KV, hd, causal):
     """bfloat16 at hd 64 and 128 runs the tensor-core route: ragged Tq = Tk
     (130, 1000), Tq < Tk (40 against 100, offset 60; 512 against 2048,
     the kernel phase's case), non-causal with a ragged Tk, and B·H = 144
     (more blocks a query row than the card's 132 SMs); the other cases run
-    the FMA route."""
+    the FMA route, hd 112 (kimi-k2's) ragged, with Tq < Tk and not
+    causal."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Tq, H, KV, hd, Tk, dtype))
     a = fa.flash_attention_gqa(q, k, v, causal=causal)
     b = fa.flash_attention_gqa(q, k, v, causal=causal)
@@ -718,7 +722,8 @@ def test_flash_attention_routes(cuda):
     assert fa.route(torch.bfloat16, 128) == "wgmma"
     assert fa.block_k(torch.bfloat16, 128) == 128
     for dtype, hd in ((torch.bfloat16, 128), (torch.bfloat16, 64),
-                      (torch.bfloat16, 32), (torch.float32, 128)):
+                      (torch.bfloat16, 32), (torch.float32, 128),
+                      (torch.bfloat16, 112), (torch.float32, 112)):
         q, k, v = (t.to(cuda) for t in _attn_inputs(1, 200, 4, 2, hd,
                                                     dtype=dtype))
         gr.reset_launch_counts()
