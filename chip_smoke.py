@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--against DIR]
 
-``--against DIR`` also builds the C entry points of K1-K10 from another
+``--against DIR`` also builds the C entry points of K1-K11 from another
 checkout's sources (DIR, e.g. the parent commit unpacked with ``git
 archive``) and times them in turns with this checkout's on the same
 inputs, outputs equal bit for bit (phase 5); K1, K2, K10, K4, K6 and K7
@@ -54,7 +54,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    also at k = 2, ragged B
    (1000, 1001), C in {1, 39, 100} and, for K5, bt in {32, 64, 128} and
    a full mask at bt = 32, C = 128 (a 36,864-tile list); with
-   ``--against`` K1-K6 and K10 built from DIR, which must give
+   ``--against`` K1-K7, K10 and K11 (at the serve prefill's bf16 shape)
+   built from DIR, which must give
    the same bits (K1, K2 and K10 also at k = 3, B = 1001, C = 100 and at
    B = 1001, C = 200, K4 and K6 at six ragged shapes and tile edges; K8
    at k = 10, 40, 300 on 4,000 rows and 1,000 on
@@ -190,9 +191,26 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    each of mixtral (full width, 2 layers) and xlstm-125m (whole) at the
    example's 16 × 128 tokens: loss terms finite, ``moe_aux`` > 0, K1 and
    K2 once a step, ms/step and peak memory;
-16. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
-   head records under ``lm_train``, K11 at hd 112 as
-   ``flash_attention_hd112``), then the result line.
+16. the launcher (``launch_phase``): ``python -m
+   repro_torch.launch.train --smoke`` for every architecture of
+   ``repro_torch.configs`` in one process on the card (the reduced
+   config, B 4 × T 32, 10 steps through the engine in chunks of 5,
+   AdaGrad, the SSL head on K1 and K2): losses finite, K1 and K2 exactly
+   once a step and nothing else (counts at 0 just before each engine run,
+   read just after), each step's loss within :data:`SMOKE_RTOL` of the
+   same run on the CPU from the same initial params, ms/step (K1 and K2
+   are held at the smoke's SSL head, (1, 4, 512), by ``lm_kernel_phase``:
+   the loss rule cannot see a wrong K2); then the
+   dry run on the ``meta`` device (``repro_torch.launch.dryrun``, full
+   width and depth, nothing allocated) of every architecture at train_4k
+   on the single-pod mesh under fsdp_tp and of qwen2-1.5b at every input
+   shape on both meshes under every strategy: every record ``ok``, its
+   trace seconds, dominant roofline term and per-chip argument bytes
+   printed;
+17. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
+   head records under ``lm_train`` and their smoke launches under
+   ``launch_smoke``, K11 at hd 112 as ``flash_attention_hd112``), then
+   the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -2252,14 +2270,15 @@ def serve_phase() -> dict:
 #: γ and κ of the example, the card-vs-CPU tolerances of the 2-layer
 #: full-width cuts (losses and metrics rtol; each gradient leaf within
 #: LM_GRAD_TOL of its largest |value|), the LM-head shapes (k, B, C) of K1
-#: and K2 (qwen2-1.5b's V at k 1 and 2, a ragged B, and the SSL heads of
-#: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304), and
-#: the steps of the full model.
+#: and K2 (qwen2-1.5b's V at k 1 and 2, a ragged B, the SSL heads of
+#: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304, and
+#: that of ``launch_phase``'s ``--smoke``: B 4 over every reduced config's
+#: V of 512), and the steps of the full model.
 LM_GAMMA, LM_KAPPA = 0.05, 1e-4
 LM_RTOL = 1e-4
 LM_GRAD_TOL = 1e-3
 LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000),
-                  (1, 16, 32000), (1, 16, 50304))
+                  (1, 16, 32000), (1, 16, 50304), (1, 4, 512))
 LM_STEPS, LM_SUPERVISED_STEPS = 6, 2
 #: The card's name and power limit (``nvidia-smi``), set by ``main`` and
 #: printed beside the LM phases' numbers.
@@ -3082,6 +3101,137 @@ def family_train_phase(arch: str) -> dict:
     return rec
 
 
+#: ``--smoke`` on the card against the CPU, from the same initial params
+#: (drawn on the CPU, moved to the card), each step's ``loss/total`` within
+#: rtol·max(1, |CPU loss|): the first step (same params) within
+#: SMOKE_FIRST_RTOL, the others within SMOKE_RTOL, or SMOKE_RECURRENT_RTOL
+#: for a config with Mamba or xLSTM layers.  Reduced configs in float32, 10
+#: AdaGrad steps; cuBLAS and the CPU sum in different orders.  AdaGrad's
+#: first update is lr·g/(|g| + ε), so a gradient at round-off level (an
+#: analytically zero one, such as the sLSTM input-gate bias's) becomes a
+#: step of up to lr, of either sign, and the recurrences amplify what
+#: follows (``tests/test_torch_launch.py::
+#: test_recurrent_smoke_amplifies_round_off``).  Each limit, between its
+#: two readings: on an H100 80GB HBM3 (700 W) the sound card's largest
+#: reading is 1.5e-7 at the first step, 9.1e-5 (yi-9b) later in the
+#: attention families and 9.4e-3 (jamba) in the recurrent ones; planted
+#: faults on the CPU (``test_smoke_loss_rules_against_planted_faults``,
+#: printed with ``-s``) read above each limit: K1 × 0.9 at the first step,
+#: K2 × 0 (the SSL gradient dropped) in yi-9b, K2 × 100 in xlstm-125m.
+#: The later-step rules do not hold K2 (in qwen2-1.5b K2 × 0 reads below
+#: SMOKE_RTOL, in xlstm-125m K2 × 0 below SMOKE_RECURRENT_RTOL: the update
+#: keeps the gradient's signs, not its size): ``lm_kernel_phase`` holds K1
+#: and K2 at the smoke's SSL head.
+SMOKE_FIRST_RTOL = 1e-5
+SMOKE_RTOL = 3e-4
+SMOKE_RECURRENT_RTOL = 2.5e-2
+SMOKE_STEPS = 10
+#: The dry run's combinations: every architecture at train_4k on the
+#: single-pod mesh under fsdp_tp, and qwen2-1.5b at every input shape on
+#: both meshes under every strategy.
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def _smoke_runs(archs, device: str) -> dict:
+    """``python -m repro_torch.launch.train --smoke`` over ``archs`` on
+    ``device``: each architecture's JSON record."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--device", device, "--steps", str(SMOKE_STEPS), "--arch", *archs],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"--smoke on {device} failed: "
+          f"{out.stderr[-3000:]}")
+    recs = [json.loads(line)["smoke"] for line in out.stdout.splitlines()
+            if line.startswith('{"smoke"')]
+    return {rec["arch"]: rec for rec in recs}
+
+
+def launch_phase() -> dict:
+    """The launcher: ``--smoke`` for every architecture on the card (one
+    process; launch counts at 0 just before each engine run and read just
+    after: K1 and K2 once a step, nothing else; losses finite) against
+    the same runs on the CPU (:data:`SMOKE_RTOL`), ms/step and steps/s;
+    then the dry run (``meta``, at full width and depth) of
+    :data:`DRYRUN_SHAPES`' combinations, every record ``ok``."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh
+    from repro_torch.launch.train import SMOKE_B
+    from repro_torch.models.config import MAMBA, MLSTM, SLSTM
+
+    for arch in ARCH_IDS:
+        head = (1, SMOKE_B, get_config(arch).reduced().vocab_size)
+        check(head in LM_HEAD_SHAPES, f"--smoke {arch}: K1 and K2 at the SSL "
+              f"head {head} are not held by lm_kernel_phase")
+    t0 = time.perf_counter()
+    card = _smoke_runs(ARCH_IDS, "cuda")
+    card_s = time.perf_counter() - t0
+    cpu = _smoke_runs(ARCH_IDS, "cpu")
+    worst = 0.0
+    for arch in ARCH_IDS:
+        check(arch in card and arch in cpu, f"--smoke {arch}: no record")
+        c, h = card[arch], cpu[arch]
+        check(len(c["losses"]) == SMOKE_STEPS
+              and all(math.isfinite(x) for x in c["losses"]),
+              f"--smoke {arch} on the card: losses {c['losses']}")
+        want = {"graph_reg_fwd": SMOKE_STEPS,
+                "graph_reg_bwd_dlogp": SMOKE_STEPS}
+        check(c["launches"] == want, f"--smoke {arch}: launches "
+              f"{c['launches']}, not K1 and K2 once a step and nothing else")
+        rels = [abs(a - b) / max(1.0, abs(b))
+                for a, b in zip(c["losses"], h["losses"])]
+        recurrent = bool({MAMBA, SLSTM, MLSTM}
+                         & set(get_config(arch).block_pattern))
+        rtol = SMOKE_RECURRENT_RTOL if recurrent else SMOKE_RTOL
+        rel = max(rels)
+        worst = max(worst, rel)
+        print(f"launch --smoke {arch} [{CARD}] ({c['config']}, "
+              f"{c['params'] / 1e6:.2f}M params, {SMOKE_STEPS} steps, "
+              f"scan_chunk {c['scan_chunk']}): {c['ms_per_step']:.2f} "
+              f"ms/step ({1e3 / c['ms_per_step']:.2f} steps/s over the "
+              f"epoch: batches, staging, the steps, one metric fetch; "
+              f"{c['seconds_with_setup']:.2f}s with the params' init and "
+              f"the engine's set-up), CPU {h['ms_per_step']:.2f} ms/step; "
+              f"mean loss {c['mean_loss']:.6f} (CPU {h['mean_loss']:.6f}); "
+              f"|Δ|/max(1,|loss|) a step " + ", ".join(
+                  f"{r:.2e}" for r in rels) + f" (first ≤ "
+              f"{SMOKE_FIRST_RTOL:g}, all ≤ {rtol:g}); launches "
+              f"{c['launches']}")
+        check(rels[0] <= SMOKE_FIRST_RTOL and rel <= rtol,
+              f"--smoke {arch}: card losses {c['losses']} vs CPU "
+              f"{h['losses']}")
+    print(f"launch --smoke: {len(card)} architectures ok on the card in "
+          f"{card_s:.1f}s (one process); worst step loss rel {worst:.3e}")
+
+    single, multi = production_mesh(), production_mesh(multi_pod=True)
+    combos = [(arch, "train_4k", single, "fsdp_tp") for arch in ARCH_IDS]
+    combos += [("qwen2-1.5b", shape, mesh, strategy)
+               for shape in DRYRUN_SHAPES for mesh in (single, multi)
+               for strategy in ("dp", "fsdp", "fsdp_tp")]
+    t0 = time.perf_counter()
+    records = dryrun.run_many(combos)
+    for rec in records:
+        check(rec["status"] == "ok", f"dry run {rec['arch']} {rec['shape']} "
+              f"{rec['mesh']} {rec['strategy']}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')[-2000:]}")
+        r = rec["roofline"]
+        print(f"dry run {rec['arch']} {rec['shape']} {rec['mesh']} "
+              f"{rec['strategy']}: trace {rec['trace_s']:.3f}s (host CPU, "
+              f"meta), dominant {r['dominant']} (compute {r['compute_s']:.4g}"
+              f" s, memory {r['memory_s']:.4g} s, collective "
+              f"{r['collective_s']:.4g} s at the H100 SXM's rates), FLOPs/"
+              f"chip {rec['flops_per_chip']:.4g}, useful "
+              f"{rec['useful_flops_ratio']:.3f}, arguments/chip "
+              f"{rec['argument_bytes_per_chip'] / 1e9:.3f} GB, peak/chip "
+              f"(estimate) {rec['peak_live_bytes_per_chip_estimate'] / 1e9:.3f}"
+              f" GB, kernel ops {rec['kernel_ops']}")
+    print(f"dry run: {len(records)} records ok in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"smoke": card, "dryrun": records}
+
+
 def print_step(label: str, step: dict) -> None:
     print(f"{label} step breakdown: step between CUDA events, back to back "
           f"(includes host launch gaps) {step['step_ms_events']:.3f} ms, "
@@ -3254,7 +3404,8 @@ def legacy_pairwise_calls(lib) -> dict:
 
 def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
                   rows_x, sigma: float) -> dict:
-    """The redesigned K1, K2, K3, K5 and K10 in turns with the same C entry
+    """The redesigned K1, K2, K3, K5, K7, K10 and K11 (at the serve
+    prefill's bf16 shape) in turns with the same C entry
     points built from another checkout's sources (``--against DIR``, e.g.
     the parent commit unpacked with ``git archive``): the same wrapper and
     inputs as the kernels line's rows, each from a CUDA graph
@@ -3281,12 +3432,14 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     from repro_torch.core.metabatch import block_layout
     from repro_torch.kernels import build
     from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_reg_bsp as bsp
     from repro_torch.kernels import pairwise, ref
 
     out_dir = build.build_dir() / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    modules = {"graph_reg": gr, "graph_reg_bsp": bsp, "pairwise": pairwise}
+    modules = {"graph_reg": gr, "graph_reg_bsp": bsp, "pairwise": pairwise,
+               "flash_attention": fa}
 
     def compile_one(src: str) -> Path:
         lib = out_dir / f"lib{src}.so"
@@ -3303,7 +3456,11 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     libs = {}
     for src, module in modules.items():
         lib = ctypes.CDLL(str(paths[src]))
-        if src != "pairwise" or hasattr(lib, "knn_topk_plan"):
+        if src == "flash_attention":
+            lib.flash_attention_fwd.argtypes = \
+                fa._lib().flash_attention_fwd.argtypes
+            lib.flash_attention_fwd.restype = ctypes.c_int
+        elif src != "pairwise" or hasattr(lib, "knn_topk_plan"):
             for fn_name, args in module._SIGNATURES.items():
                 if hasattr(lib, fn_name):   # entry points the other tree has
                     fn = getattr(lib, fn_name)
@@ -3360,12 +3517,21 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     lay = block_layout(W_path, LAYOUT_BT)
     crows, ccols, cvalid = (torch.from_numpy(a)[None].cuda()
                             for a in lay.arrays()[3:6])
+    occ = torch.from_numpy(lay.arrays()[6])[None].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    Bq, Tq, H, KV, hd = 4, 2048, 12, 2, 128     # the serve prefill's K11
+    qkv = [torch.randn((Bq, Tq, n, hd), generator=gen, device="cuda",
+                       dtype=torch.bfloat16) for n in (H, KV, KV)]
     calls = {name: this_and_other(name, logp, W, g, p) for name in this_k}
     for name, src, call in (
             ("graph_reg_bwd_dw", "graph_reg", lambda: gr.reg_bwd_dw(
                 logp, g, gamma, gamma, p=p)),
             ("graph_reg_bsp_bterm", "graph_reg_bsp", lambda: bsp.bsp_bwd_bterm(
-                logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5))):
+                logp5, W5, crows, ccols, cvalid, LAYOUT_BT, p=p5)),
+            ("graph_reg_bsp_dw", "graph_reg_bsp", lambda: bsp.bsp_bwd_dw(
+                logp5, occ, g, LAYOUT_BT, gamma, gamma, p=p5)),
+            ("flash_attention", "flash_attention",
+             lambda: fa.flash_attention_gqa(*qkv))):
         calls[name] = (call, swapped(call, modules[src], libs[src]))
     records = {}
     for fn_name, (call, run_other) in calls.items():
@@ -3710,6 +3876,10 @@ def main() -> int:
     trained = {arch: family_train_phase(arch) for arch in FAMILY_TRAIN}
     print(f"the LM stack's families (K11 at hd 112, parity, serve, "
           f"training): {time.perf_counter() - t_families:.1f}s")
+    t_launch = time.perf_counter()
+    launch = launch_phase()
+    print(f"launch phase (--smoke card and CPU, dry run): "
+          f"{time.perf_counter() - t_launch:.1f}s")
 
     # K8's and K9's build records: the kernels the path's shapes launch.
     builds = {**redesign_build, "knn_topk": {
@@ -3819,6 +3989,9 @@ def main() -> int:
             entry["lm_train_families"] = {
                 arch: rec["counts"][entry["name"]]
                 for arch, rec in trained.items()}
+            entry["launch_smoke"] = {
+                arch: rec["launches"].get(entry["name"], 0)
+                for arch, rec in launch["smoke"].items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

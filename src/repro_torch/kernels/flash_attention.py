@@ -33,7 +33,12 @@ for bit), and reads KV head h // (H / KV) in place of the wrapper's
 ``jnp.repeat``.
 
 Head dims 16, 32, 64, 112 and 128 and dtypes float32 and bfloat16 are
-taken, on both devices; anything else raises.  The wrapper counts its launches in
+taken, on both devices; anything else raises.  On ``meta`` tensors (the
+dry run) the wrapper scales q as on the card and then takes K11's shape
+rule, the custom op ``repro_torch::flash_attention``: an empty ``meta``
+output of q's shape and dtype, no launch, no plain version, and the FLOP
+formula :func:`flops` (4·hd a kept (query, key) pair, as ``chip_smoke.py``
+bounds the kernel).  The wrapper counts its launches in
 ``flash_attention_gqa.launches``; :func:`repro_torch.kernels.graph_reg.
 launch_counts` reports them with the other kernels'.
 """
@@ -43,11 +48,12 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
-from .graph_reg import _on_cpu, _raise_on, _stream
+from .graph_reg import _on_cpu, _on_meta, _raise_on, _stream
 
-__all__ = ["flash_attention_gqa", "route", "block_k", "HEAD_DIMS",
+__all__ = ["flash_attention_gqa", "route", "block_k", "flops", "HEAD_DIMS",
            "WRAPPERS", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -76,6 +82,35 @@ def block_k(dtype: torch.dtype, hd: int) -> int:
     """Keys per tile of :func:`route`'s kernel; the CPU path's plain
     version walks the same tiles."""
     return _BLOCK_K[route(dtype, hd)]
+
+
+def flops(q_shape: tuple, k_shape: tuple, causal: bool) -> float:
+    """K11's operations: q·kᵀ and p·v, 4·hd for every (query, key) pair
+    the causal mask keeps (query row t at position Tk − Tq + t), all pairs
+    without it."""
+    B, Tq, H, hd = q_shape
+    Tk = k_shape[1]
+    pairs = (Tq * (Tk - Tq + 1) + Tq * (Tq - 1) // 2 if causal
+             else Tq * Tk)
+    return 4.0 * hd * B * H * pairs
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_rule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool) -> torch.Tensor:
+    raise RuntimeError("flash_attention's shape rule runs on meta tensors "
+                       "only")
+
+
+@_flash_attention_rule.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, **_):
+    return flops(q_shape, k_shape, causal)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -127,6 +162,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K11: softmax(q·kᵀ/√hd)·v per head, causal by absolute position."""
     _check(q, k, v, causal)
     B, Tq, H, hd = q.shape
+    if _on_meta(q, k, v):
+        return _flash_attention_rule(ref.scale_queries(q), k, v, causal)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        block_k=block_k(q.dtype, hd))

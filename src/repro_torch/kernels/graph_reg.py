@@ -56,7 +56,15 @@ f32 without tensor cores):
   K1 at (1, 0, 0); same bytes and bound as K1.
 
 All four are FMA loops in f32 (no TF32, no tensor cores, whose sums would
-run in another order).  Each wrapper
+run in another order).
+
+On ``meta`` tensors (the dry run, :mod:`repro_torch.launch`) K1 and K2
+take their shape rules: one custom op each, ``repro_torch::graph_reg_fwd``
+and ``repro_torch::graph_reg_bwd_dlogp``, whose only implementation makes
+empty ``meta`` outputs of the kernel's shape and dtype, and whose FLOP
+formula (:func:`reg_forward_flops`, :func:`reg_bwd_dlogp_flops`) is the
+one ``chip_smoke.py`` bounds the kernel by.  Neither the kernel nor the
+plain version runs, and nothing is launched or counted.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``; :func:`launch_counts`
 reports them together with those of the block-sparse kernels K4–K7
 (:mod:`.graph_reg_bsp`), the graph-construction kernels K8–K9
@@ -68,6 +76,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
 
@@ -111,6 +120,56 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"the kernels take CPU or CUDA tensors, all on one "
                      f"device; got {sorted(kinds)}")
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True for all-``meta`` inputs, which take a kernel's shape rule."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def reg_forward_flops(k: int, B: int, C: int) -> float:
+    """K1's operations: P·logPᵀ (2·B²·C a worker), its sum against W and
+    the degrees (2·B²), the entropies (4·B·C)."""
+    return k * (2.0 * B * B * C + 2.0 * B * B + 4.0 * B * C)
+
+
+def reg_bwd_dlogp_flops(k: int, B: int, C: int) -> float:
+    """K2's operations: W·logP and Wᵀ·P (4·B²·C a worker), the degrees
+    (B²) and the elementwise terms (8·B·C)."""
+    return k * (4.0 * B * B * C + B * B + 8.0 * B * C)
+
+
+@torch.library.custom_op("repro_torch::graph_reg_fwd", mutates_args=())
+def _reg_forward_rule(logp: torch.Tensor, W: torch.Tensor,
+                      p: torch.Tensor) -> torch.Tensor:
+    raise RuntimeError("graph_reg_fwd's shape rule runs on meta tensors only")
+
+
+@_reg_forward_rule.register_fake
+def _(logp, W, p):
+    return logp.new_empty(logp.shape[0])
+
+
+@register_flop_formula(torch.ops.repro_torch.graph_reg_fwd)
+def _(logp_shape, W_shape, p_shape, **_):
+    return reg_forward_flops(*logp_shape)
+
+
+@torch.library.custom_op("repro_torch::graph_reg_bwd_dlogp", mutates_args=())
+def _reg_bwd_dlogp_rule(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
+                        p: torch.Tensor) -> torch.Tensor:
+    raise RuntimeError("graph_reg_bwd_dlogp's shape rule runs on meta "
+                       "tensors only")
+
+
+@_reg_bwd_dlogp_rule.register_fake
+def _(logp, W, g, p):
+    return torch.empty_like(logp, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.graph_reg_bwd_dlogp)
+def _(logp_shape, W_shape, g_shape, p_shape, **_):
+    return reg_bwd_dlogp_flops(*logp_shape)
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple,
@@ -170,6 +229,10 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
                 ge: float, *, p: torch.Tensor | None = None) -> torch.Tensor:
     """K1: the fused regularizer per worker.  logp (k, B, C), W (k, B, B)
     -> (k,).  ``p`` is ``exp(logp)`` when the caller already has it."""
+    if _on_meta(logp, W):
+        _dims(logp)
+        return _reg_forward_rule(logp, W,
+                                 torch.exp(logp) if p is None else p)
     if _on_cpu(logp, W):
         return ref.reg_forward_ref(logp, W, gc, kappa, ge)
     k, B, C = _dims(logp)
@@ -212,6 +275,10 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
                   p: torch.Tensor | None = None) -> torch.Tensor:
     """K2: dL/dlogp, (k, B, C), for the cotangent ``g`` of shape (k,).
     ``g`` stays on the device and the kernel reads it by pointer."""
+    if _on_meta(logp, W, g):
+        _dims(logp)
+        return _reg_bwd_dlogp_rule(logp, W, g,
+                                   torch.exp(logp) if p is None else p)
     if _on_cpu(logp, W, g):
         return ref.reg_bwd_dlogp_ref(logp, W, g, gc, kappa, ge)
     k, B, C = _dims(logp)

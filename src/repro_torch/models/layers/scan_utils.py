@@ -7,8 +7,14 @@ steps.  Here the scan is a Python loop over T; under autograd each chunk
 of ``chunk`` steps runs as one non-reentrant ``torch.utils.checkpoint``.
 The reference's rule for the chunk is kept: C = min(chunk, T), and a T
 that C does not divide runs the plain loop.
+
+:func:`loop_through` swaps the loop for another with the same signature
+inside its scope: the dry run's analysis traces two steps of each scan
+that way and weights the second by T − 1.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -22,6 +28,34 @@ def _scan(step, carry, xs, lo: int, hi: int):
         carry, y = step(carry, tuple(x[t] for x in xs))
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+def _loop(step, init, xs, chunk: int, remat: bool):
+    """All T steps: chunks of ``chunk`` steps, each checkpointed, when
+    ``remat``; else one plain loop."""
+    T = xs[0].shape[0]
+    if not remat:
+        return _scan(step, init, xs, 0, T)
+    carry, ys = init, []
+    for lo in range(0, T, chunk):
+        carry, y = checkpoint(_scan, step, carry, xs, lo, lo + chunk,
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
+
+
+_loops = [_loop]
+
+
+@contextlib.contextmanager
+def loop_through(loop):
+    """Run :func:`chunked_scan`'s loops through ``loop(step, init, xs,
+    chunk, remat) -> (carry, ys)`` inside this scope."""
+    _loops.append(loop)
+    try:
+        yield
+    finally:
+        _loops.pop()
 
 
 def _tensors(tree):
@@ -40,11 +74,4 @@ def chunked_scan(step, init, xs: tuple, *, chunk: int = 128):
     c = min(chunk, T)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in _tensors(init) + _tensors(xs))
-    if not grad or T % c != 0:
-        return _scan(step, init, xs, 0, T)
-    carry, ys = init, []
-    for lo in range(0, T, c):
-        carry, y = checkpoint(_scan, step, carry, xs, lo, lo + c,
-                              use_reentrant=False)
-        ys.append(y)
-    return carry, torch.cat(ys)
+    return _loops[-1](step, init, xs, c, grad and T % c == 0)

@@ -95,9 +95,9 @@ from repro_torch.train.checkpoint import (atomic_write_text, load_checkpoint,
                                           save_checkpoint)
 from repro_torch.train.train_step import _unflatten
 
-__all__ = ["TrainState", "EngineResult", "Engine", "stage_batch",
-           "data_group", "SequentialStrategy", "SyncMeshStrategy",
-           "AsyncPSStrategy", "AsyncCarry"]
+__all__ = ["TrainState", "EngineResult", "Engine", "lift_step",
+           "stage_batch", "data_group", "SequentialStrategy",
+           "SyncMeshStrategy", "AsyncPSStrategy", "AsyncCarry"]
 
 _LATEST = "LATEST"
 
@@ -118,6 +118,23 @@ class EngineResult:
     @property
     def params(self):
         return self.state.params
+
+
+def lift_step(update_fn: Callable) -> Callable:
+    """Adapt a raw ``(params, opt_state, batch, lr) -> (params, opt_state,
+    metrics)`` update into the engine's ``step_fn(state, batch, lr) ->
+    metrics``: the state takes the returned params and optimizer state
+    (the port's optimizers return the objects they updated in place) and
+    its step counter advances; its generator is left alone (for steps that
+    draw nothing, like the LM path)."""
+
+    def step_fn(state: TrainState, batch, lr):
+        state.params, state.opt_state, metrics = update_fn(
+            state.params, state.opt_state, batch, lr)
+        state.step += 1
+        return metrics
+
+    return step_fn
 
 
 def _as_host_dict(batch) -> dict:

@@ -176,11 +176,16 @@ def test_pinned_tiles_are_refused_for_cuda_kernels():
 
 def test_wrappers_refuse_other_devices():
     """CPU tensors take the plain version; anything that is neither CPU nor
-    CUDA raises instead of silently falling back."""
+    CUDA raises instead of silently falling back: mixed devices, and
+    ``meta`` tensors for a kernel without a shape rule (K3; K1 and K2
+    take theirs, the dry run's)."""
     logp = torch.zeros(1, 8, 4, device="meta")
     W = torch.zeros(1, 8, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        gr.reg_forward(logp, W, 1.0, 0.0, 1.0)
+        gr.reg_forward(logp, torch.zeros(1, 8, 8), 1.0, 0.0, 1.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gr.reg_bwd_dw(logp, torch.ones(1, device="meta"), 1.0, 1.0)
+    assert gr.reg_forward(logp, W, 1.0, 0.0, 1.0).device.type == "meta"
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
