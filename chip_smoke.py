@@ -207,10 +207,28 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    shape on both meshes under every strategy: every record ``ok``, its
    trace seconds, dominant roofline term and per-chip argument bytes
    printed;
-17. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
+17. the analysis tooling on the card (``analysis_phase``): all seven
+   audit passes (``repro_torch.analysis.build_report(device="cuda")``)
+   with no finding outside the port's baseline, the kernels each audited
+   entry launched inside its kernel boundary (K1-K3 once in the fused
+   entry, K4-K7 once in the block-sparse one, K8 once in the k-NN
+   entries, K1 and K2 once a step in every engine entry), each engine
+   chunk traced again under ``torch.cuda.set_sync_debug_mode("error")``
+   and each entry run twice on seeded random inputs under
+   ``torch.use_deterministic_algorithms(True)`` (held to J004 and D001),
+   every launch model held to the library's plan, the compiler's report
+   (static shared memory, no spill) and the runtime's occupancy
+   (resident blocks at least the launch bounds' minimum), and planted
+   twins: a model 1 byte over the budget, a sync inside a chunk, and a
+   float ``index_add_`` that D001 flags and that differs between two
+   runs without deterministic algorithms;
+18. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
    head records under ``lm_train`` and their smoke launches under
-   ``launch_smoke``, K11 at hd 112 as ``flash_attention_hd112``), then
-   the result line.
+   ``launch_smoke``, K11 at hd 112 as ``flash_attention_hd112``, each
+   entry with what the analysis phase read of its launch at the path's
+   shape under ``launch_model``: registers, spills and static shared
+   memory from the compiler, resident blocks from the runtime, dynamic
+   shared memory from the library's plan query), then the result line.
 
 Exits non-zero without a GPU or without the package beside this script.
 """
@@ -1880,57 +1898,12 @@ def attn_pairs(Tq: int, Tk: int) -> int:
     return Tq * (Tk - Tq + 1) + Tq * (Tq - 1) // 2
 
 
-def ptxas_entries(name: str) -> list[tuple[str, dict]]:
-    """(mangled kernel name, registers / spill bytes / static shared
-    memory) of every entry function in ``csrc/<name>.cu``'s compiler report
-    (``-Xptxas -v``)."""
-    import re
-    from repro_torch.kernels import build
-    out = []
-    for entry in re.split(r"ptxas info\s+: Compiling entry function ",
-                          build.REPORTS[name])[1:]:
-        kernel = entry.split("'")[1]
-        spill = re.search(rf"Function properties for {re.escape(kernel)}\s+"
-                          r"\d+ bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        smem = re.search(r"(\d+) bytes smem", entry)
-        check(spill is not None and regs is not None,
-              f"no register or spill report for {kernel}: {entry[:400]}")
-        out.append((kernel, {"registers": int(regs.group(1)),
-                             "spill_bytes": int(spill.group(1))
-                             + int(spill.group(2)),
-                             "static_smem_bytes": int(smem.group(1))
-                             if smem else 0}))
-    return out
-
-
-#: The redesigned kernels (K3 and K5; K1, K2 and K10, which shares K1's
-#: template; K4 on K1's pipeline, K6 on K2's and K7 on K3's tile): wrapper
-#: name -> (source, the kernel's name in its mangled symbol, up to the
-#: character after it).
-REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
-              "graph_reg_bsp_bterm": ("graph_reg_bsp", "bsp_bwd_btermE"),
-              "graph_reg_fwd": ("graph_reg", "reg_fwd_partialsILb1E"),
-              "graph_reg_bwd_dlogp": ("graph_reg", "reg_bwd_dlogpE"),
-              "graph_reg_pairwise": ("graph_reg", "reg_fwd_partialsILb0E"),
-              "graph_reg_bsp_fwd": ("graph_reg_bsp", "bsp_fwd_partialsE"),
-              "graph_reg_bsp_dlogp": ("graph_reg_bsp", "bsp_bwd_dlogpE"),
-              "graph_reg_bsp_dw": ("graph_reg_bsp", "bsp_bwd_dwE")}
-
-
-def resident_blocks(registers: int, smem: int, threads: int = 256) -> int:
-    """Blocks an SM holds at once, by the compiler's report: registers
-    (allocated 8 a thread at a time, 64K an SM), shared memory (228 KB an
-    SM, 1 KB reserved a block) and 2,048 threads."""
-    regs = -(-registers // 8) * 8 * threads
-    return min(65536 // regs, (228 * 1024) // (smem + 1024), 2048 // threads)
-
-
 def redesign_build_report() -> dict:
     """Registers, spills and static shared memory of the redesigned
     kernels (``-Xptxas -v``); no spill is allowed."""
     import re
+    import importlib
+    from repro_torch.analysis.launch_audit import REDESIGNED, ptxas_entries
     rec = {}
     for wrapper, (src, kernel) in REDESIGNED.items():
         hits = [r for name, r in ptxas_entries(src)
@@ -1940,8 +1913,12 @@ def redesign_build_report() -> dict:
         rec[wrapper] = r = hits[0]
         check(r["spill_bytes"] == 0, f"{kernel} spills: {r}")
         if wrapper in ("graph_reg_bwd_dw", "graph_reg_bsp_dw"):
-            r["blocks_per_sm"] = resident_blocks(r["registers"],
-                                                 r["static_smem_bytes"])
+            # The runtime's occupancy at the launch's 256 threads and no
+            # dynamic shared memory.
+            module = importlib.import_module(f"repro_torch.kernels.{src}")
+            symbol = f"{len(kernel) - 1}{kernel}"
+            r["blocks_per_sm"] = module.occupancy(
+                symbol, 256, 0)["resident_blocks"]
         print(f"{kernel} (-Xptxas -v): {r['registers']} registers, "
               f"{r['static_smem_bytes']} bytes of static shared memory, "
               f"{r['spill_bytes']} bytes spilled"
@@ -1960,6 +1937,7 @@ def pairwise_build_report() -> dict:
     (33 ≤ k ≤ K_MAX), ``knn_topk_global``, ``rbf_affinity`` by tile
     rows."""
     import re
+    from repro_torch.analysis.launch_audit import ptxas_entries
     rec = {"rbf_affinity": {}}
     knn = {("0", "1"): "knn_topk", ("0", "0"): "knn_topk_shared",
            ("1", "0"): "knn_topk_global"}
@@ -1988,6 +1966,7 @@ def flash_attention_build_report() -> dict:
     built library (``cuobjdump -sass``), which must not be 0."""
     import os
     import re
+    from repro_torch.analysis.launch_audit import ptxas_entries
     from repro_torch.kernels import build
     rec = {}
     for kernel, r in ptxas_entries("flash_attention"):
@@ -3722,6 +3701,327 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     return records
 
 
+def audit_launches() -> dict:
+    """The kernels each audited entry must launch inside its boundary on
+    the card: K1-K3 once in the fused entry, K4-K7 once in the
+    block-sparse one, K8 once in the k-NN entries, and K1 and K2 once a
+    step of every engine entry's chunk."""
+    from repro_torch.analysis.entrypoints import CHUNK_STEPS
+    return {
+        "graph_reg_fused": {"graph_reg_fwd": 1, "graph_reg_bwd_dlogp": 1,
+                            "graph_reg_bwd_dw": 1},
+        "graph_reg_blocksparse": {"graph_reg_bsp_fwd": 1,
+                                  "graph_reg_bsp_bterm": 1,
+                                  "graph_reg_bsp_dlogp": 1,
+                                  "graph_reg_bsp_dw": 1},
+        "knn_topk": {"knn_topk": 1},
+        "online_refresh": {"knn_topk": 1},
+        **{f"engine_{s}": {"graph_reg_fwd": CHUNK_STEPS,
+                           "graph_reg_bwd_dlogp": CHUNK_STEPS}
+           for s in ("sequential", "sync_mesh", "async_ps", "capture")},
+    }
+
+
+def _sync_checked(entry) -> str | None:
+    """Trace ``entry`` once with host syncs inside its chunk raising
+    (``trace_entry(sync_check=True)``); the error's text, or None."""
+    import torch
+    from repro_torch.analysis.graph_audit import trace_entry
+    try:
+        trace_entry(entry, sync_check=True)
+        torch.cuda.synchronize()
+        return None
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+
+
+def _outputs(result) -> list:
+    from repro_torch.analysis.graph_audit import reachable_tensors
+    return [t.detach().clone() for _, t in reachable_tensors(result)]
+
+
+def _twice(entry, *, deterministic: bool = True
+           ) -> tuple[bool, str | None]:
+    """Run ``entry`` twice, each from a fresh build, with
+    ``torch.use_deterministic_algorithms(deterministic)``: whether every
+    output agrees bit for bit, and the error's text if the mode refused
+    an op."""
+    import os
+
+    import torch
+    runs = []
+    if deterministic:
+        # cuBLAS is deterministic only with a fixed workspace
+        # configuration; PyTorch reads this when the mode first meets a
+        # cuBLAS call.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        for _ in range(2):
+            ctx = entry.context() if entry.context \
+                else contextlib.nullcontext()
+            with ctx:
+                fn, args = entry.build()
+                runs.append(_outputs(fn(*args)))
+                del fn, args
+    except RuntimeError as e:
+        return False, str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b)), None
+
+
+def analysis_phase() -> dict:
+    """The port's analysis tooling on the card: all seven pass families
+    (``build_report(device="cuda")``) held to the port's baseline, the
+    kernels each entry launched inside its boundary, each engine chunk
+    traced again with host syncs raising and each entry run twice under
+    deterministic algorithms (held to J004 and D001), the launch models
+    held to the library's plans, the compiler's report and the runtime's
+    occupancy, and planted twins for the card-only checks."""
+    from repro_torch.analysis import entrypoints
+    # One world-1 NCCL group for the whole phase: every sync_mesh run
+    # below finds it initialised and reuses it.
+    entrypoints.set_device("cuda")
+    with entrypoints._world_group():
+        return _analysis_runs()
+
+
+def _analysis_runs() -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import (cli, entrypoints, findings,
+                                      graph_audit, launch_audit)
+    from repro_torch.analysis.determinism_audit import \
+        audit_entry_determinism
+    from repro_torch.api.registry import AUDIT
+    from repro_torch.kernels.boundary import boundary
+    t0 = time.perf_counter()
+    report = cli.build_report(root=str(ROOT), device="cuda")
+    host_s = time.perf_counter() - t0
+    baseline = findings.load_baseline(str(ROOT / cli.BASELINE))
+    new = findings.unbaselined(report.gating, baseline)
+    for line in cli._summary_lines(report):
+        print(line)
+    for f in new:
+        print(f"NEW {f.format()}")
+    check(not new, f"{len(new)} unbaselined finding(s) on the card")
+    print(f"analysis [{CARD}]: build_report(device='cuda') over "
+          f"{len(report.passes) - 1} pass families, {len(report.findings)} "
+          f"finding(s), {len(new)} not in the baseline, {host_s:.1f} s of "
+          f"host time")
+    jm = report.metrics["jaxpr/entries"]
+    traced = {name: {"launches": trace.launches,
+                     "boundaries": sorted({op.kernel for op in trace.ops
+                                           if op.kernel}),
+                     "ops": len(trace.ops)}
+              for name, trace in report.traces.items()}
+    for name, rec in traced.items():
+        print(f"analysis {name}: launches {rec['launches']}, boundaries "
+              f"{rec['boundaries']}, {rec['ops']} ops, BxB outside kernels "
+              f"{jm[name].get('bxb_outside_kernels', '-')}")
+    for name, want in audit_launches().items():
+        got = traced[name]["launches"]
+        for kern, n in want.items():
+            check(got.get(kern, 0) == n,
+                  f"{name} launched {kern} {got.get(kern, 0)} times "
+                  f"inside its boundary (want {n})")
+            check(kern in traced[name]["boundaries"],
+                  f"{name}: no op inside {kern}'s boundary")
+    for name in ("graph_reg_fused", "graph_reg_blocksparse", "knn_topk",
+                 "online_refresh", "ssl_objective"):
+        check(jm[name]["bxb_outside_kernels"] == 0,
+              f"{name}: {jm[name]['bxb_outside_kernels']} (B, B) outputs "
+              "outside kernels on the card")
+    check(jm["graph_reg_ref"]["bxb_outside_kernels"] >= 3,
+          "the graph_reg_ref canary counted fewer than 3 (B, B) outputs")
+
+    # Host syncs inside a chunk: J004 against the card's sync check.
+    syncs = {}
+    for name in AUDIT.names():
+        if not name.startswith("engine_"):
+            continue
+        err = _sync_checked(AUDIT.get(name))
+        j004 = jm[name]["host_syncs_in_chunk"]
+        syncs[name] = {"sync_debug_error": err, "j004": j004}
+        print(f"analysis {name}: chunk under set_sync_debug_mode('error'): "
+              f"{'raised: ' + err if err else 'no sync'}; J004 counted "
+              f"{j004}")
+        check((err is None) == (j004 == 0),
+              f"{name}: J004 ({j004}) and the card's sync check ({err}) "
+              "disagree")
+    # Bit reproducibility: D001 against deterministic algorithms.
+    det = {}
+    dm = report.metrics["determinism/entries"]
+    d001 = {f.where for f in report.findings if f.rule == "D001"}
+    for name in AUDIT.names():
+        entry = AUDIT.get(name)
+        if not entry.deterministic:
+            continue
+        same, err = _twice(entry)
+        det[name] = {"bitwise": same, "refused": err,
+                     "scatters_checked": dm[name]["scatters_checked"]}
+        check(same and name not in d001,
+              f"{name}: two runs under deterministic algorithms "
+              f"{'agree' if same else 'differ'} ({err}), D001 "
+              f"{'flags' if name in d001 else 'is clean'}")
+    print(f"analysis [{CARD}]: {len(det)} deterministic entries, on seeded "
+          f"random inputs, repeat bit for bit under "
+          f"torch.use_deterministic_algorithms(True), D001 clean on each")
+
+    # The launch models against the compiler and the runtime.
+    card = report.metrics["vmem/card"]
+    models = {}
+    reports = [e for src in ("graph_reg", "graph_reg_bsp", "pairwise",
+                             "flash_attention")
+               for e in launch_audit.ptxas_entries(src)]
+    for where, ln in launch_audit.kernel_launches(card["n_sm"]):
+        r = next(r for m, r in reports if ln.symbol in m)
+        measured = {"registers": r["registers"],
+                    "spill_bytes": r["spill_bytes"],
+                    "static_smem_bytes": r["static_smem_bytes"],
+                    "resident_blocks": card["resident_blocks"][where]}
+        smem = launch_audit.library_dynamic_smem(ln)
+        if smem is not None:
+            measured["dynamic_smem_bytes"] = smem
+        models[where] = {
+            "measured": measured,
+            "model": {"grid": ln.grid, "threads": ln.threads,
+                      "cluster": ln.cluster,
+                      "dynamic_smem_bytes": ln.dynamic_smem,
+                      "static_smem_bytes": ln.static_smem,
+                      "min_blocks": ln.launch_bounds[1]}}
+        check(measured["resident_blocks"] >= ln.launch_bounds[1],
+              f"{where}: {measured['resident_blocks']} resident blocks, "
+              f"fewer than __launch_bounds__' {ln.launch_bounds[1]}")
+    by_kernel: dict = {}
+    for where, m in models.items():
+        by_kernel.setdefault(where.split("/")[0], []).append(m)
+    for kern, ms in sorted(by_kernel.items()):
+        got = [m["measured"] for m in ms]
+        mod = [m["model"] for m in ms]
+        print(f"launch model {kern} [{CARD}]: {len(ms)} shape(s), model "
+              f"grids {min(g['grid'] for g in mod)}-"
+              f"{max(g['grid'] for g in mod)} of {mod[0]['threads']}-"
+              f"{max(g['threads'] for g in mod)} threads, dynamic shared "
+              f"memory up to {max(g['dynamic_smem_bytes'] for g in mod)} B "
+              f"(launch bounds' minimum {mod[0]['min_blocks']} blocks); "
+              f"compiler {got[0]['registers']} registers, static "
+              f"{got[0]['static_smem_bytes']} B (model "
+              f"{mod[0]['static_smem_bytes']}), {got[0]['spill_bytes']} "
+              f"bytes spilled; runtime occupancy "
+              f"{min(g['resident_blocks'] for g in got)}-"
+              f"{max(g['resident_blocks'] for g in got)} blocks an SM")
+    print(f"analysis [{CARD}]: {card['plans_compared']} model plans equal "
+          f"the library's, {card['reports']} compiler reports, "
+          f"{len(models)} launch models within V001 by the runtime's "
+          f"occupancy")
+
+    # Planted twins, one per card-only check.
+    where, ln = launch_audit.kernel_launches(card["n_sm"])[0]
+    over = dataclasses.replace(
+        ln, dynamic_smem=launch_audit.SMEM_BLOCK_BYTES - ln.static_smem + 1)
+    twin_v = [f.rule for f in launch_audit.check_launch(over, where=where)]
+    check("V001" in twin_v, f"a model 1 byte over the budget: {twin_v}")
+    base = AUDIT.get("engine_sequential")
+
+    def with_item():
+        fn, args = base.build()
+        inner = fn.engine._step
+
+        def step_with_item(*a, **kw):
+            m = inner(*a, **kw)
+            with boundary("graph_reg_fwd"):
+                float(m["loss/total"])      # the planted host sync
+            return m
+        fn.engine._step = step_with_item
+        return fn, args
+
+    sync_twin = graph_audit.EntryPoint("engine_with_item", with_item,
+                                       donate=0)
+    j004 = [f.detail for f in graph_audit.audit_entry(sync_twin)[0]
+            if f.rule == "J004"]
+    err = _sync_checked(sync_twin)
+    check(j004 and err is not None,
+          f"the planted .item() twin: J004 {j004}, sync check {err}")
+
+    def with_index_add():
+        gen = torch.Generator("cuda").manual_seed(0)
+        x = torch.zeros(64, device="cuda")
+        idx = torch.randint(0, 64, (1 << 20,), device="cuda", generator=gen)
+        src = torch.randn(1 << 20, device="cuda", generator=gen) * 1e3
+        return (lambda x, i, s: x.index_add_(0, i, s)), (x, idx, src)
+
+    det_twin = graph_audit.EntryPoint("index_add_twin", with_index_add)
+    d_rules = [f.rule for f in audit_entry_determinism(det_twin)[0]]
+    same_on, refused = _twice(det_twin)
+    pairs = [_twice(det_twin, deterministic=False)[0] for _ in range(5)]
+    check("D001" in d_rules, f"the planted index_add_ twin: D001 {d_rules}")
+    check(not all(pairs), "the planted index_add_ twin repeated bit for "
+          "bit in all 5 pairs of runs without deterministic algorithms: "
+          "the run check could not have failed")
+    print(f"analysis twins [{CARD}]: a model 1 byte over {where}'s budget "
+          f"-> {sorted(set(twin_v))}; an engine chunk with float() of a "
+          f"metric inside graph_reg_fwd's boundary -> J004 {j004}, sync "
+          f"check raised: {err}; a float index_add_ of 2^20 values into 64 "
+          f"rows -> {sorted(set(d_rules))}, run twice without deterministic"
+          f" algorithms: {sum(not p for p in pairs)} of 5 pairs differ, "
+          f"under them: "
+          f"{'refused: ' + refused if refused else 'bitwise ' + str(same_on)}")
+    return {"host_seconds": host_s, "passes": report.passes,
+            "launches": {k: v["launches"] for k, v in traced.items()},
+            "syncs": syncs, "deterministic": det, "models": models,
+            "twin_pairs_differing": sum(not p for p in pairs)}
+
+
+#: Each kernel line's launch: (wrapper call, its kernel, the path's shape,
+#: as in ``analysis.launch_audit.DEFAULT_SHAPES``).
+PATH_MODELS = {
+    "graph_reg_fwd": ("graph_reg_fwd", "reg_fwd_partials",
+                      dict(k=1, B=2176, C=39)),
+    "graph_reg_bwd_dlogp": ("graph_reg_bwd_dlogp", "reg_bwd_dlogp",
+                            dict(k=1, B=2176, C=39)),
+    "graph_reg_bwd_dw": ("graph_reg_bwd_dw", "reg_bwd_dw",
+                         dict(k=1, B=2176, C=39)),
+    "graph_reg_pairwise": ("graph_reg_pairwise", "reg_fwd_partials",
+                           dict(B=2176, C=39)),
+    **{name: (name, kern, dict(k=1, B=2176, C=39, T=289, bt=LAYOUT_BT))
+       for name, kern in (("graph_reg_bsp_fwd", "bsp_fwd_partials"),
+                          ("graph_reg_bsp_bterm", "bsp_bwd_bterm"),
+                          ("graph_reg_bsp_dlogp", "bsp_bwd_dlogp"),
+                          ("graph_reg_bsp_dw", "bsp_bwd_dw"))},
+    "knn_topk": ("knn_topk", "knn_topk_kernel",
+                 dict(N=20000, M=20000, D=351, k=10, same=True)),
+    "rbf_affinity": ("rbf_affinity", "rbf_affinity_kernel",
+                     dict(N=2176, M=2176, D=351, same=True)),
+    "flash_attention": ("flash_attention", "flash_fwd_wgmma_kernel",
+                        dict(B=4, Tq=2048, Tk=2048, H=12, KV=2, hd=128,
+                             dtype="bfloat16")),
+    "flash_attention_hd112": ("flash_attention", "flash_fwd_kernel",
+                              dict(B=4, Tq=2048, Tk=2048, H=64, KV=8,
+                                   hd=112, dtype="bfloat16")),
+}
+
+
+def launch_model_of(name: str, models: dict) -> dict | None:
+    """What the analysis phase read of kernel line ``name``'s launch at its
+    path's shape: registers, spills and static shared memory from the
+    compiler's report, resident blocks from the runtime's occupancy, and
+    dynamic shared memory where the library's plan query reports it."""
+    import torch
+    from repro_torch.analysis import launch_audit
+    call, kernel, shape = PATH_MODELS[name]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ln = next(ln for ln in launch_audit.call_launches(call, n_sm=n_sm,
+                                                      **shape)
+              if ln.kernel == kernel)
+    got = models.get(f"{ln.kernel}/{ln.variant}")
+    return None if got is None else got["measured"]
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3880,6 +4180,11 @@ def main() -> int:
     launch = launch_phase()
     print(f"launch phase (--smoke card and CPU, dry run): "
           f"{time.perf_counter() - t_launch:.1f}s")
+    t_analysis = time.perf_counter()
+    analysis = analysis_phase()
+    print(f"analysis phase (seven passes on the card, sync and "
+          f"deterministic re-runs, twins): "
+          f"{time.perf_counter() - t_analysis:.1f}s")
 
     # K8's and K9's build records: the kernels the path's shapes launch.
     builds = {**redesign_build, "knn_topk": {
@@ -3985,6 +4290,8 @@ def main() -> int:
         "shape": {"B": KIMI_ATTN[0], "T": KIMI_ATTN[1], "H": KIMI_ATTN[2],
                   "KV": KIMI_ATTN[3], "hd": KIMI_ATTN[4]}})
     for entry in kernels:
+        entry["launch_model"] = launch_model_of(entry["name"],
+                                                analysis["models"])
         if entry["name"] in ("graph_reg_fwd", "graph_reg_bwd_dlogp"):
             entry["lm_train_families"] = {
                 arch: rec["counts"][entry["name"]]

@@ -1,11 +1,21 @@
-"""Tile-list checks of a ``BlockLayout`` (the reference's W-pass rules).
+"""Write-race / aliasing auditor (W-pass).
+
+The counterpart of the reference's ``race_audit.py``.  A CUDA grid runs its
+blocks in any order and at once, so the port's kernels are written to one
+rule: every output element has exactly one writing block (no float
+atomics; K1's and K4's per-block partials are summed by an ordered second
+pass).  Two blocks writing the same element would overwrite each other's
+result in a scheduler-chosen order — the class of bug that reads as
+"gradients off by one block" and never crashes.
+
+  * ``W001`` — from the launch models of :mod:`.launch_audit`, no output
+    element is written by two blocks that differ outside the output's
+    declared accumulation axes (none in the port).
 
 The block-sparse kernels (K4–K7) walk a data-dependent list of tiles, so
 their correctness rests on the list contract of
-:mod:`repro_torch.core.metabatch`.  ``check_tile_list`` and
-``check_layout`` are the reference's checks of that contract, kept here as
-the port's own copy (numpy only), with a small :class:`Finding` record in
-place of the reference's audit-report row:
+:mod:`repro_torch.core.metabatch`; ``check_tile_list`` and ``check_layout``
+are the reference's checks of that contract:
 
   * ``W002`` — no duplicate active ``(row, col)`` entry: a duplicate makes
     the kernels add the same tile twice.
@@ -18,27 +28,37 @@ place of the reference's audit-report row:
     coordinates are in range, and the valid entries reproduce the
     occupancy mask exactly.
 
-``graph_regularizer_blocksparse(validate=True)`` runs them before launch.
+``graph_regularizer_blocksparse(validate=True)`` runs the list checks
+before launch; ``audit_races`` is the pass entry point: W001 over every
+launch model, then the list contract over representative layouts (dense,
+block-diagonal, seeded-random, empty).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
-from repro_torch.core.metabatch import BlockLayout
+from repro_torch.analysis.findings import Finding
+from repro_torch.core.metabatch import BlockLayout, layout_from_occupancy
 
-__all__ = ["Finding", "check_tile_list", "check_layout"]
+__all__ = ["Finding", "check_launch_races", "check_tile_list",
+           "check_layout", "audit_races"]
 
 
-@dataclasses.dataclass(frozen=True)
-class Finding:
-    """One broken rule of the tile-list contract."""
-
-    rule: str         # "W002" | "W003" | "W004"
-    where: str        # the audited unit, e.g. "blocksparse.layout"
-    message: str
-    detail: str = ""  # short stable discriminator, e.g. "layout.csr:unsorted"
+def check_launch_races(launch, *, where: str) -> list[Finding]:
+    """W001 for one launch model: no output element written by two blocks
+    that differ outside the output's declared accumulation axes."""
+    from repro_torch.analysis.launch_audit import coverage
+    findings = []
+    for name, cov in coverage(launch).items():
+        if cov["overlap"] is not None:
+            findings.append(Finding(
+                "race", "W001", where,
+                f"{launch.kernel}/{launch.variant}: output {name!r} is "
+                f"written twice ({cov['overlap']} overlaps an earlier "
+                "block) — an overwrite race; give each element one block "
+                "or declare the axis in accum_axes",
+                detail=f"{launch.variant}:{name}"))
+    return findings
 
 
 def check_tile_list(rows, cols, valid, nt: int, *, major: str = "row",
@@ -56,7 +76,7 @@ def check_tile_list(rows, cols, valid, nt: int, *, major: str = "row",
     findings: list[Finding] = []
 
     def flag(rule: str, msg: str, disc: str) -> None:
-        findings.append(Finding(rule, where, f"{name}: {msg}",
+        findings.append(Finding("race", rule, where, f"{name}: {msg}",
                                 detail=f"{name}:{disc}"))
 
     T = len(rows)
@@ -146,3 +166,49 @@ def check_layout(layout: BlockLayout, *, where: str,
         layout.crows, layout.ccols, layout.cvalid, layout.nt,
         major="col", occ=layout.occ, where=where, name=f"{name}.csc")
     return findings
+
+
+def _representative_layouts() -> list[tuple[str, BlockLayout]]:
+    nt = 6
+    dense = np.ones((nt, nt), dtype=bool)
+    block_diag = np.kron(np.eye(nt // 2, dtype=bool),
+                         np.ones((2, 2), dtype=bool))
+    rng = np.random.default_rng(0)
+    random = rng.random((nt, nt)) < 0.35
+    empty = np.zeros((nt, nt), dtype=bool)
+    return [
+        ("dense", layout_from_occupancy(dense, 128)),
+        ("block_diag", layout_from_occupancy(block_diag, 128)),
+        ("seeded_random", layout_from_occupancy(random, 128,
+                                                list_len=48)),
+        ("empty", layout_from_occupancy(empty, 128)),
+    ]
+
+
+def audit_races(launches=None) -> tuple[list[Finding], dict]:
+    """The W-pass entry point: W001 over every launch model
+    (:func:`repro_torch.analysis.launch_audit.kernel_launches` by
+    default), then the tile-list contract over representative layouts."""
+    from repro_torch.analysis.launch_audit import kernel_launches
+    launches = kernel_launches() if launches is None else launches
+    findings: list[Finding] = []
+    blocks_proven = 0
+    for where, launch in launches:
+        got = check_launch_races(launch, where=where)
+        findings.extend(got)
+        if not got:
+            blocks_proven += launch.blocks
+    tiles_proven = 0
+    layouts = _representative_layouts()
+    for lname, layout in layouts:
+        got = check_layout(layout, where=f"layout:{lname}", name=lname)
+        findings.extend(got)
+        if not got:
+            tiles_proven += 2 * layout.n_active
+    metrics = {
+        "launches_checked": len(launches),
+        "output_blocks_proven": blocks_proven,
+        "layouts_checked": len(layouts),
+        "tiles_proven_race_free": tiles_proven,
+    }
+    return findings, metrics

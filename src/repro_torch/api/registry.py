@@ -13,6 +13,7 @@ import importlib
 from typing import Any, Callable, Iterable
 
 __all__ = ["Registry", "AFFINITY", "PARTITIONER", "PIPELINE", "PAIRWISE",
+           "AUDIT",
            "STRATEGY", "OPTIMIZER", "resolve_pairwise"]
 
 
@@ -114,6 +115,20 @@ STRATEGY = Registry("strategy")
 STRATEGY.register("sequential", "repro_torch.train.engine:SequentialStrategy")
 STRATEGY.register("sync_mesh", "repro_torch.train.engine:SyncMeshStrategy")
 STRATEGY.register("async_ps", "repro_torch.train.engine:AsyncPSStrategy")
+
+#: Audited entry points of the analysis toolkit (:mod:`repro_torch.analysis`):
+#: each name resolves to a ``repro_torch.analysis.graph_audit.EntryPoint`` —
+#: how to run one surface of the port under the dispatch recorder and what
+#: contracts its trace must satisfy.  The CLI (``python -m
+#: repro_torch.analysis``) audits every registered name; register a new
+#: entry here to put a new path under the CI gate.  The names are the
+#: reference's.
+AUDIT = Registry("audit")
+for _name in ("graph_reg_fused", "graph_reg_blocksparse", "graph_reg_ref",
+              "knn_topk", "online_refresh", "ssl_objective",
+              "engine_sequential", "engine_sync_mesh", "engine_async_ps",
+              "engine_capture", "serve_decode_generate"):
+    AUDIT.register(_name, f"repro_torch.analysis.entrypoints:{_name}")
 
 #: ``(**hyper) -> repro_torch.optim.Optimizer``
 OPTIMIZER = Registry("optimizer")

@@ -1,4 +1,5 @@
-// Per-device queries of the launches, each asked once per device.
+// Per-device queries of the launches, each asked once per device, and the
+// runtime's occupancy of each kernel.
 //
 // Dynamic shared memory past the default allowance, used by K1, K2 and K10
 // (graph_reg.cu), K5 (graph_reg_bsp.cu), K8 and K9 (pairwise.cu).  A kernel
@@ -55,6 +56,37 @@ inline cudaError_t sm_count(int* n) {
     }
     *n = known[dev];
     return cudaSuccess;
+}
+
+// The runtime's reading of one kernel: the blocks of `threads` threads and
+// `smem` bytes of dynamic shared memory an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after raising the
+// kernel's allowance as its launch does), and its registers a thread and
+// static shared memory (cudaFuncGetAttributes).
+using OccupancyQuery = cudaError_t (*)(int, int, int*, int*, int*);
+
+template <auto kKernel>
+cudaError_t occupancy(int threads, int smem, int* blocks, int* registers,
+                      int* static_smem) {
+    cudaError_t err = allow_dynamic_smem<kKernel>(static_cast<size_t>(smem));
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kKernel);
+    if (err != cudaSuccess) return err;
+    *registers = attr.numRegs;
+    *static_smem = static_cast<int>(attr.sharedSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kKernel, threads, static_cast<size_t>(smem));
+}
+
+// Entry `kernel` of a library's occupancy table.
+template <int N>
+int occupancy_of(const OccupancyQuery (&table)[N], int kernel, int threads,
+                 int smem, int* blocks, int* registers, int* static_smem) {
+    if (kernel < 0 || kernel >= N || threads < 1 || smem < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        table[kernel](threads, smem, blocks, registers, static_smem));
 }
 
 }  // namespace

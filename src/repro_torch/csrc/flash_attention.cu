@@ -56,6 +56,7 @@
 
 #include <cstdint>
 
+#include "dynamic_smem.cuh"
 #include "flash_attention_wgmma.cuh"
 
 namespace {
@@ -299,6 +300,55 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
         return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, Tq, Tk, H, KV, hd,
                                           causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory (bytes) of one block of the launch that
+// flash_attention_fwd makes for head dim hd and dtype; -1 for a pair it
+// refuses.
+int flash_attention_smem(int hd, int dtype) {
+    if (dtype == 1 && hd == 64)
+        return static_cast<int>(k11_wgmma::smem_bytes<64>());
+    if (dtype == 1 && hd == 128)
+        return static_cast<int>(k11_wgmma::smem_bytes<128>());
+    switch (hd) {
+        case 16: return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 16>()
+                                               : smem_bytes<float, 16>());
+        case 32: return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 32>()
+                                               : smem_bytes<float, 32>());
+        case 112: return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 112>()
+                                                : smem_bytes<float, 112>());
+        case 64: return dtype ? -1 : static_cast<int>(smem_bytes<float, 64>());
+        case 128: return dtype ? -1 : static_cast<int>(smem_bytes<float, 128>());
+    }
+    return -1;
+}
+
+}  // extern "C"
+
+namespace {
+
+// The kernels flash_attention_occupancy answers for, by index: the order of
+// flash_attention.OCCUPANCY_KERNELS.
+const OccupancyQuery kOccupancy[] = {
+    occupancy<flash_fwd_kernel<float, 16>>,
+    occupancy<flash_fwd_kernel<float, 32>>,
+    occupancy<flash_fwd_kernel<__nv_bfloat16, 112>>,
+    occupancy<k11_wgmma::flash_fwd_wgmma_kernel<64>>,
+    occupancy<k11_wgmma::flash_fwd_wgmma_kernel<128>>,
+};
+
+}  // namespace
+
+extern "C" {
+
+// Blocks an SM holds at once of entry `kernel` of kOccupancy, launched
+// with `threads` threads and `smem` bytes of dynamic shared memory, and
+// the kernel's registers a thread and static shared memory, as the
+// runtime reads them.
+int flash_attention_occupancy(int kernel, int threads, int smem, int* blocks,
+                              int* registers, int* static_smem) {
+    return occupancy_of(kOccupancy, kernel, threads, smem, blocks, registers,
+                        static_smem);
 }
 
 }  // extern "C"

@@ -387,3 +387,32 @@ int graph_reg_bwd_dw(const void* p, const void* logp, const void* g, int k,
 }
 
 }  // extern "C"
+
+namespace {
+
+// The kernels graph_reg_occupancy answers for, by index: the order of
+// graph_reg.OCCUPANCY_KERNELS.
+const OccupancyQuery kOccupancy[] = {
+    occupancy<reg_fwd_partials<true>>,
+    occupancy<reg_fwd_partials<false>>,
+    occupancy<reg_bwd_dlogp>,
+    occupancy<reg_bwd_dw>,
+    occupancy<pad_classes>,
+    occupancy<reg_fwd_tree_sum>,
+};
+
+}  // namespace
+
+extern "C" {
+
+// Blocks an SM holds at once of entry `kernel` of kOccupancy, launched
+// with `threads` threads and `smem` bytes of dynamic shared memory, and
+// the kernel's registers a thread and static shared memory, as the
+// runtime reads them.
+int graph_reg_occupancy(int kernel, int threads, int smem, int* blocks,
+                        int* registers, int* static_smem) {
+    return occupancy_of(kOccupancy, kernel, threads, smem, blocks, registers,
+                        static_smem);
+}
+
+}  // extern "C"

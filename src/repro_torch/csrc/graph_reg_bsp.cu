@@ -570,3 +570,30 @@ int graph_reg_bsp_dw(const void* p, const void* logp, const void* occ,
 }
 
 }  // extern "C"
+
+namespace {
+
+// The kernels graph_reg_bsp_occupancy answers for, by index: the order of
+// graph_reg_bsp.OCCUPANCY_KERNELS.
+const OccupancyQuery kOccupancy[] = {
+    occupancy<bsp_fwd_partials>,
+    occupancy<bsp_bwd_bterm>,
+    occupancy<bsp_bwd_dlogp>,
+    occupancy<bsp_bwd_dw>,
+};
+
+}  // namespace
+
+extern "C" {
+
+// Blocks an SM holds at once of entry `kernel` of kOccupancy, launched
+// with `threads` threads and `smem` bytes of dynamic shared memory, and
+// the kernel's registers a thread and static shared memory, as the
+// runtime reads them.
+int graph_reg_bsp_occupancy(int kernel, int threads, int smem, int* blocks,
+                            int* registers, int* static_smem) {
+    return occupancy_of(kOccupancy, kernel, threads, smem, blocks, registers,
+                        static_smem);
+}
+
+}  // extern "C"

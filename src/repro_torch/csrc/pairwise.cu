@@ -638,3 +638,33 @@ int rbf_affinity(const void* x, const void* y, const void* nx,
 }
 
 }  // extern "C"
+
+namespace {
+
+// The kernels pairwise_occupancy answers for, by index: the order of
+// pairwise.OCCUPANCY_KERNELS.
+const OccupancyQuery kOccupancy[] = {
+    occupancy<knn_topk_kernel<false, true>>,
+    occupancy<knn_topk_kernel<false, false>>,
+    occupancy<knn_topk_kernel<true, false>>,
+    occupancy<knn_merge_segments>,
+    occupancy<pack_t>,
+    occupancy<rbf_affinity_kernel<64>>,
+    occupancy<rbf_affinity_kernel<128>>,
+};
+
+}  // namespace
+
+extern "C" {
+
+// Blocks an SM holds at once of entry `kernel` of kOccupancy, launched
+// with `threads` threads and `smem` bytes of dynamic shared memory, and
+// the kernel's registers a thread and static shared memory, as the
+// runtime reads them.
+int pairwise_occupancy(int kernel, int threads, int smem, int* blocks,
+                       int* registers, int* static_smem) {
+    return occupancy_of(kOccupancy, kernel, threads, smem, blocks, registers,
+                        static_smem);
+}
+
+}  // extern "C"

@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["CSRC", "NVCC_FLAGS", "REPORTS", "build_dir", "find_nvcc",
-           "library_path", "build", "load"]
+           "library_path", "build", "load", "occupancy"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -91,3 +91,24 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def occupancy(lib: ctypes.CDLL, name: str, kernels: tuple[str, ...],
+              symbol: str, threads: int, dynamic_smem: int) -> dict:
+    """The runtime's reading of kernel ``symbol`` of library ``name``
+    (``<name>_occupancy``, whose table lists ``kernels`` in order) launched
+    with ``threads`` threads and ``dynamic_smem`` bytes of dynamic shared
+    memory: the blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the kernel's
+    registers a thread and static shared memory
+    (``cudaFuncGetAttributes``)."""
+    blocks, regs, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = getattr(lib, f"{name}_occupancy")(
+        kernels.index(symbol), threads, dynamic_smem, ctypes.byref(blocks),
+        ctypes.byref(regs), ctypes.byref(static))
+    if rc != 0:
+        raise RuntimeError(f"{name}_occupancy({symbol}, {threads} threads, "
+                           f"{dynamic_smem} bytes) failed with CUDA error "
+                           f"{rc}")
+    return {"resident_blocks": blocks.value, "registers": regs.value,
+            "static_smem_bytes": static.value}

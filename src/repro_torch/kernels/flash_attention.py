@@ -51,10 +51,12 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
+from .boundary import bounded
 from .graph_reg import _on_cpu, _on_meta, _raise_on, _stream
 
-__all__ = ["flash_attention_gqa", "route", "block_k", "flops", "HEAD_DIMS",
-           "WRAPPERS", "SOURCE"]
+__all__ = ["flash_attention_gqa", "route", "block_k", "flops", "launch_smem",
+           "HEAD_DIMS", "WRAPPERS", "OCCUPANCY_KERNELS", "occupancy",
+           "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
@@ -114,14 +116,46 @@ def _(q_shape, k_shape, v_shape, causal, **_):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_fwd": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
+    "flash_attention_smem": (_I, _I),
+    "flash_attention_occupancy": (_I, _I, _I, _P, _P, _P),
+}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
-    lib.flash_attention_fwd.restype = ctypes.c_int
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
     return lib
+
+
+#: The kernels ``flash_attention_occupancy`` answers for, by index: each one's
+#: mangled name from its length on, as the compiler's report names it, in
+#: the order of the source's ``kOccupancy`` table.
+OCCUPANCY_KERNELS = ("16flash_fwd_kernelIfLi16E",
+                     "16flash_fwd_kernelIfLi32E",
+                     "16flash_fwd_kernelI13__nv_bfloat16Li112E",
+                     "22flash_fwd_wgmma_kernelILi64E",
+                     "22flash_fwd_wgmma_kernelILi128E")
+
+
+def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
+    """Resident blocks an SM, registers and static shared memory of kernel
+    ``symbol`` (:data:`OCCUPANCY_KERNELS`) on the current card, as the
+    runtime reads them (builds the library)."""
+    return build.occupancy(_lib(), "flash_attention", OCCUPANCY_KERNELS, symbol,
+                           threads, dynamic_smem)
+
+
+def launch_smem(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory (bytes) of one K11 block at ``dtype`` and
+    ``hd``, as the library's launch asks for it (builds the library)."""
+    route(dtype, hd)
+    return _lib().flash_attention_smem(hd, _DTYPES[dtype])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,6 +191,7 @@ def _check_tma(**tensors: torch.Tensor) -> None:
                 f"strides {strides} bytes")
 
 
+@bounded("flash_attention")
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """K11: softmax(q·kᵀ/√hd)·v per head, causal by absolute position."""

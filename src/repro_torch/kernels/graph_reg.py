@@ -79,9 +79,12 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
+from .boundary import bounded
 
 __all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "reg_pairwise",
-           "launch_plan", "launch_counts", "reset_launch_counts", "SOURCE"]
+           "fwd_plan", "dlogp_plan", "launch_plan", "launch_counts",
+           "reset_launch_counts", "OCCUPANCY_KERNELS", "occupancy",
+           "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg.cu"
 
@@ -98,6 +101,7 @@ _SIGNATURES = {
     "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
                             _P),
     "graph_reg_bwd_dw": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
+    "graph_reg_occupancy": (_I, _I, _I, _P, _P, _P),
 }
 
 
@@ -109,6 +113,25 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+#: The kernels ``graph_reg_occupancy`` answers for, by index: each one's
+#: mangled name from its length on, as the compiler's report names it, in
+#: the order of the source's ``kOccupancy`` table.
+OCCUPANCY_KERNELS = ("16reg_fwd_partialsILb1E",
+                     "16reg_fwd_partialsILb0E",
+                     "13reg_bwd_dlogpE",
+                     "10reg_bwd_dwE",
+                     "11pad_classesE",
+                     "16reg_fwd_tree_sumE")
+
+
+def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
+    """Resident blocks an SM, registers and static shared memory of kernel
+    ``symbol`` (:data:`OCCUPANCY_KERNELS`) on the current card, as the
+    runtime reads them (builds the library)."""
+    return build.occupancy(_lib(), "graph_reg", OCCUPANCY_KERNELS, symbol,
+                           threads, dynamic_smem)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -218,6 +241,66 @@ def _plan(lib: ctypes.CDLL, name: str, *dims: int) -> dict:
     return {"rows_per_block": rows.value, "dynamic_smem_bytes": smem.value}
 
 
+# The launch plans' constants (``csrc/graph_reg_tiles.cuh``): K1's
+# pipeline and K2's ring.
+FWD_SPAN, FWD_CHUNK, FWD_STAGES, FWD_MAX_PAIRS = 128, 64, 3, 8
+SUM_THREADS = 256              # partials a 32-row strip (kThreads)
+DL_PIECE, DL_MAX_ROWS, DL_MAX_QUADS, DL_MAX_THREADS = 32, 64, 32, 512
+DL_STAGES = 2                  # K2's ring (kDlStages)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rows_to_fill(rows_total: int, n_sm: int, step: int,
+                  max_rows: int) -> int:
+    """``rows_to_fill`` of the source: as few rows a block (units of
+    ``step``, at most ``max_rows``) as fill each SM once."""
+    rows = _cdiv(_cdiv(rows_total, n_sm), step) * step
+    return step if rows < step else min(rows, max_rows)
+
+
+def fwd_smem_floats(rows: int, C: int) -> int:
+    """``fwd_smem_floats`` of the source: K1's ring and P rows."""
+    width = min(_cdiv(C, 4) * 4, FWD_CHUNK)
+    stride = 4 * ((width // 4) | 1)
+    stage = FWD_SPAN * stride + rows * FWD_SPAN + (rows * stride
+                                                   if C > width else 0)
+    return FWD_STAGES * stage + (0 if C > width else rows * stride)
+
+
+def fwd_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
+    """K1's (and K10's) launch plan on a card of ``n_sm`` SMs, as the
+    source's ``graph_reg_fwd_plan``: the fewest rows a block (4 a warp, at
+    most ``FWD_MAX_PAIRS`` warps) that fill each SM once; dynamic shared
+    memory and workspace floats (the partials, then the class-padded
+    logP)."""
+    rows = _rows_to_fill(k * 32 * _cdiv(B, 32), n_sm, 4, 4 * FWD_MAX_PAIRS)
+    return {"rows_per_block": rows,
+            "dynamic_smem_bytes": 4 * fwd_smem_floats(rows, C),
+            "workspace_floats": k * _cdiv(B, 32) * SUM_THREADS
+            + k * B * _cdiv(C, 4) * 4}
+
+
+def dlogp_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
+    """K2's launch plan on a card of ``n_sm`` SMs, as the source's
+    ``graph_reg_bwd_dlogp_plan``: rows a block (a multiple of 4, at most
+    ``DL_MAX_ROWS`` and what ``DL_MAX_THREADS`` threads of 2 rows × 4
+    classes hold) that fill the card's n_sm/2 cluster slots once; dynamic
+    shared memory (the ring) and workspace floats (class-padded P and
+    logP)."""
+    quads = min(_cdiv(C, 4), DL_MAX_QUADS)
+    n_chunks = _cdiv(C, 4 * DL_MAX_QUADS)
+    max_rows = min(2 * (DL_MAX_THREADS // quads), DL_MAX_ROWS) & ~3
+    rows = _rows_to_fill(k * n_chunks * B, n_sm // 2 if n_sm > 1 else 1, 4,
+                         max_rows)
+    return {"rows_per_block": rows,
+            "dynamic_smem_bytes": 4 * DL_STAGES * DL_PIECE
+            * (rows + 4 * quads),
+            "workspace_floats": 2 * k * B * _cdiv(C, 4) * 4}
+
+
 def launch_plan(name: str, k: int, B: int, C: int) -> dict:
     """Rows per block and dynamic shared memory (bytes) of one K1 / K10
     (``"graph_reg_fwd"``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
@@ -225,6 +308,7 @@ def launch_plan(name: str, k: int, B: int, C: int) -> dict:
     return _plan(_lib(), name, k, B, C)
 
 
+@bounded("graph_reg_fwd")
 def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
                 ge: float, *, p: torch.Tensor | None = None) -> torch.Tensor:
     """K1: the fused regularizer per worker.  logp (k, B, C), W (k, B, B)
@@ -248,6 +332,7 @@ def reg_forward(logp: torch.Tensor, W: torch.Tensor, gc: float, kappa: float,
     return out
 
 
+@bounded("graph_reg_pairwise")
 def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
                  p: torch.Tensor | None = None) -> torch.Tensor:
     """K10: the bare cross term Σ_ij W_ij·Hc(p_i, p_j) of one block.
@@ -270,6 +355,7 @@ def reg_pairwise(logp: torch.Tensor, W: torch.Tensor, *,
     return out
 
 
+@bounded("graph_reg_bwd_dlogp")
 def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
                   gc: float, kappa: float, ge: float, *,
                   p: torch.Tensor | None = None) -> torch.Tensor:
@@ -294,6 +380,7 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
     return out
 
 
+@bounded("graph_reg_bwd_dw")
 def reg_bwd_dw(logp: torch.Tensor, g: torch.Tensor, gc: float, ge: float, *,
                p: torch.Tensor | None = None) -> torch.Tensor:
     """K3: dL/dW, (k, B, B), for the cotangent ``g`` of shape (k,)."""

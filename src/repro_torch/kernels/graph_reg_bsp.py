@@ -68,12 +68,14 @@ import functools
 import torch
 
 from . import build, ref
+from .boundary import bounded
 from .graph_reg import (_checked, _dims, _on_cpu, _plan, _raise_on,
                         _stream, _workspace)
 
 __all__ = ["bsp_forward", "bsp_bwd_bterm", "bsp_bwd_dlogp", "bsp_bwd_dw",
            "bterm_smem_bytes", "check_tile_edge", "fwd_plan", "dlogp_plan",
-           "launch_plan", "WRAPPERS", "SOURCE"]
+           "launch_plan", "WRAPPERS", "OCCUPANCY_KERNELS", "occupancy",
+           "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg_bsp.cu"
 
@@ -92,6 +94,7 @@ _SIGNATURES = {
     "graph_reg_bsp_dlogp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _F, _F, _P, _P, _P),
     "graph_reg_bsp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P),
+    "graph_reg_bsp_occupancy": (_I, _I, _I, _P, _P, _P),
 }
 
 # The launch plans' constants (``csrc/graph_reg_tiles.cuh`` and
@@ -110,6 +113,23 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+#: The kernels ``graph_reg_bsp_occupancy`` answers for, by index: each one's
+#: mangled name from its length on, as the compiler's report names it, in
+#: the order of the source's ``kOccupancy`` table.
+OCCUPANCY_KERNELS = ("16bsp_fwd_partialsE",
+                     "13bsp_bwd_btermE",
+                     "13bsp_bwd_dlogpE",
+                     "10bsp_bwd_dwE")
+
+
+def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
+    """Resident blocks an SM, registers and static shared memory of kernel
+    ``symbol`` (:data:`OCCUPANCY_KERNELS`) on the current card, as the
+    runtime reads them (builds the library)."""
+    return build.occupancy(_lib(), "graph_reg_bsp", OCCUPANCY_KERNELS, symbol,
+                           threads, dynamic_smem)
 
 
 def check_tile_edge(bt: int) -> None:
@@ -194,6 +214,7 @@ def _lists(k: int, **lists: torch.Tensor) -> list[int]:
             for name, t in lists.items()]
 
 
+@bounded("graph_reg_bsp_fwd")
 def bsp_forward(logp: torch.Tensor, W: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, valid: torch.Tensor, bt: int, gc: float,
                 kappa: float, ge: float, *,
@@ -219,6 +240,7 @@ def bsp_forward(logp: torch.Tensor, W: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+@bounded("graph_reg_bsp_bterm")
 def bsp_bwd_bterm(logp: torch.Tensor, W: torch.Tensor, crows: torch.Tensor,
                   ccols: torch.Tensor, cvalid: torch.Tensor, bt: int, *,
                   p: torch.Tensor | None = None) -> torch.Tensor:
@@ -238,6 +260,7 @@ def bsp_bwd_bterm(logp: torch.Tensor, W: torch.Tensor, crows: torch.Tensor,
     return out
 
 
+@bounded("graph_reg_bsp_dlogp")
 def bsp_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, bterm: torch.Tensor,
                   rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
                   g: torch.Tensor, bt: int, gc: float, kappa: float,
@@ -264,6 +287,7 @@ def bsp_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, bterm: torch.Tensor,
     return out
 
 
+@bounded("graph_reg_bsp_dw")
 def bsp_bwd_dw(logp: torch.Tensor, occ: torch.Tensor, g: torch.Tensor,
                bt: int, gc: float, ge: float, *,
                p: torch.Tensor | None = None) -> torch.Tensor:

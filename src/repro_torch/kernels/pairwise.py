@@ -58,11 +58,13 @@ import functools
 import torch
 
 from . import build, ref
+from .boundary import bounded
 from .graph_reg import _checked, _on_cpu, _raise_on, _stream
 from .tuning import TileSpec, refuse_pinned
 
 __all__ = ["knn_topk", "rbf_affinity", "K_MAX", "route", "knn_plan",
-           "rbf_plan", "launch_plan", "WRAPPERS", "SOURCE"]
+           "rbf_plan", "launch_plan", "WRAPPERS", "OCCUPANCY_KERNELS",
+           "occupancy", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/pairwise.cu"
 
@@ -147,6 +149,7 @@ _SIGNATURES = {
     "knn_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "rbf_affinity_plan": (_I, _I, _I, _I, _P, _P),
     "rbf_affinity": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+    "pairwise_occupancy": (_I, _I, _I, _P, _P, _P),
 }
 
 
@@ -158,6 +161,26 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+#: The kernels ``pairwise_occupancy`` answers for, by index: each one's
+#: mangled name from its length on, as the compiler's report names it, in
+#: the order of the source's ``kOccupancy`` table.
+OCCUPANCY_KERNELS = ("15knn_topk_kernelILb0ELb1E",
+                     "15knn_topk_kernelILb0ELb0E",
+                     "15knn_topk_kernelILb1ELb0E",
+                     "18knn_merge_segmentsE",
+                     "6pack_tE",
+                     "19rbf_affinity_kernelILi64E",
+                     "19rbf_affinity_kernelILi128E")
+
+
+def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
+    """Resident blocks an SM, registers and static shared memory of kernel
+    ``symbol`` (:data:`OCCUPANCY_KERNELS`) on the current card, as the
+    runtime reads them (builds the library)."""
+    return build.occupancy(_lib(), "pairwise", OCCUPANCY_KERNELS, symbol,
+                           threads, dynamic_smem)
 
 
 def _operands(x: torch.Tensor, y: torch.Tensor):
@@ -204,6 +227,7 @@ def _workspace(plan: dict, device: torch.device) -> torch.Tensor:
                        device=device)
 
 
+@bounded("knn_topk")
 def knn_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
              exclude_self: bool = False,
              tiles: TileSpec | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -238,6 +262,7 @@ def knn_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
     return d2, idx
 
 
+@bounded("rbf_affinity")
 def rbf_affinity(x: torch.Tensor, y: torch.Tensor, sigma: float, *,
                  tiles: TileSpec | None = None) -> torch.Tensor:
     """K9: the dense RBF affinity block exp(−‖x_i − y_j‖/(2σ²)), (N, M)

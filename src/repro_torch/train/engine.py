@@ -546,11 +546,17 @@ class Engine:
     :class:`~repro_torch.resilience.faults.FaultInjector`) arms fault
     injection; ``capture_fn(params, batch) -> tensor`` is the embedding
     tap of the epochs ``run(capture_epochs=...)`` selects.
+
+    ``step_scope(step)`` is a context manager entered around each step's
+    worker event and body (not around a guard's replay of it); an audit
+    sets it to mark the steps of a chunk.
     """
 
     #: Metrics key the capture tap rides under; popped out of the step
     #: metrics (and stacked for ``on_epoch_end``) before row averaging.
     _CAPTURE_KEY = "capture/emb"
+    step_scope: Callable[[int], Any] = staticmethod(
+        lambda step: contextlib.nullcontext())
 
     def __init__(self, step_fn: Callable | None = None, *,
                  device: torch.device, grad_fn: Callable | None = None,
@@ -706,9 +712,10 @@ class Engine:
         for step, (host, batch) in enumerate(batches):
             if not window:
                 backup = _Snapshot(self.strategy, carry)
-            carry, bump = self._worker_event(carry, epoch, step)
-            window.append([host, self._step(carry, batch, lr, capture),
-                           bump])
+            with self.step_scope(step):
+                carry, bump = self._worker_event(carry, epoch, step)
+                window.append([host, self._step(carry, batch, lr, capture),
+                               bump])
             if len(window) == span:
                 guard = self._resolve(carry, window, backup, lr, capture,
                                       guard, epoch)
@@ -919,8 +926,9 @@ class Engine:
             if guard is None:
                 step_metrics = []
                 for step, (_, b) in enumerate(batches):
-                    carry, _ = self._worker_event(carry, epoch, step)
-                    step_metrics.append(self._step(carry, b, lr, cap))
+                    with self.step_scope(step):
+                        carry, _ = self._worker_event(carry, epoch, step)
+                        step_metrics.append(self._step(carry, b, lr, cap))
             else:
                 step_metrics, guard = self._guarded_steps(
                     carry, batches, lr, cap, guard, epoch)

@@ -67,7 +67,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "    __import__(m)\n"
             "import repro_torch.api.registry as r\n"
             "for reg in (r.AFFINITY, r.PARTITIONER, r.PIPELINE, r.PAIRWISE,"
-            " r.STRATEGY, r.OPTIMIZER):\n"
+            " r.STRATEGY, r.OPTIMIZER, r.AUDIT):\n"
             "    [reg.get(n) for n in reg.names()]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -83,7 +83,8 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from repro_torch.analysis import cli as analysis_cli
     from repro_torch.api import Experiment, ExperimentConfig, run
     from repro_torch.core.ssl_loss import SSLHyper
     from repro_torch.device import resolve_device
@@ -96,6 +97,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
         train_dnn_ssl(lambda: iter(()), cfg=DNNConfig(), hyper=SSLHyper())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.main(["--epochs", "0"])
+    report = str(tmp_path / "report.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        analysis_cli.main(["--only", "concurrency", "--report", report])
+    assert analysis_cli.main(["--only", "concurrency", "--device", "cpu",
+                              "--report", report]) == 0
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         resolve_device("meta")
     assert resolve_device("cpu").type == "cpu"

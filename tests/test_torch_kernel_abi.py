@@ -15,10 +15,11 @@ import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.kernels import graph_reg, graph_reg_bsp, pairwise  # noqa: E402
+from repro_torch.kernels import (flash_attention, graph_reg,  # noqa: E402
+                                 graph_reg_bsp, pairwise)
 
 ROOT = Path(__file__).resolve().parents[1]
-MODULES = (graph_reg, graph_reg_bsp, pairwise)
+MODULES = (graph_reg, graph_reg_bsp, pairwise, flash_attention)
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "int*": ctypes.c_void_p, "int64_t*": ctypes.c_void_p,
            "int": ctypes.c_int,
@@ -54,3 +55,31 @@ def test_signature_matches_the_c_entry_point(module, name):
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_every_declared_signature_is_an_entry_point(module):
     assert set(module._SIGNATURES) == set(_entry_points(module))
+
+
+_TEMPLATE_ARGS = {"true": "Lb1E", "false": "Lb0E", "float": "f",
+                  "__nv_bfloat16": "13__nv_bfloat16"}
+
+
+def _mangled(spelling: str) -> str:
+    """``reg_fwd_partials<true>`` -> ``16reg_fwd_partialsILb1E``: the
+    mangled name from its length on, as the compiler's report has it."""
+    name, _, targs = spelling.partition("<")
+    name = name.rsplit("::", 1)[-1]
+    args = [a.strip() for a in targs.rstrip(">").split(",") if a.strip()]
+    return f"{len(name)}{name}" + (
+        "I" + "".join(_TEMPLATE_ARGS.get(a, f"Li{a}E") for a in args)
+        if args else "E")
+
+
+@pytest.mark.parametrize("module", MODULES,
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_occupancy_table_matches_the_source(module):
+    """``<lib>_occupancy`` answers by index into the source's
+    ``kOccupancy`` table; the module's ``OCCUPANCY_KERNELS`` must name the
+    same kernels in the same order."""
+    src = (ROOT / module.SOURCE).read_text()
+    table = re.search(r"const OccupancyQuery kOccupancy\[\] = \{(.*?)\};",
+                      src, re.S).group(1)
+    spellings = re.findall(r"occupancy<(.+?)>,\n", table)
+    assert tuple(_mangled(s) for s in spellings) == module.OCCUPANCY_KERNELS
