@@ -60,7 +60,13 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    B = 1001, C = 200, K4 and K6 at six ragged shapes and tile edges; K8
    at k = 10, 40, 300 on 4,000 rows and 1,000 on
    2,000 rows, K9 on the path's rows and at 1000 × 333, each timed in
-   turns but k = 40, the ragged K9 and the ragged K4 and K6); the
+   turns but k = 40, the ragged K9 and the ragged K4 and K6; and the two
+   kernels whose redesign changes their bits, K1 at the LM head (1, 16,
+   151936) on the class-split plan and K11 at kimi's bf16 shape on the
+   tensor-core route, timed in turns with DIR's, each build held to its
+   own rule, whether they differ printed, K11 at least 8× faster; after
+   the dense epoch, a fresh dense epoch on this build's K1/K2 and one on
+   DIR's, both equal to the main path's row bit for bit); the
    redesigned K1 and K2 also at k in {1, 3}, B in
    {1, 31, 33, 1000, 1001}, C in {1, 39, 100, 128, 200}, K4 and K6 at the
    same shapes with bt in {32, 64, 128, 256} on four kinds of tile mask
@@ -149,10 +155,14 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    prefill ms, decode ms/token, tok/s and peak device memory;
 13. the LM training path with the paper's sequence-level objective
    (``lm_kernel_phase`` to ``lm_train_phase``): K1 and K2 at the LM
-   head's shapes, (k, B, C) = (1, 16, 151936), (2, 16, 151936) and (1,
-   17, 32000) with the example's γ = 0.05, κ = 1e-4, held against their
-   plain versions, repeated bit for bit and timed beside them with their
-   share of the bound; ``qwen2-1.5b`` at full width, 2 layers, f32: one
+   head's shapes (:data:`LM_HEAD_SHAPES`: (k, B, C) = (1, 16, 151936), (2,
+   16, 151936), (1, 17, 32000), the SSL heads and the smoke's (1, 4,
+   512)) with the example's γ = 0.05, κ = 1e-4, held against their
+   plain versions (K1 to float64, :data:`K1_LM_RULE`), repeated bit for
+   bit and timed beside them with their share of the bound; K1's plan
+   printed at each (the class-split plan: pass-1 blocks, class chunk,
+   the library's equal to the Python mirror's) and K1 no slower than its
+   plain version at any; ``qwen2-1.5b`` at full width, 2 layers, f32: one
    ``lm_loss`` forward and backward on the card against the CPU (the
    example's first batch, 8 sequences of 64 tokens, W from the host
    graph; metrics within rtol 1e-4, each gradient leaf within 1e-3 of its
@@ -173,10 +183,12 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    10,240, 16 greedy decode steps through ``serve_lm``'s functions, no
    kernel launched, prefill ms, ms/token and peak memory;
 15. the rest of the LM stack (``flash_attention_hd112_phase`` to
-   ``family_train_phase``): K11 at kimi-k2's head dim 112 (FMA route), q
-   (4, 2048, 64, 112) against k, v (4, 2048, 8, 112) in bf16 and a ragged
-   f32 case, held to its plain version, repeated bit for bit, timed in
-   turns beside it and SDPA, with its bound; the ``reduced()`` configs of
+   ``family_train_phase``): K11 at kimi-k2's head dim 112, q (4, 2048,
+   64, 112) against k, v (4, 2048, 8, 112) in bf16 (tensor-core route,
+   128-key tiles) and a ragged f32 case (FMA route, 64-key tiles), held to
+   its plain version on its route's tiles, repeated bit for bit, timed in
+   turns beside it and SDPA, with its bound, its share of it and its
+   factor over SDPA; the ``reduced()`` configs of
    mixtral-8x7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
    jamba-1.5-large-398b and xlstm-125m in f32 on the card against the CPU
    (prefill logits, every cache or state leaf and 4 greedy decode steps
@@ -708,6 +720,28 @@ def timed(kern, plain, library=None, rounds: int = 2, floor=None) -> dict:
     return {"library_ms": None,
             **{key: sum(v) / len(v) for key, v in runs.items()},
             "rounds": runs}
+
+
+def pass_ms(fn, names: tuple, reps: int = 20) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel named in
+    ``names`` (a kernel's passes): ``torch.profiler`` over ``reps`` calls
+    after one warm-up, each kernel's device time over ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        for name in names:
+            if name in evt.key:
+                out[name] += us / 1e3 / reps
+    return out
 
 
 def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
@@ -1929,6 +1963,27 @@ def redesign_build_report() -> dict:
     return rec
 
 
+def class_split_build_report() -> dict:
+    """Registers, spills and static shared memory of the two passes of
+    K1's class-split plan (``-Xptxas -v``), by kernel name; no spill is
+    allowed."""
+    import re
+    from repro_torch.analysis.launch_audit import ptxas_entries
+    rec = {}
+    for name, r in ptxas_entries("graph_reg"):
+        m = re.search(r"reg_fwd_class_(?:partials|sum)", name)
+        if m is None:
+            continue
+        check(r["spill_bytes"] == 0, f"{m.group(0)} spills: {r}")
+        rec[m.group(0)] = r
+        print(f"{m.group(0)} (-Xptxas -v): {r['registers']} registers, "
+              f"{r['static_smem_bytes']} bytes of static shared memory, "
+              f"{r['spill_bytes']} bytes spilled")
+    check(sorted(rec) == ["reg_fwd_class_partials", "reg_fwd_class_sum"],
+          f"no compiler report for K1's class-split passes: {sorted(rec)}")
+    return rec
+
+
 def pairwise_build_report() -> dict:
     """Registers, spills and static shared memory of every kernel of
     ``pairwise.cu`` (K8's three instantiations, its segment merge and the
@@ -1978,8 +2033,8 @@ def flash_attention_build_report() -> dict:
                    "spill_bytes": r["spill_bytes"]}
         check(r["spill_bytes"] == 0,
               f"the tensor-core K11 kernel (hd {hd}) spills: {r}")
-    check(sorted(rec) == [64, 128], f"no compiler report for the "
-          f"tensor-core K11 kernels at hd 64 and 128: "
+    check(sorted(rec) == [64, 112, 128], f"no compiler report for the "
+          f"tensor-core K11 kernels at hd 64, 112 and 128: "
           f"{build.REPORTS['flash_attention'][-2000:]}")
     lib = build.library_path("flash_attention")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -1988,11 +2043,13 @@ def flash_attention_build_report() -> dict:
     rec["hgmma"] = len(re.findall(r"\bHGMMA\.", sass))
     rec["tma_loads"] = len(re.findall(r"\bUTMALDG\b", sass))
     check(rec["hgmma"] > 0, "the built K11 library holds no HGMMA instruction")
-    smem = {hd: fa_smem(hd) for hd in (64, 128)}
+    smem = {hd: fa_smem(hd) for hd in (64, 112, 128)}
+    for hd, b in smem.items():
+        rec[hd]["dynamic_smem_bytes"] = b
     print("flash_attention tensor-core kernels (-Xptxas -v): " + "; ".join(
         f"hd {hd}: {rec[hd]['registers']} registers, {smem[hd]} bytes of "
         f"dynamic shared memory, {rec[hd]['spill_bytes']} bytes spilled"
-        for hd in (64, 128)) + f"; {rec['hgmma']} HGMMA and "
+        for hd in (64, 112, 128)) + f"; {rec['hgmma']} HGMMA and "
           f"{rec['tma_loads']} UTMALDG instructions in the library")
     return rec
 
@@ -2005,9 +2062,16 @@ LLAMA_ATTN = (4, 2048, 64, 8, 128)
 
 def fa_smem(hd: int) -> int:
     """Dynamic shared memory of the tensor-core K11 kernel: Q and two (K,
-    V) stages of 128 rows × hd bf16, three mbarriers, 1024 bytes of
-    alignment (``smem_bytes`` in flash_attention_wgmma.cuh)."""
-    return 5 * 128 * hd * 2 + 64 + 1024
+    V) stages of 128 rows × hd rounded up to whole 64-column boxes in bf16,
+    three mbarriers, 1024 bytes of alignment (``smem_bytes`` in
+    flash_attention_wgmma.cuh), held to the library's launch."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    smem = 5 * 128 * (-(-hd // 64) * 64) * 2 + 64 + 1024
+    check(fa.launch_smem(torch.bfloat16, hd) == smem, f"the library's "
+          f"tensor-core K11 launch at hd {hd} asks for "
+          f"{fa.launch_smem(torch.bfloat16, hd)} bytes, not {smem}")
+    return smem
 
 
 def flash_attention_phase() -> dict:
@@ -2250,14 +2314,16 @@ def serve_phase() -> dict:
 #: full-width cuts (losses and metrics rtol; each gradient leaf within
 #: LM_GRAD_TOL of its largest |value|), the LM-head shapes (k, B, C) of K1
 #: and K2 (qwen2-1.5b's V at k 1 and 2, a ragged B, the SSL heads of
-#: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304, and
-#: that of ``launch_phase``'s ``--smoke``: B 4 over every reduced config's
-#: V of 512), and the steps of the full model.
+#: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304,
+#: gpt-2's V 50257, a whole number neither of 128-class slabs nor of
+#: 4-class copies, and that of ``launch_phase``'s ``--smoke``: B 4 over
+#: every reduced config's V of 512), and the steps of the full model.
 LM_GAMMA, LM_KAPPA = 0.05, 1e-4
 LM_RTOL = 1e-4
 LM_GRAD_TOL = 1e-3
 LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000),
-                  (1, 16, 32000), (1, 16, 50304), (1, 4, 512))
+                  (1, 16, 32000), (1, 16, 50304), (1, 16, 50257),
+                  (1, 4, 512))
 LM_STEPS, LM_SUPERVISED_STEPS = 6, 2
 #: The card's name and power limit (``nvidia-smi``), set by ``main`` and
 #: printed beside the LM phases' numbers.
@@ -2271,19 +2337,29 @@ CARD = "card not queried"
 #: chain grows as √C·u of the terms' magnitude (4 standard deviations).
 K1_LM_RULE = ("|Δ vs float64| ≤ 4·√C·2^-24·M, M = γ·Σ W·Hc + Σ (κ + "
               "γ·deg)·H")
+#: The class-split plan (every LM head) chains no term over C: each S_ij
+#: is chains of chunk/groups classes, then the groups, then the chunks,
+#: and pass 2 adds a few more steps (``graph_reg.class_split_chain``, n).
+#: So K1 on that plan is also held to the same rule with n for C: a
+#: kernel that dropped a few classes would pass √C but not √n.
+K1_CS_RULE = ("|Δ vs float64| ≤ 4·√n·2^-24·M, n = the plan's longest "
+              "float32 chain (graph_reg.class_split_chain), M as in "
+              "K1_LM_RULE")
 
 
-def compare_conditioned(name: str, got, want64, scale64, C: int) -> dict:
-    """Hold ``got`` to the float64 value ``want64`` within 4·√C·2^-24 of
-    ``scale64`` (:data:`K1_LM_RULE`)."""
+def compare_conditioned(name: str, got, want64, scale64, n: int,
+                        rule: str = K1_LM_RULE) -> dict:
+    """Hold ``got`` to the float64 value ``want64`` within 4·√n·2^-24 of
+    ``scale64``: n = C is :data:`K1_LM_RULE`, n the class-split plan's
+    chain :data:`K1_CS_RULE`."""
     err = float((got.double() - want64).abs().max())
-    tol = 4.0 * math.sqrt(C) * 2.0 ** -24 * float(scale64.abs().max())
+    tol = 4.0 * math.sqrt(n) * 2.0 ** -24 * float(scale64.abs().max())
     rec = {"max_abs_err": err, "tol": tol, "err_over_tol": err / tol,
-           "tol_rule": K1_LM_RULE}
-    print(f"{name}: |Δ vs float64| {err:.3e}, tol {tol:.3e} "
-          f"({K1_LM_RULE}), err/tol {err / tol:.3f}")
-    check(err <= tol, f"{name} is farther than {K1_LM_RULE} from float64 "
-          f"(err/tol {err / tol:.3f})")
+           "tol_rule": rule}
+    print(f"{name}: |Δ vs float64| {err:.3e}, tol {tol:.3e} ({rule}, "
+          f"n = {n}), err/tol {err / tol:.3g}")
+    check(err <= tol, f"{name} is farther than {rule} from float64 "
+          f"(err/tol {err / tol:.3g})")
     return rec
 
 
@@ -2303,15 +2379,35 @@ def lm_inputs(k: int, B: int, C: int, seed: int):
 
 def lm_kernel_phase() -> dict:
     """K1 and K2 at the LM head's shapes: held to their plain versions,
-    repeated bit for bit, timed from CUDA graphs in turns with them; the
-    records at the path's (1, 16, 151936)."""
+    repeated bit for bit, timed from CUDA graphs in turns with them; K1's
+    plan (the class-split plan at every LM head: pass 1's blocks and
+    class chunk as the library launches them, equal to
+    ``graph_reg.fwd_plan``'s) printed, K1 held to float64 by
+    :data:`K1_LM_RULE` and :data:`K1_CS_RULE`, and no slower than its
+    plain version at any of them.  The records at the path's (1, 16,
+    151936), each shape's K1 record under ``"graph_reg_fwd"["lm_heads"]``."""
     import torch
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import ref
 
     gc, kap = LM_GAMMA, LM_KAPPA
-    records = {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    records, heads = {}, {}
     for k, B, C in LM_HEAD_SHAPES:
+        plan = gr.fwd_plan(k, B, C, n_sm=n_sm)
+        lib_plan = gr.launch_plan("graph_reg_fwd", k, B, C)
+        check(lib_plan == {key: plan[key] for key in lib_plan},
+              f"K1's plan at ({k}, {B}, {C}): the library's {lib_plan}, "
+              f"the mirror's {plan}")
+        check(lib_plan["class_chunk"] > 0, f"K1 at the LM head ({k}, {B}, "
+              f"{C}) takes the row plan")
+        print(f"graph_reg_fwd plan [LM head k={k} B={B} C={C}], the "
+              f"library's: class-split route, {lib_plan['blocks']} pass-1 "
+              f"blocks of {lib_plan['rows_per_block']}² entries, class "
+              f"chunk {lib_plan['class_chunk']}, "
+              f"{lib_plan['dynamic_smem_bytes']} bytes of dynamic shared "
+              f"memory; the mirror's: {plan['class_chunks']} chunks, "
+              f"{plan['class_groups']} class groups a block")
         logp, W, g = lm_inputs(k, B, C, seed=B + k)
         pk = torch.exp(logp)
         runs = {
@@ -2345,6 +2441,10 @@ def lm_kernel_phase() -> dict:
                 want64 = ref.reg_forward_ref(lp64, W64, gc, kap, gc)
                 scale64 = ref.reg_forward_ref(lp64, W64, gc, -kap, -gc)
                 err = compare_conditioned(label, a, want64, scale64, C)
+                n = gr.class_split_chain(B, plan)
+                err["class_split"] = compare_conditioned(
+                    f"{label}, its own chains", a, want64, scale64, n,
+                    K1_CS_RULE)
                 compare_conditioned(f"{label}, plain version", want, want64,
                                     scale64, C)
             else:
@@ -2353,6 +2453,21 @@ def lm_kernel_phase() -> dict:
                        bound=bounds[name], shape=(k, B, C),
                        **gr.launch_plan(name, k, B, C))
             rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+            if name == "graph_reg_fwd":
+                rec["route"] = "classes" if rec["class_chunk"] else "rows"
+                rec["pass_ms"] = pass_ms(kern, ("reg_fwd_class_partials",
+                                                "reg_fwd_class_sum"))
+                print(f"{label} [{CARD}]: device ms a call by pass "
+                      f"(torch.profiler, 20 calls): {rec['pass_ms']}")
+                heads[f"k={k} B={B} C={C}"] = {
+                    key: rec[key] for key in (
+                        "ms", "plain_ms", "rounds", "max_abs_err", "tol",
+                        "err_over_tol", "class_split", "share_of_bound",
+                        "route", "blocks", "class_chunk", "pass_ms",
+                        "dynamic_smem_bytes")}
+                check(rec["ms"] <= rec["plain_ms"], f"{label}: "
+                      f"{rec['ms']:.5f} ms, slower than its plain version's "
+                      f"{rec['plain_ms']:.5f} ms")
             print(f"{label} [{CARD}]: {rec['ms']:.5f} ms (plain version "
                   f"{rec['plain_ms']:.5f} ms, no library call), bound "
                   f"{rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
@@ -2362,6 +2477,7 @@ def lm_kernel_phase() -> dict:
                   f"memory")
             if (k, B, C) == LM_HEAD_SHAPES[0]:
                 records[name] = rec
+    records["graph_reg_fwd"]["lm_heads"] = heads
     return records
 
 
@@ -2671,16 +2787,23 @@ def swa_serve_phase() -> dict:
 
 
 #: K11 at kimi-k2's head dim: its prefill's shape, B 4 × T 2048, 64 query
-#: heads on 8 KV heads of 112 (7168 / 64), bf16 on the FMA route.
+#: heads on 8 KV heads of 112 (7168 / 64), bf16 on the tensor-core route
+#: (the tile of hd 128, columns 112-127 zero-filled by the TMA).
 KIMI_ATTN = (4, 2048, 64, 8, 112)
+#: Each hd-112 case's route and key tile: (label, batch, T, dtype name,
+#: route, keys a tile).
+HD112_CASES = (("kimi bf16", 4, 2048, "bfloat16", "wgmma", 128),
+               ("ragged f32", 1, 1000, "float32", "fma", 64))
 
 
 def flash_attention_hd112_phase() -> dict:
-    """K11 at head dim 112: kimi's prefill shape in bf16 (the path's) and a
-    ragged f32 case, each held to its plain version on the route's 64-key
+    """K11 at head dim 112: kimi's prefill shape in bf16 (the path's, on
+    the tensor-core route's 128-key tiles) and a ragged f32 case (the FMA
+    route's 64-key tiles), each held to its plain version on its route's
     tiles and repeated bit for bit; the path's case timed in turns beside
-    its plain version and ``scaled_dot_product_attention``, with its bound.
-    Returns the path case's record."""
+    its plain version and ``scaled_dot_product_attention``, with its bound
+    (its share of the bound and its factor over SDPA printed).  Returns
+    the path case's record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2689,12 +2812,14 @@ def flash_attention_hd112_phase() -> dict:
     B, T, H, KV, hd = KIMI_ATTN
     gen = torch.Generator(device="cuda").manual_seed(12)
     path = None
-    for label, b, t, dtype in (("kimi bf16", B, T, torch.bfloat16),
-                               ("ragged f32", 1, 1000, torch.float32)):
+    for label, b, t, dtype_name, want_route, want_bk in HD112_CASES:
+        dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
                    .to(dtype) for h in (H, KV, KV))
         route, bk = fa.route(dtype, hd), fa.block_k(dtype, hd)
-        check(route == "fma" and bk == 64, f"hd 112 takes the {route} route")
+        check((route, bk) == (want_route, want_bk),
+              f"hd 112 in {dtype_name} takes the {route} route on {bk}-key "
+              f"tiles, not the {want_route} route on {want_bk}")
 
         def kern():
             return fa.flash_attention_gqa(q, k, v, causal=True)
@@ -3382,7 +3507,7 @@ def legacy_pairwise_calls(lib) -> dict:
 
 
 def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
-                  rows_x, sigma: float) -> dict:
+                  rows_x, sigma: float) -> tuple:
     """The redesigned K1, K2, K3, K5, K7, K10 and K11 (at the serve
     prefill's bf16 shape) in turns with the same C entry
     points built from another checkout's sources (``--against DIR``, e.g.
@@ -3403,7 +3528,9 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     40 and K9's ragged 1000 × 333.  A library from before K1's and K2's
     workspaces is called through :func:`legacy_graph_reg_calls`, one from
     before K4's and K6's through :func:`legacy_bsp_calls`, one from before
-    K8's and K9's through :func:`legacy_pairwise_calls`."""
+    K8's and K9's through :func:`legacy_pairwise_calls`.  Returns the
+    records and a runner: ``run_on_other(fn)`` calls ``fn`` with K1's and
+    K2's wrappers launching the other build's kernels."""
     import ctypes
     import numpy as np
     import torch
@@ -3528,6 +3655,7 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
               f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
               f"(rounds {rounds}); outputs equal bit for bit")
         records[fn_name] = rec
+    records.update(against_redesigned(root, libs, swapped, gamma, kappa))
     # Ragged and multi-chunk shapes, bits only.
     shapes = []
     for k, Bx, Cx in ((3, 1001, 100), (1, 1001, 200)):
@@ -3698,7 +3826,131 @@ def against_phase(root: Path, W_path, gamma: float, kappa: float, X,
     for name in ("knn_topk", "rbf_affinity"):
         records[name]["bit_equal_shapes"] = [
             where for where in pw_shapes if where.startswith(f"{name} [")]
+
+    def run_on_other(fn):
+        check(not legacy, f"{root}'s K1/K2 predate their workspaces: the "
+              f"wrappers cannot launch them")
+        return swapped(fn, gr, libs["graph_reg"])()
+    return records, run_on_other
+
+
+#: The least factor by which the tensor-core K11 at kimi's shape must beat
+#: the FMA kernel it replaced (``--against`` its parent, in one call).
+HD112_MIN_SPEEDUP = 8.0
+
+
+def against_redesigned(root: Path, libs: dict, swapped, gamma: float,
+                       kappa: float) -> dict:
+    """The two kernels whose bits change with their redesign, in turns
+    with the other build's (``--against``): K1 at qwen2-1.5b's LM head (1,
+    16, 151936) on the class-split plan, both builds held to float64 under
+    :data:`K1_LM_RULE`, and K11 at kimi's bf16 shape (:data:`KIMI_ATTN`)
+    on the tensor-core route, both held to the plain version on their own
+    route's key tiles, this build at least :data:`HD112_MIN_SPEEDUP`×
+    faster.  Whether their outputs differ bit for bit is printed (the sums
+    run in other orders), not checked."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import graph_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import ref
+
+    k, B, C = LM_HEAD_SHAPES[0]
+    logp, W, _ = lm_inputs(k, B, C, seed=B + k)
+    pk = torch.exp(logp)
+    lp64, W64 = logp.double(), W.double()
+    want64 = ref.reg_forward_ref(lp64, W64, gamma, kappa, gamma)
+    scale64 = ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma)
+    Bq, T, H, KV, hd = KIMI_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qkv = [torch.randn((Bq, T, n, hd), generator=gen, device="cuda",
+                       dtype=torch.bfloat16) for n in (H, KV, KV)]
+    cases = {
+        "graph_reg_fwd [LM head]": (
+            gr, "graph_reg", lambda: gr.reg_forward(logp, W, gamma, kappa,
+                                                    gamma, p=pk)),
+        "flash_attention_hd112": (
+            fa, "flash_attention", lambda: fa.flash_attention_gqa(*qkv)),
+    }
+    records = {}
+    for name, (module, src, call) in cases.items():
+        run_other = swapped(call, module, libs[src])
+        this, other = call(), run_other()
+        torch.cuda.synchronize()
+        if module is gr:
+            errs = {who: compare_conditioned(
+                f"{name} [{who}]", got, want64, scale64, C)["err_over_tol"]
+                for who, got in (("this checkout", this), (str(root), other))}
+        else:
+            want_this = ref.flash_attention_ref(
+                *qkv, causal=True, block_k=fa.block_k(torch.bfloat16, hd))
+            want_other = ref.flash_attention_ref(*qkv, causal=True,
+                                                 block_k=64)
+            errs = {}
+            for who, got, want in (("this checkout", this, want_this),
+                                   (str(root), other, want_other)):
+                w = want.float().abs()
+                over = float(((got.float() - want.float()).abs()
+                              / (2.0 ** -8 * w.max() + 2.0 ** -7 * w)).max())
+                check(over <= 1.0, f"{name} [{who}] disagrees with its plain "
+                      f"version (err/tol {over:.3f}, {ATTN_TOL_RULE})")
+                errs[who] = over
+            del want_this, want_other
+        rounds = {"ms": [], "against_ms": []}
+        for _ in range(2):
+            rounds["ms"].append(graph_ms(call))
+            rounds["against_ms"].append(graph_ms(run_other))
+        rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+        rec.update(rounds=rounds, err_over_tol=errs,
+                   bit_equal=bool(torch.equal(this, other)))
+        rec["speedup"] = rec["against_ms"] / rec["ms"]
+        print(f"{name} [redesigned, CUDA graphs, in turns]: this checkout "
+              f"{rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} ms "
+              f"({rec['speedup']:.2f}×; rounds {rounds}); outputs "
+              f"{'equal' if rec['bit_equal'] else 'differ'} bit for bit "
+              f"(sums in another order), err/tol {errs}")
+        if module is fa:
+            check(rec["speedup"] >= HD112_MIN_SPEEDUP,
+                  f"{name}: {rec['speedup']:.2f}× the other build's kernel, "
+                  f"not the {HD112_MIN_SPEEDUP}× at least")
+        records[name] = rec
+    del qkv
+    torch.cuda.empty_cache()
     return records
+
+
+def against_train_phase(exp, root: Path, dense_row: dict,
+                        run_on_other) -> dict:
+    """The paper's dense epoch (K1 and K2 at k 1, B = P, C 39) from a fresh
+    experiment on the host graph, once on this build's kernels and once
+    on the other build's (``--against``; ``run_on_other`` from
+    :func:`against_phase`): both rows must equal the main path's epoch
+    (``dense_row``) bit for bit, so the redesigns left the DNN engine's
+    losses as they were."""
+    from repro_torch.api import Experiment
+    from repro_torch.bench import paper_config
+
+    rows = {}
+    for who, run in (("this checkout", lambda fn: fn()),
+                     (str(root), run_on_other)):
+        fresh = Experiment(paper_config(), corpus=exp.corpus,
+                           eval_data=exp.eval_data, graph=exp.graph,
+                           plan=exp.plan, device="cuda").build()
+        rows[who] = run(lambda: train_phase(
+            fresh, ("graph_reg_fwd", "graph_reg_bwd_dlogp"),
+            f"dense epoch on {who}'s K1/K2")["row"])
+    keys = ("loss/supervised", "loss/graph", "loss/l2", "acc/labeled",
+            "loss/total", "eval/acc")
+    for who, row in rows.items():
+        got = {key: row.get(key) for key in keys}
+        want = {key: dense_row.get(key) for key in keys}
+        check(got == want, f"the dense epoch on {who}'s K1/K2: {got}, not "
+              f"the main path's {want}")
+    print(f"dense epoch against {root}: this checkout's and {root}'s K1/K2 "
+          f"give the main path's row bit for bit "
+          f"({ {key: dense_row.get(key) for key in keys} })")
+    return {"row": {key: dense_row.get(key) for key in keys}}
 
 
 def audit_launches() -> dict:
@@ -4000,7 +4252,7 @@ PATH_MODELS = {
     "flash_attention": ("flash_attention", "flash_fwd_wgmma_kernel",
                         dict(B=4, Tq=2048, Tk=2048, H=12, KV=2, hd=128,
                              dtype="bfloat16")),
-    "flash_attention_hd112": ("flash_attention", "flash_fwd_kernel",
+    "flash_attention_hd112": ("flash_attention", "flash_fwd_wgmma_kernel",
                               dict(B=4, Tq=2048, Tk=2048, H=64, KV=8,
                                    hd=112, dtype="bfloat16")),
 }
@@ -4058,6 +4310,7 @@ def main() -> int:
     build_all()
     fa_build = flash_attention_build_report()
     redesign_build = redesign_build_report()
+    class_split_build = class_split_build_report()
     pw_build = pairwise_build_report()
     t0 = time.time()
     exp = Experiment(paper_config(), device="cuda").build()
@@ -4072,10 +4325,10 @@ def main() -> int:
     records.update(bsp_kernel_phase(W_path, obj.gamma, obj.kappa))
     redesign_cases_phase(P)
     rows_x = exp.corpus.X[block_rows(exp, P)]
-    against = ({} if args.against is None else
-               against_phase(args.against.resolve(), W_path, obj.gamma,
-                             obj.kappa, exp.corpus.X, rows_x,
-                             exp.graph.sigma))
+    against, run_on_other = (
+        ({}, None) if args.against is None else
+        against_phase(args.against.resolve(), W_path, obj.gamma, obj.kappa,
+                      exp.corpus.X, rows_x, exp.graph.sigma))
     records["knn_topk"] = knn_kernel_phase(exp.corpus.X, exp.config.graph.k)
     knn_kernel_phase(exp.corpus.X, 40, with_times=False)   # lists past one warp
     # Past K_MAX the lists live in the outputs (the global route).
@@ -4102,6 +4355,9 @@ def main() -> int:
     small_step_parity(layout_bt=64)
     dense = train_phase(exp, ("graph_reg_fwd", "graph_reg_bwd_dlogp"),
                         "main path")
+    if args.against is not None:
+        against["dnn_epoch"] = against_train_phase(
+            exp, args.against.resolve(), dense["row"], run_on_other)
     w_grad = w_grad_path(W_path, obj.gamma, obj.kappa)
     t0 = time.time()
     exp_bsp = Experiment(paper_config(layout_bt=LAYOUT_BT),
@@ -4267,10 +4523,18 @@ def main() -> int:
                 **{key: lm_records[name][key] for key in (
                     "max_abs_err", "tol", "err_over_tol", "ms", "plain_ms",
                     "share_of_bound", "rows_per_block",
-                    "dynamic_smem_bytes", "rounds")},
+                    "dynamic_smem_bytes", "rounds", "route", "blocks",
+                    "class_chunk", "lm_heads")
+                   if key in lm_records[name]},
                 "bound_ms": lm_records[name]["bound"][0],
                 "bound_by": lm_records[name]["bound"][1],
-                "library_ms": None}} if name in lm_records else {}),
+                "library_ms": None,
+                **({"class_split_build": class_split_build}
+                   if name == "graph_reg_fwd" else {}),
+                **({"against": {"dir": str(args.against), **against[
+                    "graph_reg_fwd [LM head]"]}}
+                   if name == "graph_reg_fwd" and against else {})}}
+               if name in lm_records else {}),
             **{key: rec[key] for key in ("note", "global_route", "P×P",
                                          "floor_ms", "by_mask_ms")
                if key in rec}})
@@ -4287,8 +4551,15 @@ def main() -> int:
             "tflop_per_s", "note")},
         "kernel_ms": attn112["ms"], "bound_ms": b_ms, "bound_by": b_by,
         "share_of_bound": b_ms / attn112["ms"],
+        "registers": fa_build[112]["registers"],
+        "spill_bytes": fa_build[112]["spill_bytes"],
+        "dynamic_smem_bytes": fa_build[112]["dynamic_smem_bytes"],
+        "hgmma_instructions": fa_build["hgmma"],
         "shape": {"B": KIMI_ATTN[0], "T": KIMI_ATTN[1], "H": KIMI_ATTN[2],
-                  "KV": KIMI_ATTN[3], "hd": KIMI_ATTN[4]}})
+                  "KV": KIMI_ATTN[3], "hd": KIMI_ATTN[4]},
+        **({"against": {"dir": str(args.against),
+                        **against["flash_attention_hd112"]}}
+           if against else {})})
     for entry in kernels:
         entry["launch_model"] = launch_model_of(entry["name"],
                                                 analysis["models"])

@@ -1,6 +1,6 @@
 """Launch models of the port's CUDA kernels, and their checks (V-pass).
 
-The counterpart of the reference's ``vmem_audit.py``.  Each of the 15
+The counterpart of the reference's ``vmem_audit.py``.  Each of the 17
 ``__global__`` functions of ``src/repro_torch/csrc`` is mirrored here by a
 static *launch model* — the grid, threads, cluster, dynamic and static
 shared memory and ``__launch_bounds__`` its entry point uses, and for each
@@ -191,9 +191,42 @@ def _partials(k: int, B: int, pairs_of) -> Output:
     return Output("partials", (k, n_pairs, 32), writes)
 
 
+def _fwd_classes(k: int, B: int, C: int, plan: dict) -> list:
+    """K1 / K10 on the class-split plan: pass 1 writes one (B, B) partial
+    a class chunk and worker, a min(B, 64)-square tile a block; pass 2 one
+    value a worker (S_ii handed over in B floats of shared memory)."""
+    chunk, n_chunks = plan["class_chunk"], plan["class_chunks"]
+    nt, tile = _cdiv(B, graph_reg.CS_TILE), graph_reg.CS_TILE
+
+    def writes(x, y, z):
+        i0, j0 = (y // nt) * tile, (y % nt) * tile
+        return [((z, z + 1), (x, x + 1), (i0, min(i0 + tile, B)),
+                 (j0, min(j0 + tile, B)))]
+    part = Launch(
+        "reg_fwd_class_partials", f"k={k} B={B} C={C}", "graph_reg.cu",
+        _sym("reg_fwd_class_partials"), (n_chunks, nt * nt, k), 256,
+        plan["dynamic_smem_bytes"], 0, (256, 0),
+        outputs=(Output("partials", (k, n_chunks, B, B), writes),),
+        vectors=(Vector("P/logP rows", 4 * C),) if C % 4 == 0 else (),
+        library=("graph_reg.launch_plan", ("graph_reg_fwd", k, B, C), {},
+                 (("rows_per_block", plan["rows_per_block"]),
+                  ("dynamic_smem_bytes", plan["dynamic_smem_bytes"]),
+                  ("class_chunk", chunk), ("blocks", plan["blocks"]))))
+    total = Launch("reg_fwd_class_sum", f"k={k} B={B} chunks={n_chunks}",
+                   "graph_reg.cu", _sym("reg_fwd_class_sum"), (k, 1, 1),
+                   256, 4 * B, 4 * 8, (256, 1),
+                   outputs=(Output("out", (k,),
+                                   lambda x, y, z: [((x, x + 1),)]),))
+    return [part, total]
+
+
 def _fwd(k: int, B: int, C: int, n_sm: int, full: bool = True) -> list:
-    """K1 (``full``) or K10: ``graph_reg_fwd`` / ``graph_reg_pairwise``."""
+    """K1 (``full``) or K10: ``graph_reg_fwd`` / ``graph_reg_pairwise``,
+    on the row plan (class padding, the pipeline, the tree sum) or the
+    class-split plan."""
     plan = graph_reg.fwd_plan(k, B, C, n_sm=n_sm)
+    if plan["route"] == "classes":
+        return _fwd_classes(k, B, C, plan)
     pairs = plan["rows_per_block"] // 4
     n_strips = _cdiv(B, 32)
     tag = "1" if full else "0"
@@ -206,7 +239,8 @@ def _fwd(k: int, B: int, C: int, n_sm: int, full: bool = True) -> list:
         vectors=(Vector("padded logP rows", 16 * _cdiv(C, 4)),) + _w_rows(B),
         library=("graph_reg.launch_plan", ("graph_reg_fwd", k, B, C), {},
                  (("rows_per_block", plan["rows_per_block"]),
-                  ("dynamic_smem_bytes", plan["dynamic_smem_bytes"]))))
+                  ("dynamic_smem_bytes", plan["dynamic_smem_bytes"]),
+                  ("class_chunk", 0), ("blocks", plan["blocks"]))))
     return [_pad_classes(k * B, C, False), part, _tree_sum(k, n_strips)]
 
 
@@ -410,9 +444,10 @@ def _rbf(N: int, M: int, D: int, same: bool, n_sm: int,
 
 def _flash(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
            dtype: str) -> list:
-    """K11: the FMA kernel (64-row query blocks) or, for bf16 at hd 64 and
-    128, the tensor-core kernel (128-row query blocks fed by TMA)."""
-    wgmma = dtype == "bfloat16" and hd in (64, 128)
+    """K11: the FMA kernel (64-row query blocks) or, for bf16 at hd 64,
+    112 and 128, the tensor-core kernel (128-row query blocks fed by TMA,
+    tiles of hd rounded up to whole 64-column boxes)."""
+    wgmma = dtype == "bfloat16" and hd in (64, 112, 128)
     bq = 128 if wgmma else 64
     nq = _cdiv(Tq, bq)
 
@@ -426,7 +461,7 @@ def _flash(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
     out = Output("o", (B, Tq, H, hd), writes)
     tag = f"{dtype} hd={hd} B={B} T={Tq} H={H} KV={KV}"
     if wgmma:
-        smem = 5 * (hd // 64) * 128 * 128 + 64 + 1024
+        smem = 5 * _cdiv(hd, 64) * 128 * 128 + 64 + 1024
         return [Launch(
             "flash_fwd_wgmma_kernel", tag, "flash_attention_wgmma.cuh",
             _sym("flash_fwd_wgmma_kernel", f"Li{hd}E"), (B * H, nq, 1), 256,

@@ -43,9 +43,11 @@ __all__ = ["paper_config", "lm_train_setup", "time_ms", "graph_ms",
            "profile_step", "profile_serve", "profile_lm_train"]
 
 #: Names of this package's kernels in a profiler trace: K1–K3 and the
-#: block-sparse K4–K7, with the second pass of K1 and K4 and the class
-#: padding of the inputs of K1, K2, K4 and K6.
+#: block-sparse K4–K7, with the second pass of K1 and K4, the two passes
+#: of K1's class-split plan and the class padding of the inputs of K1, K2,
+#: K4 and K6.
 REG_KERNELS = ("pad_classes", "reg_fwd_partials", "reg_fwd_tree_sum",
+               "reg_fwd_class_partials", "reg_fwd_class_sum",
                "reg_bwd_dlogp", "reg_bwd_dw", "bsp_fwd_partials",
                "bsp_bwd_bterm", "bsp_bwd_dlogp", "bsp_bwd_dw")
 

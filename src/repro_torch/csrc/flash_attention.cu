@@ -12,13 +12,12 @@
 // builds.  T is float or __nv_bfloat16; hd is 16, 32, 64, 112 or 128.
 //
 // Two routes, chosen by flash_attention_fwd from dtype and hd: bfloat16
-// with hd 64 or 128 runs the tensor-core kernel of
+// with hd 64, 112 or 128 runs the tensor-core kernel of
 // flash_attention_wgmma.cuh (wgmma tiles fed by TMA, softmax in
-// registers, 128-key tiles); float32 (held to atol 3e-5, so no TF32) and
-// bfloat16 with hd 16, 32 or 112 run the FMA kernel below (64-key
-// tiles).  hd 112 is kimi-k2's (7168 / 64): 7 x 16 output columns a
-// thread, 224-byte rows, which the tensor-core kernel's 128-byte swizzled
-// TMA tiles do not cut evenly.
+// registers, 128-key tiles; hd 112, kimi-k2's 7168 / 64, in the tile of
+// hd 128 with its columns 112-127 zero-filled by the TMA); float32 (held
+// to atol 3e-5, so no TF32) and bfloat16 with hd 16 or 32 run the FMA
+// kernel below (64-key tiles).
 //
 // K11 replaces repro/kernels/flash_attention.py:flash_attention_fwd_pallas
 // (_flash_fwd_kernel), with its GQA wrapper flash_attention_gqa_pallas.
@@ -256,7 +255,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The FMA route: float32 at every hd, bfloat16 at hd 16, 32 and 112.
+// The FMA route: float32 at every hd, bfloat16 at hd 16 and 32.
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
                 int Tq, int Tk, int H, int KV, int hd, int causal,
@@ -264,11 +263,11 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
     switch (hd) {
         case 16: return launch<T, 16>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
         case 32: return launch<T, 32>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
-        case 112: return launch<T, 112>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
     }
     if constexpr (sizeof(T) == 4) {
         switch (hd) {
             case 64: return launch<T, 64>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
+            case 112: return launch<T, 112>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
             case 128: return launch<T, 128>(q, k, v, o, B, Tq, Tk, H, KV, causal, stream);
         }
     }
@@ -280,8 +279,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it).  bfloat16 with hd
-// 64 or 128 takes the tensor-core route (flash_attention_wgmma.cuh), whose
-// pointers must be 16-byte aligned; everything else the FMA kernel.
+// 64, 112 or 128 takes the tensor-core route (flash_attention_wgmma.cuh),
+// whose pointers must be 16-byte aligned; everything else the FMA kernel.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Tq, int Tk, int H, int KV, int hd,
                         int causal, int dtype, void* stream) {
@@ -291,6 +290,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     const auto s = static_cast<cudaStream_t>(stream);
     if (dtype == 1 && hd == 64)
         return k11_wgmma::launch<64>(q, k, v, o, B, Tq, Tk, H, KV, causal, s);
+    if (dtype == 1 && hd == 112)
+        return k11_wgmma::launch<112>(q, k, v, o, B, Tq, Tk, H, KV, causal, s);
     if (dtype == 1 && hd == 128)
         return k11_wgmma::launch<128>(q, k, v, o, B, Tq, Tk, H, KV, causal, s);
     if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -308,6 +309,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 int flash_attention_smem(int hd, int dtype) {
     if (dtype == 1 && hd == 64)
         return static_cast<int>(k11_wgmma::smem_bytes<64>());
+    if (dtype == 1 && hd == 112)
+        return static_cast<int>(k11_wgmma::smem_bytes<112>());
     if (dtype == 1 && hd == 128)
         return static_cast<int>(k11_wgmma::smem_bytes<128>());
     switch (hd) {
@@ -315,8 +318,7 @@ int flash_attention_smem(int hd, int dtype) {
                                                : smem_bytes<float, 16>());
         case 32: return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 32>()
                                                : smem_bytes<float, 32>());
-        case 112: return static_cast<int>(dtype ? smem_bytes<__nv_bfloat16, 112>()
-                                                : smem_bytes<float, 112>());
+        case 112: return dtype ? -1 : static_cast<int>(smem_bytes<float, 112>());
         case 64: return dtype ? -1 : static_cast<int>(smem_bytes<float, 64>());
         case 128: return dtype ? -1 : static_cast<int>(smem_bytes<float, 128>());
     }
@@ -332,8 +334,8 @@ namespace {
 const OccupancyQuery kOccupancy[] = {
     occupancy<flash_fwd_kernel<float, 16>>,
     occupancy<flash_fwd_kernel<float, 32>>,
-    occupancy<flash_fwd_kernel<__nv_bfloat16, 112>>,
     occupancy<k11_wgmma::flash_fwd_wgmma_kernel<64>>,
+    occupancy<k11_wgmma::flash_fwd_wgmma_kernel<112>>,
     occupancy<k11_wgmma::flash_fwd_wgmma_kernel<128>>,
 };
 

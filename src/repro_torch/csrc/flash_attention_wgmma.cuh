@@ -1,5 +1,5 @@
 // Hopper (sm_90a) tensor-core route of kernel K11 (flash attention
-// forward), for bfloat16 with head dim 64 or 128.  Included by
+// forward), for bfloat16 with head dim 64, 112 or 128.  Included by
 // flash_attention.cu, whose entry point flash_attention_fwd dispatches
 // here; float32, and bfloat16 with head dim 16 or 32, stay on the FMA
 // kernel there.
@@ -21,19 +21,26 @@
 // Design.  One block owns 128 query rows of one (batch, head): two
 // warpgroups of 64 rows, 256 threads, the heaviest causal blocks first.
 // Keys come in 128-key tiles.
+//   * Tiles: HD columns are held in a tile of padded width HDP (HD rounded
+//     up to 64: one or two 128-byte swizzle rows).  hd 112 (kimi-k2's,
+//     224-byte rows) takes the tile of hd 128: its second box covers
+//     columns 64-127 of a tensor map whose rows end at 112, so the TMA
+//     fills columns 112-127 with zeros (and counts them in the bytes the
+//     mbarrier expects, as it counts rows past T).
 //   * Loads: the TMA (cp.async.bulk.tensor) copies 4-D boxes of the (hd,
 //     heads, T, B) layout, 64 columns (one 128-byte swizzle row) by 128
-//     rows, with the 128-byte swizzle; hd 128 takes two boxes.  Q is
+//     rows, with the 128-byte swizzle; HDP / 64 boxes a tile.  Q is
 //     loaded once; K and V go through a 2-stage ring with one mbarrier per
 //     stage that carries the expected bytes.  Thread 0 issues tile j+1
 //     before the block computes on tile j; a block-wide barrier at the end
 //     of each iteration frees the stage.  Rows past Tq or Tk are filled
 //     with zeros by the TMA; keys past Tk are also masked by bounds, and
 //     query rows past Tq are never written.
-//   * S = Q.K^T: hd/16 wgmma m64n128k16 per warpgroup, A (its 64 Q rows)
-//     and B (K, K-major) read from shared memory through descriptors of
-//     the 128-byte swizzle layout (a 16-column step is +32 bytes of the
-//     start address inside a swizzle row).
+//   * S = Q.K^T: HD/16 wgmma m64n128k16 per warpgroup (7 at hd 112: the
+//     zero columns 112-127 are skipped), A (its 64 Q rows) and B (K,
+//     K-major) read from shared memory through descriptors of the
+//     128-byte swizzle layout (a 16-column step is +32 bytes of the start
+//     address inside a swizzle row).
 //   * Online softmax in registers, on the accumulator fragment: thread
 //     (warp w, lane l) holds rows 16w + l/4 and 16w + l/4 + 8 of its
 //     warpgroup; row max and row sum reduce in the thread, then over the
@@ -41,19 +48,21 @@
 //     diagonal or Tk; the loop ends at the last tile holding a key at or
 //     before the block's last query (exact: later tiles have p = 0 and
 //     alpha = 1).  exp(x) is ex2.approx(x * log2 e).
-//   * P.V: wgmma m64n{hd}k16 with A from registers.  For 16-bit A the S
+//   * P.V: wgmma m64n{HDP}k16 with A from registers.  For 16-bit A the S
 //     accumulator's registers 8k..8k+7, rounded to bf16 in pairs, are the
 //     A fragment of the k-th 16-key slice, so P never leaves registers.
 //     B is V read from shared memory as MN-major (the transpose bit).  The
-//     O accumulator (hd/2 floats a thread) is rescaled by alpha in
-//     registers before each P.V.
-//   * Epilogue: acc / max(l, 1e-30) to bf16, stored from registers, rows
-//     masked at Tq.  Nothing is atomic: two launches give the same bits.
+//     O accumulator (HDP/2 floats a thread; at hd 112 its columns 112-127
+//     stay 0 and are never stored) is rescaled by alpha in registers
+//     before each P.V.
+//   * Epilogue: acc / max(l, 1e-30) to bf16, HD columns stored from
+//     registers, rows masked at Tq.  Nothing is atomic: two launches give
+//     the same bits.
 //
-// Shared memory: Q + 2 x (K + V), 128 rows x hd bf16 each (160 KB at hd
-// 128, 80 KB at hd 64), aligned to 1024 bytes for the swizzle, then the
-// three mbarriers.  Tensor maps are encoded on the host per launch through
-// cudaGetDriverEntryPoint, so no driver library is linked.
+// Shared memory: Q + 2 x (K + V), 128 rows x HDP bf16 each (160 KB at hd
+// 112 and 128, 80 KB at hd 64), aligned to 1024 bytes for the swizzle,
+// then the three mbarriers.  Tensor maps are encoded on the host per
+// launch through cudaGetDriverEntryPoint, so no driver library is linked.
 
 #pragma once
 
@@ -74,10 +83,23 @@ constexpr uint32_t kBoxBytes = 128 * 128;  // one 64-column box of 128 rows
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Bytes of one 128-row tile of all hd columns, and of the kernel's shared
+// The padded tile width of head dim HD: HD rounded up to whole 64-column
+// boxes.  HD must be a multiple of 16 (one wgmma k-step) and at most 128
+// (two boxes), so no instantiation loads a partial row.
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+    static_assert(HD % 16 == 0 && HD > 0 && HD <= 2 * kBoxCols,
+                  "the wgmma route takes head dims of whole 16-column "
+                  "steps that fit two 64-column boxes");
+    return (HD + kBoxCols - 1) / kBoxCols * kBoxCols;
+}
+
+// Bytes of one 128-row tile of HDP columns, and of the kernel's shared
 // memory: Q, two (K, V) stages, three mbarriers, 1024 bytes of alignment.
 template <int HD>
-__host__ __device__ constexpr uint32_t tile_bytes() { return (HD / kBoxCols) * kBoxBytes; }
+__host__ __device__ constexpr uint32_t tile_bytes() {
+    return (padded_hd<HD>() / kBoxCols) * kBoxBytes;
+}
 template <int HD>
 __host__ __device__ constexpr size_t smem_bytes() { return 5 * tile_bytes<HD>() + 64 + 1024; }
 
@@ -118,13 +140,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         : "memory");
 }
 
-// Rows [row, row + 128) of one head, all HD columns, as HD/64 boxes.
+// Rows [row, row + 128) of one head, all HDP columns, as HDP/64 boxes
+// (columns past HD read as zeros).
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int head, int row,
                                           int batch) {
 #pragma unroll
-    for (int c = 0; c < HD / kBoxCols; ++c)
+    for (int c = 0; c < padded_hd<HD>() / kBoxCols; ++c)
         tma_load(dst + c * kBoxBytes, map, bar, c * kBoxCols, head, row, batch);
 }
 
@@ -274,7 +297,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ o, int Tq, int Tk, int H,
                        int KV, int causal) {
     constexpr uint32_t kTile = tile_bytes<HD>();
-    constexpr int kAcc = HD / 2;  // O accumulator floats per thread
+    constexpr int kHDP = padded_hd<HD>();
+    constexpr int kAcc = kHDP / 2;  // O accumulator floats per thread
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base =
         (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
@@ -406,14 +430,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 p[k][r] = pack_bf16(s[8 * k + 2 * r], s[8 * k + 2 * r + 1]);
 
         // O += P.V, V MN-major: a 16-key slice is 16 rows of 128 bytes; the
-        // second 64 columns (hd 128) are one box further (the leading
-        // byte offset).
+        // second 64 columns (hd 112 and 128) are one box further (the
+        // leading byte offset).
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
             const uint64_t vd = sw128_desc(sV + k * 16 * 128, kBoxBytes, 1024);
-            if constexpr (HD == 128)
+            if constexpr (kHDP == 128)
                 wgmma_m64n128k16_rs(acc, p[k], vd);
             else
                 wgmma_m64n64k16_rs(acc, p[k], vd);
@@ -479,7 +503,7 @@ inline EncodeTiled encode_tiled() {
 
 // The (hd, heads, T, B) view of a contiguous (B, T, heads, hd) bf16 tensor,
 // in 64-column by 128-row boxes with the 128-byte swizzle; out-of-bounds
-// rows read as zeros.
+// rows, and columns past hd (the padded tile of hd 112), read as zeros.
 inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                        int hd, int heads, int T, int B) {
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
@@ -498,7 +522,8 @@ inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 }
 
 // q, k, v and o contiguous bf16, every pointer 16-byte aligned (the TMA's
-// rule; the row strides, hd * 2 bytes, are multiples of 16 for hd 64, 128).
+// rule; the row strides, hd * 2 bytes, are multiples of 16 for hd 64, 112
+// and 128).
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int KV, int causal, cudaStream_t stream) {

@@ -25,7 +25,9 @@
 // same sums in the same orders, now from cp.async pipelines that fill
 // every SM; their entry points first copy logP (and P) into class-padded
 // rows (pad_classes) in a workspace the caller allocates, of the size
-// graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.  K1's
+// graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.  At narrow
+// B and wide C (the LM heads), K1 and K10 take a second plan instead, the
+// class-split plan below, with sums of their own order.  K1's
 // pipeline, the A half of K2's and K3's tile live in graph_reg_tiles.cuh,
 // where the block-sparse K4, K6 and K7 (graph_reg_bsp.cu) run them over
 // listed or occupied tiles.
@@ -236,14 +238,299 @@ reg_bwd_dw(const float* __restrict__ P, const float* __restrict__ L,
             ge, vec, DwDense{}, dW + (int64_t)z * B * B);
 }
 
+// K1 and K10, the class-split plan: narrow B and wide C.
+//
+// At the LM heads B is a few sequences (4-17) and C a vocabulary (512 to
+// 151,936).  There the row plan is at its least, 4 rows a block, and
+// still launches 8 blocks of one warp a 32-row strip, each streaming all C
+// classes: 10 ms at (1, 16, 151936) on an H100, against a 5.8 us bound (P
+// and logP read once, 19.4 MB).  So where the row plan is at its least (4 rows a
+// block) and C spans more than 4 of its class chunks (C > 4 * kFwdChunk),
+// the classes are split across blocks instead (cs_takes; the Python
+// mirror is graph_reg.fwd_plan):
+//
+// * pass 1 (reg_fwd_class_partials): a block per (class chunk, 64 x 64
+//   tile of S, worker), chunks of a whole number of 128-class slabs sized
+//   so that the blocks fill every SM at least once (1,024 classes, 149
+//   blocks at (1, 16, 151936) on 132 SMs).  Each block streams its
+//   chunk's P rows (the tile's i) and logP rows (its j) through a ring of
+//   kCsStages cp.async stages of one slab each (16-byte copies where C is
+//   a multiple of 4 and the rows aligned), and writes one partial S_ij =
+//   sum_c p_ic logp_jc of its chunk for every (i, j) of its tile.  Its
+//   threads are `groups` class groups (a power of two, at most 32) of
+//   quads^2 threads, each owning a 4 x 4 tile of S; group g sums classes
+//   g*w .. g*w + w of every slab (w = 128 / groups), one fmaf chain in
+//   increasing c from +0 an entry; the block adds the groups' values in
+//   group order (group 0's, then + group 1's, ...);
+// * pass 2 (reg_fwd_class_sum): one block of kCsSumThreads per worker.
+//   S_ij is the chunks' partials added in chunk order from +0; thread t
+//   takes the entries e = t, t + kCsSumThreads, ... (e = i*B + j) in
+//   order, cross = fmaf(W_e, S_e, cross), and the rows i = t, t +
+//   kCsSumThreads, ...: deg_i = sum_j W_ij in increasing j from +0, H_i =
+//   -S_ii (the row entropies need no second sweep over C; S_ii is handed
+//   over in shared memory), ent = fmaf(fmaf(ge, deg_i, kappa), H_i, ent);
+//   its value fmaf(-gc, cross, -ent) is summed over the warp by warp_sum
+//   and the warps in order from +0.
+//
+// No float atomics: two launches give the same bits.  What bounds it:
+// the bytes of P and logP (2*k*B*C floats); at B = 16 its 2*B*B*C flops
+// take a fifth of that time.  The row plan's shapes (the paper's B = 2176, C = 39)
+// never take this plan, so their bits stay.
+constexpr int kCsSlab = 128;     // classes a ring stage
+constexpr int kCsStride = kCsSlab + 4;   // floats a staged row: 33
+                                         // 16-byte groups, an odd count
+constexpr int kCsTile = 64;      // rows and columns of S a block
+constexpr int kCsStages = 3;     // depth of the cp.async ring
+constexpr int kCsMaxGroups = 32;
+
+// Thread quads along each side of a block's tile of S: min(B, 64) / 4,
+// rounded up.
+__host__ __device__ __forceinline__ int cs_quads(int B) {
+    return ((B < kCsTile ? B : kCsTile) + 3) / 4;
+}
+
+// Class groups of a block: the most, a power of two up to kCsMaxGroups,
+// whose quads^2 threads each fit kThreads.
+__host__ __device__ __forceinline__ int cs_groups(int B) {
+    const int q = cs_quads(B) * cs_quads(B);
+    int g = 1;
+    while (2 * g <= kCsMaxGroups && 2 * g * q <= kThreads) g *= 2;
+    return g;
+}
+
+// Floats of pass 1's dynamic shared memory: the ring (P and logP rows of
+// a tile, 4 * quads each, kCsStride floats a row), which the groups' 4 x 4
+// tiles reuse at the end.
+__host__ __device__ __forceinline__ int cs_smem_floats(int B) {
+    const int q = cs_quads(B);
+    const int ring = kCsStages * 2 * 4 * q * kCsStride;
+    const int tiles = cs_groups(B) * q * q * 16;
+    return ring > tiles ? ring : tiles;
+}
+
+__global__ void __launch_bounds__(kThreads)
+reg_fwd_class_partials(const float* __restrict__ P,
+                       const float* __restrict__ L, int B, int C, int chunk,
+                       int vec, float* __restrict__ partials) {
+    extern __shared__ __align__(16) float ring[];
+    const int tid = threadIdx.x, u = blockIdx.x, z = blockIdx.z;
+    const int nt = (B + kCsTile - 1) / kCsTile;
+    const int i0 = blockIdx.y / nt * kCsTile, j0 = blockIdx.y % nt * kCsTile;
+    const int quads = cs_quads(B), rows = 4 * quads, n_quads = quads * quads;
+    const int groups = cs_groups(B), width = kCsSlab / groups;
+    const int g = tid / n_quads, q = tid - g * n_quads;
+    const int qi = q / quads, qj = q - qi * quads;
+    const int c_begin = u * chunk, c_end = min(C, c_begin + chunk);
+    const int n_slabs = (c_end - c_begin + kCsSlab - 1) / kCsSlab;
+    const int stage_floats = 2 * rows * kCsStride;
+    P += (int64_t)z * B * C;
+    L += (int64_t)z * B * C;
+
+    // Stage `slot` <- slab s: staged row a < rows is P's row i0 + a, row
+    // rows + a logP's row j0 + a; classes past c_end or rows past B are 0.
+    const Walk walk4(tid, blockDim.x, kCsSlab / 4);   // (staged row, quad)
+    const Walk walk1(tid, blockDim.x, kCsSlab);       // (staged row, class)
+    auto load_slab = [&](int slot, int s) {
+        const int c0 = c_begin + s * kCsSlab;
+        float* dst = ring + slot * stage_floats;
+        if (vec) {
+            for (Walk w = walk4; w.a < 2 * rows; w.next()) {
+                const bool is_l = w.a >= rows;
+                const int i = is_l ? j0 + w.a - rows : i0 + w.a;
+                const int c = c0 + 4 * w.b;
+                const int n = i < B ? max(0, min(4, c_end - c)) : 0;
+                cp_async16(dst + w.a * kCsStride + 4 * w.b,
+                           (is_l ? L : P) + (n > 0 ? (int64_t)i * C + c : 0),
+                           4 * n);
+            }
+        } else {
+            for (Walk w = walk1; w.a < 2 * rows; w.next()) {
+                const bool is_l = w.a >= rows;
+                const int i = is_l ? j0 + w.a - rows : i0 + w.a;
+                const int c = c0 + w.b;
+                const bool ok = i < B && c < c_end;
+                cp_async4(dst + w.a * kCsStride + w.b,
+                          (is_l ? L : P) + (ok ? (int64_t)i * C + c : 0),
+                          ok ? 4 : 0);
+            }
+        }
+    };
+
+    const bool active = g < groups;
+    float S[4][4] = {};
+    for (int s = 0; s < kCsStages - 1; ++s) {
+        if (s < n_slabs) load_slab(s, s);
+        cp_async_commit();
+    }
+    for (int s = 0; s < n_slabs; ++s) {
+        cp_async_wait<kCsStages - 2>();
+        __syncthreads();   // slab s landed; slab s - 1's slot is free
+        if (s + kCsStages - 1 < n_slabs)
+            load_slab((s + kCsStages - 1) % kCsStages, s + kCsStages - 1);
+        cp_async_commit();
+        if (!active) continue;
+        const float* st = ring + (s % kCsStages) * stage_floats + g * width;
+        const float* pr = st + 4 * qi * kCsStride;
+        const float* lr = st + (rows + 4 * qj) * kCsStride;
+        for (int c = 0; c < width; c += 4) {
+            float4 a[4], b[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                a[r] = *reinterpret_cast<const float4*>(pr + r * kCsStride
+                                                        + c);
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+                b[m] = *reinterpret_cast<const float4*>(lr + m * kCsStride
+                                                        + c);
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    S[r][m] = fmaf(a[r].x, b[m].x, S[r][m]);
+                    S[r][m] = fmaf(a[r].y, b[m].y, S[r][m]);
+                    S[r][m] = fmaf(a[r].z, b[m].z, S[r][m]);
+                    S[r][m] = fmaf(a[r].w, b[m].w, S[r][m]);
+                }
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free: it takes the groups' tiles
+    float* tiles = ring;   // [groups][n_quads][16]
+    if (active && g > 0) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+                tiles[(g * n_quads + q) * 16 + 4 * r + m] = S[r][m];
+    }
+    __syncthreads();
+    if (g != 0) return;
+    for (int h = 1; h < groups; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+                S[r][m] += tiles[(h * n_quads + q) * 16 + 4 * r + m];
+    float* out = partials + ((int64_t)z * gridDim.x + u) * B * B;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int i = i0 + 4 * qi + r;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+            const int j = j0 + 4 * qj + m;
+            if (i < B && j < B) out[(int64_t)i * B + j] = S[r][m];
+        }
+    }
+}
+
+// S_e: the n chunks' partials of entry e (chunk u at u * stride + e) added
+// in chunk order from +0 (with stride 1, a row of n values in order).  A
+// batch's kCsBatch loads are issued together (past n they read chunk n - 1
+// again, unused), so a thread waits on memory once a batch, not once a
+// chunk (149 chunks at (1, 16, 151936)).
+constexpr int kCsBatch = 32;
+
+__device__ __forceinline__ float cs_entry(const float* __restrict__ part,
+                                          int64_t e, int64_t stride, int n) {
+    float s = 0.f;
+    for (int u = 0; u < n; u += kCsBatch) {
+        float v[kCsBatch];
+#pragma unroll
+        for (int t = 0; t < kCsBatch; ++t)
+            v[t] = part[min(u + t, n - 1) * stride + e];
+#pragma unroll
+        for (int t = 0; t < kCsBatch; ++t)
+            if (u + t < n) s += v[t];
+    }
+    return s;
+}
+
+// Pass 2; `diag` (dynamic shared memory, B floats) keeps S_ii from the
+// thread that sums entry i*B + i for the thread that owns row i.  One
+// block an SM is all it runs: the launch bounds say so, which leaves
+// cs_entry the registers to keep a whole batch of loads in flight (at
+// 1,024 threads a block the 64 registers a thread spill).
+constexpr int kCsSumThreads = 256;
+
+__global__ void __launch_bounds__(kCsSumThreads, 1)
+reg_fwd_class_sum(const float* __restrict__ partials,
+                  const float* __restrict__ W, int B, int n_chunks, float gc,
+                  float kappa, float ge, int full, float* __restrict__ out) {
+    extern __shared__ float diag[];
+    __shared__ float totals[kCsSumThreads / 32];
+    const int tid = threadIdx.x, z = blockIdx.x;
+    const int64_t BB = (int64_t)B * B;
+    const float* part = partials + (int64_t)z * n_chunks * BB;
+    W += (int64_t)z * BB;
+    float cross = 0.f, ent = 0.f;
+    for (int64_t e = tid; e < BB; e += blockDim.x) {
+        const float S = cs_entry(part, e, BB, n_chunks);
+        cross = fmaf(W[e], S, cross);
+        if (e % (B + 1) == 0) diag[e / (B + 1)] = S;
+    }
+    __syncthreads();
+    if (full) {
+        for (int i = tid; i < B; i += blockDim.x) {
+            // deg_i: W's row i in increasing j from +0, batched as S_e.
+            const float d = cs_entry(W, (int64_t)i * B, 1, B);
+            ent = fmaf(fmaf(ge, d, kappa), -diag[i], ent);
+        }
+    }
+    const float v = warp_sum(fmaf(-gc, cross, -ent));
+    if ((tid & 31) == 0) totals[tid >> 5] = v;
+    __syncthreads();
+    if (tid == 0) {
+        float sum = 0.f;
+        for (int w = 0; w < kCsSumThreads / 32; ++w) sum += totals[w];
+        out[z] = sum;
+    }
+}
+
+// Whether K1 / K10 at (k, B, C) on n_sm SMs take the class-split plan:
+// the row plan at its least (4 rows a block) and C past 4 class chunks.
+bool cs_takes(int k, int B, int C, int n_sm) {
+    return rows_to_fill((int64_t)k * 32 * ((B + 31) / 32), n_sm, 4,
+                        4 * kFwdMaxPairs) == 4
+           && C > 4 * kFwdChunk;
+}
+
+// Classes a chunk of the class-split plan: whole slabs, as many as still
+// give every SM a block (at least one slab, at most all of C).
+int cs_chunk(int k, int B, int C, int n_sm) {
+    const int64_t slabs = (C + kCsSlab - 1) / kCsSlab;
+    const int64_t nt = (B + kCsTile - 1) / kCsTile;
+    int64_t per = slabs * nt * nt * k / n_sm;
+    per = per < 1 ? 1 : per > slabs ? slabs : per;
+    return static_cast<int>(kCsSlab * per);
+}
+
+// Pass 1's grid of a K1 / K10 launch with `rows` rows a block and class
+// chunk `chunk` (0: the row plan), as graph_reg_fwd_plan reports it and
+// launch_fwd launches it.
+dim3 fwd_grid(int k, int B, int C, int rows, int chunk) {
+    if (chunk > 0) {
+        const int nt = (B + kCsTile - 1) / kCsTile;
+        return dim3((C + chunk - 1) / chunk, nt * nt, k);
+    }
+    return dim3((8 * ((B + 31) / 32) + rows / 4 - 1) / (rows / 4), 1, k);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of a K1 / K10 launch's workspace: pass 1's partials, one per
-// thread of each worker's 32-row strips, then the class-padded copy of
-// logP, k * B * C4 floats (C4 = C rounded up to 4).
+// Floats of a K1 / K10 launch's workspace.  The row plan: pass 1's
+// partials, one per thread of each worker's 32-row strips, then the
+// class-padded copy of logP, k * B * C4 floats (C4 = C rounded up to 4).
+// The class-split plan: one (B, B) partial a class chunk and worker.  -1
+// if the device cannot be asked.
 int graph_reg_fwd_workspace(int k, int B, int C) {
+    int n_sm = 0;
+    if (sm_count(&n_sm) != cudaSuccess) return -1;
+    if (k >= 1 && B >= 1 && C >= 1 && cs_takes(k, B, C, n_sm)) {
+        const int chunk = cs_chunk(k, B, C, n_sm);
+        return k * ((C + chunk - 1) / chunk) * B * B;
+    }
     return fwd_n_partials(k, B) + k * B * pad4(C);
 }
 
@@ -253,16 +540,29 @@ int graph_reg_bwd_dlogp_workspace(int k, int B, int C) {
     return 2 * k * B * pad4(C);
 }
 
-// Rows per block and dynamic shared memory (bytes) of a K1 / K10 launch.
-int graph_reg_fwd_plan(int k, int B, int C, int* rows, int* smem) {
+// Rows per block, dynamic shared memory (bytes) of pass 1, the class
+// chunk and pass 1's blocks of a K1 / K10 launch: the row plan's rows and
+// chunk 0, or the class-split plan's tile rows (min(B, 64)) and chunk
+// width; `blocks` is the grid launch_fwd gives pass 1.
+int graph_reg_fwd_plan(int k, int B, int C, int* rows, int* smem,
+                       int* chunk, int* blocks) {
     if (k < 1 || B < 1 || C < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     int n_sm = 0;
     const cudaError_t err = sm_count(&n_sm);
     if (err != cudaSuccess) return static_cast<int>(err);
-    *rows = rows_to_fill((int64_t)k * 32 * ((B + 31) / 32),
-                         n_sm, 4, 4 * kFwdMaxPairs);
-    *smem = static_cast<int>(sizeof(float)) * fwd_smem_floats(*rows, C);
+    if (cs_takes(k, B, C, n_sm)) {
+        *rows = B < kCsTile ? B : kCsTile;
+        *smem = static_cast<int>(sizeof(float)) * cs_smem_floats(B);
+        *chunk = cs_chunk(k, B, C, n_sm);
+    } else {
+        *rows = rows_to_fill((int64_t)k * 32 * ((B + 31) / 32),
+                             n_sm, 4, 4 * kFwdMaxPairs);
+        *smem = static_cast<int>(sizeof(float)) * fwd_smem_floats(*rows, C);
+        *chunk = 0;
+    }
+    const dim3 g = fwd_grid(k, B, C, *rows, *chunk);
+    *blocks = static_cast<int>(g.x * g.y * g.z);
     return 0;
 }
 
@@ -291,26 +591,52 @@ int graph_reg_bwd_dlogp_plan(int k, int B, int C, int* rows, int* smem) {
 
 namespace {
 
+// The class-split plan's two passes (reg_fwd_class_partials, then
+// reg_fwd_class_sum), the partials in the workspace.
+int launch_fwd_classes(const float* p, const float* logp, const float* W,
+                       int k, int B, int C, int chunk, int smem, float gc,
+                       float kappa, float ge, int full, float* partials,
+                       float* out, cudaStream_t s) {
+    const dim3 grid = fwd_grid(k, B, C, 0, chunk);
+    // 16-byte copies need C a multiple of 4 and P, logP aligned.
+    const int vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0
+                    && reinterpret_cast<uintptr_t>(logp) % 16 == 0;
+    cudaError_t err = allow_dynamic_smem<reg_fwd_class_partials>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reg_fwd_class_partials<<<grid, kThreads, smem, s>>>(
+        p, logp, B, C, chunk, vec, partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reg_fwd_class_sum<<<k, kCsSumThreads, sizeof(float) * B, s>>>(
+        partials, W, B, grid.x, gc, kappa, ge, full, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kFull>
 int launch_fwd(const void* p, const void* logp, const void* W, int k, int B,
                int C, float gc, float kappa, float ge, void* workspace,
                void* out, cudaStream_t s) {
-    int rows = 0, smem = 0;
-    int rc = graph_reg_fwd_plan(k, B, C, &rows, &smem);
+    int rows = 0, smem = 0, chunk = 0, blocks = 0;
+    int rc = graph_reg_fwd_plan(k, B, C, &rows, &smem, &chunk, &blocks);
     if (rc != 0) return rc;
+    if (chunk > 0)
+        return launch_fwd_classes(
+            static_cast<const float*>(p), static_cast<const float*>(logp),
+            static_cast<const float*>(W), k, B, C, chunk, smem, gc, kappa,
+            ge, kFull, static_cast<float*>(workspace),
+            static_cast<float*>(out), s);
     float* partials = static_cast<float*>(workspace);
     float* L4 = partials + fwd_n_partials(k, B);
     rc = launch_pad(static_cast<const float*>(logp), nullptr, (int64_t)k * B,
                     C, L4, nullptr, s);
     if (rc != 0) return rc;
-    const int n_strips = (B + 31) / 32, pairs = rows / 4;
+    const int n_strips = (B + 31) / 32;
     // 16-byte copies of W's rows need B a multiple of 4 and W aligned.
     const int vec_w = B % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
     cudaError_t err = allow_dynamic_smem<reg_fwd_partials<kFull>>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     reg_fwd_partials<kFull>
-        <<<dim3((8 * n_strips + pairs - 1) / pairs, 1, k), 32 * pairs, smem,
-           s>>>(static_cast<const float*>(p), static_cast<const float*>(logp),
+        <<<fwd_grid(k, B, C, rows, 0), 8 * rows, smem, s>>>(static_cast<const float*>(p), static_cast<const float*>(logp),
                 L4, static_cast<const float*>(W), B, C, gc, kappa, ge, vec_w,
                 partials);
     err = cudaGetLastError();
@@ -399,6 +725,8 @@ const OccupancyQuery kOccupancy[] = {
     occupancy<reg_bwd_dw>,
     occupancy<pad_classes>,
     occupancy<reg_fwd_tree_sum>,
+    occupancy<reg_fwd_class_partials>,
+    occupancy<reg_fwd_class_sum>,
 };
 
 }  // namespace

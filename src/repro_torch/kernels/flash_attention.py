@@ -10,13 +10,15 @@ tensors; CPU tensors go to the plain version
 tiles (:func:`block_k`), and mixed devices raise.  A CUDA tensor never
 reaches the plain version.
 
-Two routes (:func:`route`): bfloat16 with head dim 64 or 128 runs on the
-tensor cores (``csrc/flash_attention_wgmma.cuh``: wgmma tiles fed by the
-TMA, the softmax in registers, 128-key tiles), and needs every pointer and
-row stride on a 16-byte boundary (the TMA's rule); float32, held to atol
-3e-5 and so kept off TF32, and bfloat16 with head dim 16, 32 or 112
-(kimi-k2's 7168 / 64) run a float32 FMA loop over 64-key tiles.  A tensor-core call that cannot build
-or launch raises; it never falls back to the FMA kernel.
+Two routes (:func:`route`): bfloat16 with head dim 64, 112 (kimi-k2's
+7168 / 64, in the tile of head dim 128 with its last 16 columns
+zero-filled by the TMA) or 128 runs on the tensor cores
+(``csrc/flash_attention_wgmma.cuh``: wgmma tiles fed by the TMA, the
+softmax in registers, 128-key tiles), and needs every pointer and row
+stride on a 16-byte boundary (the TMA's rule); float32, held to atol 3e-5
+and so kept off TF32, and bfloat16 with head dim 16 or 32 run a float32
+FMA loop over 64-key tiles.  A tensor-core call that cannot build or
+launch raises; it never falls back to the FMA kernel.
 
 Source note (bound on an H100 SXM at the serve path's shape, q (4, 2048,
 12, 128) and k, v (4, 2048, 2, 128) in bf16, causal): K11 replaces
@@ -55,8 +57,8 @@ from .boundary import bounded
 from .graph_reg import _on_cpu, _on_meta, _raise_on, _stream
 
 __all__ = ["flash_attention_gqa", "route", "block_k", "flops", "launch_smem",
-           "HEAD_DIMS", "WRAPPERS", "OCCUPANCY_KERNELS", "occupancy",
-           "SOURCE"]
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS", "WRAPPERS", "OCCUPANCY_KERNELS",
+           "occupancy", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
@@ -67,17 +69,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_K = {"wgmma": 128, "fma": 64}
 
 
+#: Head dims the tensor-core route takes in bfloat16.
+WGMMA_HEAD_DIMS = (64, 112, 128)
+
+
 def route(dtype: torch.dtype, hd: int) -> str:
-    """``"wgmma"`` (tensor cores) for bfloat16 at head dim 64 or 128,
-    ``"fma"`` for float32 and for bfloat16 at head dim 16, 32 or 112;
-    raises on what the kernel does not take."""
+    """``"wgmma"`` (tensor cores) for bfloat16 at head dim 64, 112 or 128,
+    ``"fma"`` for float32 and for bfloat16 at head dim 16 or 32; raises on
+    what the kernel does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention_gqa: dtype {dtype} not in "
                         f"{list(_DTYPES)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_gqa: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "fma"
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            else "fma")
 
 
 def block_k(dtype: torch.dtype, hd: int) -> int:
@@ -138,8 +145,8 @@ def _lib() -> ctypes.CDLL:
 #: the order of the source's ``kOccupancy`` table.
 OCCUPANCY_KERNELS = ("16flash_fwd_kernelIfLi16E",
                      "16flash_fwd_kernelIfLi32E",
-                     "16flash_fwd_kernelI13__nv_bfloat16Li112E",
                      "22flash_fwd_wgmma_kernelILi64E",
+                     "22flash_fwd_wgmma_kernelILi112E",
                      "22flash_fwd_wgmma_kernelILi128E")
 
 

@@ -28,7 +28,13 @@ f32 without tensor cores):
   tiles with 16-byte shared-memory reads.  Pass 1 writes every chain's
   value; pass 2 adds each strip's 256 by the old block tree and the
   strips in order.  No atomics, and the bits are those of the strip
-  kernel.
+  kernel.  At narrow B and wide C (the LM heads, e.g. (1, 16, 151936)),
+  where that plan is at its least (4 rows a block) and C spans more than
+  4 of its class chunks, K1 takes the class-split plan instead
+  (:func:`fwd_plan`): blocks own a class chunk of a 64 × 64 tile of
+  P·logPᵀ and write its partial; a second pass adds the chunks in order
+  and forms L.  Bound there by reading P and logP once (5.8 µs at
+  (1, 16, 151936)); its sums have their own fixed order.
 * ``reg_bwd_dlogp`` — K2, replaces ``_reg_bwd_dlogp`` /
   ``_reg_bwd_dlogp_kernel``.  Two products with W (W·logP and Wᵀ·P),
   4·P²·C flops (11 µs): bound by operations.  Every output is one fmaf
@@ -82,9 +88,9 @@ from . import build, ref
 from .boundary import bounded
 
 __all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "reg_pairwise",
-           "fwd_plan", "dlogp_plan", "launch_plan", "launch_counts",
-           "reset_launch_counts", "OCCUPANCY_KERNELS", "occupancy",
-           "SOURCE"]
+           "fwd_plan", "class_split", "dlogp_plan", "launch_plan",
+           "launch_counts", "reset_launch_counts", "OCCUPANCY_KERNELS",
+           "occupancy", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg.cu"
 
@@ -94,7 +100,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "graph_reg_fwd_workspace": (_I, _I, _I),
     "graph_reg_bwd_dlogp_workspace": (_I, _I, _I),
-    "graph_reg_fwd_plan": (_I, _I, _I, _P, _P),
+    "graph_reg_fwd_plan": (_I, _I, _I, _P, _P, _P, _P),
     "graph_reg_bwd_dlogp_plan": (_I, _I, _I, _P, _P),
     "graph_reg_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     "graph_reg_pairwise": (_P, _P, _P, _I, _I, _P, _P, _P),
@@ -123,7 +129,9 @@ OCCUPANCY_KERNELS = ("16reg_fwd_partialsILb1E",
                      "13reg_bwd_dlogpE",
                      "10reg_bwd_dwE",
                      "11pad_classesE",
-                     "16reg_fwd_tree_sumE")
+                     "16reg_fwd_tree_sumE",
+                     "22reg_fwd_class_partialsE",
+                     "17reg_fwd_class_sumE")
 
 
 def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
@@ -229,22 +237,31 @@ def _workspace(lib: ctypes.CDLL, name: str, k: int, B: int, C: int,
     ``"graph_reg_bsp_fwd"``, K6 ``"graph_reg_bsp_dlogp"``), of the size
     the library gives."""
     n = getattr(lib, f"{name}_workspace")(k, B, C)
+    if n < 0:
+        raise RuntimeError(f"{name}_workspace({k}, {B}, {C}) could not ask "
+                           f"the device for its SM count")
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
-def _plan(lib: ctypes.CDLL, name: str, *dims: int) -> dict:
+def _plan(lib: ctypes.CDLL, name: str, *dims: int,
+          extra: tuple[str, ...] = ()) -> dict:
     """Rows per block and dynamic shared memory (bytes) of one launch of
-    ``lib``'s entry point ``name`` at ``dims``, from its ``_plan``."""
-    rows, smem = ctypes.c_int(), ctypes.c_int()
+    ``lib``'s entry point ``name`` at ``dims``, from its ``_plan``, and the
+    further outputs named in ``extra`` that this ``_plan`` writes."""
+    outs = [ctypes.c_int() for _ in range(2 + len(extra))]
     _raise_on(getattr(lib, f"{name}_plan")(
-        *dims, ctypes.byref(rows), ctypes.byref(smem)), f"{name}_plan")
-    return {"rows_per_block": rows.value, "dynamic_smem_bytes": smem.value}
+        *dims, *map(ctypes.byref, outs)), f"{name}_plan")
+    return dict(zip(("rows_per_block", "dynamic_smem_bytes", *extra),
+                    (o.value for o in outs)))
 
 
 # The launch plans' constants (``csrc/graph_reg_tiles.cuh``): K1's
-# pipeline and K2's ring.
+# pipeline and K2's ring; K1's class-split plan (``csrc/graph_reg.cu``).
 FWD_SPAN, FWD_CHUNK, FWD_STAGES, FWD_MAX_PAIRS = 128, 64, 3, 8
 SUM_THREADS = 256              # partials a 32-row strip (kThreads)
+CS_SLAB, CS_TILE, CS_STAGES, CS_MAX_GROUPS = 128, 64, 3, 32
+CS_STRIDE = CS_SLAB + 4        # floats a staged row (kCsStride)
+CS_SUM_THREADS = 256           # pass 2's block (kCsSumThreads)
 DL_PIECE, DL_MAX_ROWS, DL_MAX_QUADS, DL_MAX_THREADS = 32, 64, 32, 512
 DL_STAGES = 2                  # K2's ring (kDlStages)
 
@@ -270,17 +287,72 @@ def fwd_smem_floats(rows: int, C: int) -> int:
     return FWD_STAGES * stage + (0 if C > width else rows * stride)
 
 
+def class_split(k: int, B: int, C: int, *, n_sm: int) -> bool:
+    """``cs_takes`` of the source: K1 and K10 take the class-split plan
+    where the row plan is at its least (4 rows a block: k·32·⌈B/32⌉ rows
+    fill no SM past 4) and C spans more than 4 of its class chunks
+    (C > 4·``FWD_CHUNK`` = 256).  The paper's shapes (B = 2176, C 39)
+    never do; every LM head does."""
+    return (_rows_to_fill(k * 32 * _cdiv(B, 32), n_sm, 4,
+                          4 * FWD_MAX_PAIRS) == 4
+            and C > 4 * FWD_CHUNK)
+
+
+def _class_groups(B: int) -> int:
+    """``cs_groups`` of the source: class groups of a pass-1 block, the
+    most (a power of two, at most ``CS_MAX_GROUPS``) whose ⌈min(B, 64)/4⌉²
+    threads each fit 256."""
+    q = _cdiv(min(B, CS_TILE), 4) ** 2
+    g = 1
+    while 2 * g <= CS_MAX_GROUPS and 2 * g * q <= SUM_THREADS:
+        g *= 2
+    return g
+
+
 def fwd_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
     """K1's (and K10's) launch plan on a card of ``n_sm`` SMs, as the
-    source's ``graph_reg_fwd_plan``: the fewest rows a block (4 a warp, at
-    most ``FWD_MAX_PAIRS`` warps) that fill each SM once; dynamic shared
-    memory and workspace floats (the partials, then the class-padded
-    logP)."""
+    source's ``graph_reg_fwd_plan``.
+
+    ``route`` ``"rows"``: the fewest rows a block (4 a warp, at most
+    ``FWD_MAX_PAIRS`` warps) that fill each SM once; the workspace holds
+    the partials, then the class-padded logP; ``class_chunk`` 0.
+
+    ``route`` ``"classes"`` (:func:`class_split`): pass-1 blocks of 256
+    threads own a ``class_chunk`` of C (whole 128-class slabs, as many as
+    still give every SM a block) of a min(B, 64)-square tile of P·logPᵀ
+    (``rows_per_block``) and worker; the workspace holds one (B, B)
+    partial a chunk and worker.  ``blocks`` counts pass 1's blocks."""
+    if class_split(k, B, C, n_sm=n_sm):
+        slabs, nt = _cdiv(C, CS_SLAB), _cdiv(B, CS_TILE)
+        per = min(max(slabs * nt * nt * k // n_sm, 1), slabs)
+        chunk = CS_SLAB * per
+        n_chunks = _cdiv(C, chunk)
+        quads, groups = _cdiv(min(B, CS_TILE), 4), _class_groups(B)
+        ring = CS_STAGES * 2 * 4 * quads * CS_STRIDE
+        return {"route": "classes", "rows_per_block": min(B, CS_TILE),
+                "class_chunk": chunk, "class_chunks": n_chunks,
+                "class_groups": groups, "blocks": n_chunks * nt * nt * k,
+                "dynamic_smem_bytes": 4 * max(ring,
+                                              groups * quads * quads * 16),
+                "workspace_floats": k * n_chunks * B * B}
     rows = _rows_to_fill(k * 32 * _cdiv(B, 32), n_sm, 4, 4 * FWD_MAX_PAIRS)
-    return {"rows_per_block": rows,
+    return {"route": "rows", "rows_per_block": rows, "class_chunk": 0,
+            "blocks": k * _cdiv(8 * _cdiv(B, 32), rows // 4),
             "dynamic_smem_bytes": 4 * fwd_smem_floats(rows, C),
             "workspace_floats": k * _cdiv(B, 32) * SUM_THREADS
             + k * B * _cdiv(C, 4) * 4}
+
+
+def class_split_chain(B: int, plan: dict) -> int:
+    """The longest float32 chain a term of K1's L runs through on the
+    class-split ``plan`` (:func:`fwd_plan`): class_chunk/class_groups
+    classes a class group, the groups, the chunks, then pass 2's
+    ⌈B²/``CS_SUM_THREADS``⌉ entries a thread, its 5 warp-butterfly steps
+    and its ``CS_SUM_THREADS``/32 warps.  Round-off grows with it, not
+    with C."""
+    return (plan["class_chunk"] // plan["class_groups"]
+            + plan["class_groups"] + plan["class_chunks"]
+            + _cdiv(B * B, CS_SUM_THREADS) + 5 + CS_SUM_THREADS // 32)
 
 
 def dlogp_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
@@ -303,9 +375,12 @@ def dlogp_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
 
 def launch_plan(name: str, k: int, B: int, C: int) -> dict:
     """Rows per block and dynamic shared memory (bytes) of one K1 / K10
-    (``"graph_reg_fwd"``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
+    (``"graph_reg_fwd"``, also its ``class_chunk``, 0 on the row plan, and
+    pass 1's ``blocks``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
     current card, as the library computes them."""
-    return _plan(_lib(), name, k, B, C)
+    return _plan(_lib(), name, k, B, C,
+                 extra=(("class_chunk", "blocks") if name == "graph_reg_fwd"
+                        else ()))
 
 
 @bounded("graph_reg_fwd")

@@ -373,8 +373,8 @@ class TestLaunchAudit:
     def test_default_models_validate_clean(self):
         findings, metrics = la.validate_launches()
         assert findings == []
-        assert metrics["kernels_in_source"] == 15
-        assert metrics["kernels_modelled"] == 15
+        assert metrics["kernels_in_source"] == 17
+        assert metrics["kernels_modelled"] == 17
         assert metrics["launches_checked"] >= 40
 
     def test_every_kernel_models_its_path_shapes(self):
@@ -452,7 +452,7 @@ class TestLaunchAudit:
             "__global__ void __launch_bounds__(128) stray(float* x) {}\n")
         findings, metrics = la.validate_launches(csrc=tmp_path)
         assert _rules(findings) == ["V005"]
-        assert metrics["kernels_in_source"] == 16
+        assert metrics["kernels_in_source"] == 18
 
     def test_launch_bounds_held_to_the_source(self):
         (where, ln), *rest = la.kernel_launches()
@@ -463,7 +463,10 @@ class TestLaunchAudit:
 
     def test_plan_mirrors_at_the_paths_shape(self):
         """K1's and K2's Python mirrors give the source's plans at P =
-        2176 on 132 SMs: 20 rows (109 blocks) and 36-row clusters (61)."""
+        2176 on 132 SMs: 20 rows (109 blocks) and 36-row clusters (61);
+        at the smoke's SSL head (1, 4, 512) K1 takes the class-split plan:
+        4 chunks of 128 classes, one 256-thread block each, and one
+        block of pass 2."""
         from repro_torch.kernels import graph_reg
         fwd = graph_reg.fwd_plan(1, 2176, 39, n_sm=132)
         dl = graph_reg.dlogp_plan(1, 2176, 39, n_sm=132)
@@ -476,8 +479,14 @@ class TestLaunchAudit:
                                                B=2176, C=39)
                  if ln.kernel == "reg_bwd_dlogp"]
         assert k1.grid == (109, 1, 1) and k2.grid == (122, 1, 1)
-        assert graph_reg.fwd_plan(1, 4, 512, n_sm=132)[
-            "dynamic_smem_bytes"] == 113856
+        smoke = graph_reg.fwd_plan(1, 4, 512, n_sm=132)
+        assert (smoke["route"], smoke["class_chunk"],
+                smoke["dynamic_smem_bytes"]) == ("classes", 128, 12672)
+        part, total = la.call_launches("graph_reg_fwd", k=1, B=4, C=512)
+        assert (part.kernel, part.grid, part.threads) == (
+            "reg_fwd_class_partials", (4, 1, 1), 256)
+        assert (total.kernel, total.grid) == ("reg_fwd_class_sum",
+                                              (1, 1, 1))
 
     def test_v004_is_not_applicable(self):
         assert "not applicable" in RULES["V004"]

@@ -2,7 +2,8 @@
 
 On CPU tensors ``ops.flash_attention_gqa`` runs the kernel's plain version
 (``ref.flash_attention_ref`` over the key tiles of the route the card
-would take: 128 keys for bfloat16 at head dim 64 or 128, 64 otherwise).
+would take: 128 keys for bfloat16 at head dim 64, 112 or 128, 64
+otherwise).
 The same numpy inputs go through the reference's Pallas kernel in
 interpret mode (``flash_attention_gqa_pallas``,
 ``flash_attention_fwd_pallas``) and its O(T²) oracle
@@ -118,13 +119,20 @@ def test_bf16_matches_pallas_kernel_on_the_same_tiles(B, T, H, KV, hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Tq,Tk,H,KV", [(2, 100, 100, 8, 2),
-                                         (1, 40, 130, 16, 2)])
+                                         (1, 40, 130, 16, 2),
+                                         (1, 130, 300, 8, 2),
+                                         (1, 200, 200, 4, 1)])
 def test_head_dim_112_matches_pallas_kernel(dtype, B, Tq, Tk, H, KV):
-    """kimi-k2's head dim (7168 / 64 = 112) on the FMA route's 64-key
-    tiles, ragged and with Tq < Tk, against the reference's Pallas kernel
-    in interpret mode on the same tiles (heads folded into the batch, as
-    ``flash_attention_fwd_pallas`` takes them)."""
-    assert fa.route(dtype, 112) == "fma" and fa.block_k(dtype, 112) == 64
+    """kimi-k2's head dim (7168 / 64 = 112): bfloat16 on the tensor-core
+    route's 128-key tiles, float32 on the FMA route's 64-key tiles;
+    ragged (T not a multiple of 128) and with Tq < Tk, against the
+    reference's Pallas kernel in interpret mode on the same tiles (heads
+    folded into the batch, as ``flash_attention_fwd_pallas`` takes
+    them)."""
+    want_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    bk = {"wgmma": 128, "fma": 64}[want_route]
+    assert fa.route(dtype, 112) == want_route
+    assert fa.block_k(dtype, 112) == bk
     q, k, v = _qkv(B, Tq, H, KV, 112, Tk=Tk, seed=4)
     G = H // KV
 
@@ -135,7 +143,7 @@ def test_head_dim_112_matches_pallas_kernel(dtype, B, Tq, Tk, H, KV):
                            else jnp.bfloat16)
 
     want = np.asarray(flash_attention_fwd_pallas(
-        fold(q, 1), fold(k, G), fold(v, G), causal=True, bq=64, bk=64,
+        fold(q, 1), fold(k, G), fold(v, G), causal=True, bq=64, bk=bk,
         interpret=True)).astype(np.float32)
     want = want.reshape(B, H, Tq, 112).transpose(0, 2, 1, 3)
     got = _port(q, k, v, dtype=dtype)
@@ -146,8 +154,10 @@ def test_head_dim_112_matches_pallas_kernel(dtype, B, Tq, Tk, H, KV):
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 112),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 32),
+                                      (torch.float32, 112),
                                       (torch.float32, 128)])
 def test_cpu_path_walks_the_routes_key_tiles(dtype, hd):
     """The CPU path is the plain version on ``block_k(dtype, hd)``, bit for
@@ -163,14 +173,14 @@ def test_cpu_path_walks_the_routes_key_tiles(dtype, hd):
 
 
 def test_route_and_block_k():
-    assert fa.route(torch.bfloat16, 128) == "wgmma"
-    assert fa.route(torch.bfloat16, 64) == "wgmma"
+    for hd in (64, 112, 128):
+        assert fa.route(torch.bfloat16, hd) == "wgmma"
+        assert fa.block_k(torch.bfloat16, hd) == 128
     for dtype, hd in ((torch.bfloat16, 32), (torch.bfloat16, 16),
                       (torch.float32, 128), (torch.float32, 16),
-                      (torch.bfloat16, 112), (torch.float32, 112)):
+                      (torch.float32, 112)):
         assert fa.route(dtype, hd) == "fma"
         assert fa.block_k(dtype, hd) == 64
-    assert fa.block_k(torch.bfloat16, 128) == 128
 
 
 @pytest.mark.parametrize("dtype,hd,err", [(torch.float16, 128, TypeError),

@@ -13,6 +13,9 @@ allow rtol 2e-5 with an atol of 2e-5 of the largest magnitude.
 The kernels themselves are held against their plain versions on the card
 in ``tests/test_torch_kernels_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,3 +225,253 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
                              "graph_reg_bsp_dw", "graph_reg_pairwise",
                              "knn_topk", "rbf_affinity", "flash_attention")}
 
+
+
+# ---------------------------------------------------------------- K1 plans
+# K1's launch plan (``graph_reg_fwd_plan`` in ``csrc/graph_reg.cu``) has a
+# Python mirror, ``gr.fwd_plan``: its constants are held to the source
+# here and its results to the library on the card
+# (tests/test_torch_kernels_cuda.py).
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+_CS_CONSTANTS = {"kCsSlab": gr.CS_SLAB, "kCsTile": gr.CS_TILE,
+                 "kCsStages": gr.CS_STAGES, "kCsMaxGroups": gr.CS_MAX_GROUPS,
+                 "kCsSumThreads": gr.CS_SUM_THREADS}
+
+
+@pytest.mark.parametrize("const", sorted(_CS_CONSTANTS))
+def test_class_split_constants_follow_the_source(const):
+    src = (CSRC / "graph_reg.cu").read_text()
+    assert int(re.search(rf"constexpr int {const} = (\d+);", src).group(1)) \
+        == _CS_CONSTANTS[const]
+    assert re.search(r"constexpr int kCsStride = kCsSlab \+ 4;", src)
+    assert gr.CS_STRIDE == gr.CS_SLAB + 4
+
+
+# (k, B, C): the paper's shapes (P = 2176 on the card's machine, 2112 on a
+# smaller corpus, k 1, 2, 4), the ragged shapes chip_smoke.py holds bit for
+# bit against the parent (k 3 / 1, B 1001, C 100 / 200) and a narrow C at
+# wide B, with the parent's plans (rows a block, dynamic shared memory
+# bytes, workspace floats) on 132 SMs.
+ROW_PLANS = {(1, 2176, 39): (20, 101824, 104448),
+             (4, 2176, 39): (32, 122368, 417792),
+             (1, 2112, 39): (16, 94976, 101376),
+             (2, 1000, 39): (16, 94976, 96384),
+             (3, 1001, 100): (24, 160896, 324876),
+             (1, 1001, 200): (8, 123264, 208392),
+             (1, 4096, 4): (32, 55808, 49152),
+             (1, 528, 300): (8, 123264, 162752)}
+
+
+@pytest.mark.parametrize("shape", sorted(ROW_PLANS))
+def test_fwd_plan_keeps_the_row_plan_at_the_papers_shapes(shape):
+    """Where the row plan is above its least (4 rows a block) or C spans
+    at most 4 class chunks, K1 keeps the parent's plan exactly, and with
+    it its bits."""
+    plan = gr.fwd_plan(*shape, n_sm=132)
+    rows, smem, work = ROW_PLANS[shape]
+    assert plan["route"] == "rows" and plan["class_chunk"] == 0
+    assert (plan["rows_per_block"], plan["dynamic_smem_bytes"],
+            plan["workspace_floats"]) == (rows, smem, work)
+    assert not gr.class_split(*shape, n_sm=132)
+
+
+# Every LM head of chip_smoke.LM_HEAD_SHAPES (qwen2-1.5b's V at k 1 and
+# 2, a ragged B, the SSL heads of mixtral and xlstm-125m, gpt-2's ragged
+# V 50257, the smoke's B 4 over V 512) and a wide B that takes row tiles:
+# (class chunk, chunks, class groups) on 132 SMs.
+CLASS_PLANS = {(1, 16, 151936): (1024, 149, 16),
+               (2, 16, 151936): (2176, 70, 16),
+               (1, 17, 32000): (128, 250, 8),
+               (1, 16, 32000): (128, 250, 16),
+               (1, 16, 50304): (256, 197, 16),
+               (1, 16, 50257): (256, 197, 16),
+               (1, 4, 512): (128, 4, 32),
+               (1, 100, 151936): (4480, 34, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(CLASS_PLANS))
+def test_fwd_plan_splits_classes_at_the_lm_heads(shape):
+    """At the LM heads the row plan is at its least and C spans many
+    class chunks: K1 splits C into whole 128-class slabs, as many a chunk
+    as still give every SM a block; a block owns a min(B, 64)-square tile
+    of P·logPᵀ, its 256 threads 4 × 4 entries each in up to 32 class
+    groups; the workspace holds a (B, B) partial a chunk and worker."""
+    k, B, C = shape
+    n_sm = 132
+    plan = gr.fwd_plan(k, B, C, n_sm=n_sm)
+    chunk, n_chunks, groups = CLASS_PLANS[shape]
+    assert gr.class_split(k, B, C, n_sm=n_sm)
+    assert plan["route"] == "classes"
+    assert (plan["class_chunk"], plan["class_chunks"],
+            plan["class_groups"]) == (chunk, n_chunks, groups)
+    assert chunk % gr.CS_SLAB == 0
+    assert (n_chunks - 1) * chunk < C <= n_chunks * chunk
+    nt = -(-B // gr.CS_TILE)
+    assert plan["blocks"] == k * n_chunks * nt * nt
+    # Every SM gets a block, unless C has fewer slabs than the card SMs.
+    assert plan["blocks"] >= min(n_sm, k * nt * nt * -(-C // gr.CS_SLAB))
+    assert plan["rows_per_block"] == min(B, gr.CS_TILE)
+    quads = -(-min(B, gr.CS_TILE) // 4)
+    assert groups * quads * quads <= 256 < 2 * groups * quads * quads \
+        or groups == gr.CS_MAX_GROUPS
+    assert plan["dynamic_smem_bytes"] <= 232_448
+    assert plan["workspace_floats"] == k * n_chunks * B * B
+
+
+@pytest.mark.parametrize("shape", sorted(ROW_PLANS) + sorted(CLASS_PLANS))
+def test_fwd_workspace_covers_both_plans(shape):
+    """The workspace the library sizes holds what each plan's launches
+    write there: the row plan's partials and class-padded logP, or the
+    class-split plan's chunk partials (their launch models'
+    outputs)."""
+    from repro_torch.analysis import launch_audit as la
+    k, B, C = shape
+    plan = gr.fwd_plan(k, B, C, n_sm=132)
+    written = {ln.kernel: sum(int(np.prod(o.shape)) for o in ln.outputs)
+               for ln in la.call_launches("graph_reg_fwd", k=k, B=B, C=C)}
+    if plan["route"] == "rows":
+        # pad_classes writes float4s: 4 floats an element of its output.
+        want = written["reg_fwd_partials"] + 4 * written["pad_classes"]
+        assert set(written) == {"pad_classes", "reg_fwd_partials",
+                                "reg_fwd_tree_sum"}
+    else:
+        want = written["reg_fwd_class_partials"]
+        assert set(written) == {"reg_fwd_class_partials",
+                                "reg_fwd_class_sum"}
+    assert plan["workspace_floats"] == want
+
+
+# ------------------------------------------- K1's class-split sum order
+def _fma(a, b, c):
+    """fmaf in float32: a·b + c rounded once (float64 holds the product of
+    two float32 values exactly; the sum may round twice, rarely)."""
+    return (np.float64(1) * a * b + c).astype(np.float32)
+
+
+def class_split_forward(logp, W, gc, kappa, ge, plan, full=True):
+    """K1 on the class-split plan, in its kernels' order, on the CPU:
+    pass 1 sums each chunk's classes per class group (one fmaf chain in
+    increasing c from +0; group g takes classes g·w .. g·w + w of every
+    128-class slab), adds the groups in order; pass 2 adds the chunks in
+    order from +0, then thread t (of ``CS_SUM_THREADS``) chains W_e·S_e
+    over entries e ≡ t and the rows i ≡ t (degree in increasing j, H_i =
+    −S_ii), and the threads' values are summed by a warp butterfly and
+    the warps in order.  logp, W: (k, B, C), (k, B, B) float32 numpy; returns (k,)."""
+    k, B, C = logp.shape
+    chunk, n_chunks = plan["class_chunk"], plan["class_chunks"]
+    groups = plan["class_groups"]
+    w, slabs = gr.CS_SLAB // groups, chunk // gr.CS_SLAB
+    gc, kappa, ge = (np.float32(x) for x in (gc, kappa, ge))
+    threads = gr.CS_SUM_THREADS
+    out = np.zeros(k, np.float32)
+    for z in range(k):
+        pad = np.zeros((2, B, n_chunks * chunk), np.float32)
+        pad[0, :, :C] = np.exp(logp[z])
+        pad[1, :, :C] = logp[z]
+        # class c = u·chunk + s·128 + g·w + t
+        Pr, Lr = pad.reshape(2, B, n_chunks, slabs, groups, w)
+        acc = np.zeros((n_chunks, groups, B, B), np.float32)
+        for s in range(slabs):
+            for t in range(w):
+                a = Pr[:, :, s, :, t].transpose(1, 2, 0)[..., :, None]
+                b = Lr[:, :, s, :, t].transpose(1, 2, 0)[..., None, :]
+                acc = _fma(a, b, acc)
+        part = acc[:, 0]
+        for g in range(1, groups):
+            part = part + acc[:, g]
+        S = np.zeros((B, B), np.float32)
+        for u in range(n_chunks):
+            S = S + part[u]
+        Wz, Sf = W[z].reshape(-1), S.reshape(-1)
+        cross = np.zeros(threads, np.float32)
+        for e0 in range(0, B * B, threads):
+            n = min(threads, B * B - e0)
+            cross[:n] = _fma(Wz[e0:e0 + n], Sf[e0:e0 + n], cross[:n])
+        ent = np.zeros(threads, np.float32)
+        if full:
+            deg = np.zeros(B, np.float32)
+            for j in range(B):
+                deg = deg + W[z][:, j]
+            h = -np.diagonal(S)
+            coef = _fma(ge, deg, kappa)
+            for i0 in range(0, B, threads):
+                n = min(threads, B - i0)
+                ent[:n] = _fma(coef[i0:i0 + n], h[i0:i0 + n], ent[:n])
+        v = _fma(-gc, cross, -ent).reshape(-1, 32)
+        lane = np.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            v = v + v[:, lane ^ o]
+        total = np.float32(0)
+        for warp_total in v[:, 0]:
+            total = np.float32(total + warp_total)
+        out[z] = total
+    return out
+
+
+def _lm_problem(k, B, C, seed):
+    """The LM head's inputs, as chip_smoke.lm_inputs makes them: logP of
+    (k, B, C) logits 2·N(0, 1), a symmetric dense W (half its entries
+    non-zero)."""
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(
+        (2.0 * rng.standard_normal((k, B, C))).astype(np.float32))
+    W = rng.random((k, B, B)) * (rng.random((k, B, B)) < 0.5)
+    W = (W + W.transpose(0, 2, 1)).astype(np.float32)
+    return torch.log_softmax(logits, dim=-1).numpy(), W
+
+
+def test_class_split_order_within_k1_lm_rule_of_float64():
+    """qwen2-1.5b's LM head, (1, 16, 151936) at γ = 0.05, κ = 1e-4 on 132
+    SMs, summed in the class-split plan's order, against the float64
+    value: within 4·√C·2^-24·M, M = γ·Σ W·Hc + Σ (κ + γ·deg)·H
+    (chip_smoke.K1_LM_RULE; the round-off of a C-term float32 chain grows
+    as √C·u of the terms' magnitude).  Each chain is now 1,024 / 16 = 64
+    classes long, so the error also holds with n = 243 for C, the plan's
+    longest chain (chip_smoke.K1_CS_RULE)."""
+    k, B, C = 1, 16, 151936
+    gamma, kappa = 0.05, 1e-4
+    logp, W = _lm_problem(k, B, C, seed=B + k)
+    plan = gr.fwd_plan(k, B, C, n_sm=132)
+    got = class_split_forward(logp, W, gamma, kappa, gamma, plan)
+    lp64, W64 = torch.from_numpy(logp).double(), torch.from_numpy(W).double()
+    want = ref.reg_forward_ref(lp64, W64, gamma, kappa, gamma).numpy()
+    M = ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma).numpy()
+    tol = 4.0 * C ** 0.5 * 2.0 ** -24 * np.abs(M).max()
+    n = gr.class_split_chain(B, plan)
+    assert n == 243
+    tol_cs = 4.0 * n ** 0.5 * 2.0 ** -24 * np.abs(M).max()
+    err = np.abs(got.astype(np.float64) - want).max()
+    print(f"class-split order at {(k, B, C)}: |Δ vs float64| {err:.3e}, "
+          f"tol {tol:.3e}, err/tol {err / tol:.4f}; with n = {n}: tol "
+          f"{tol_cs:.3e}, err/tol {err / tol_cs:.4f}")
+    assert err <= tol
+    assert err <= tol_cs
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4096), (2, 17, 1001),
+                                   (1, 70, 600)])
+def test_class_split_order_matches_the_jax_fused_forward(shape):
+    """A small wide shape, a ragged one (B 17, C 1001: 8 class groups, C
+    not a multiple of 4) and one of 2 × 2 row tiles (B 70), in the
+    class-split plan's order, against the reference's fused forward
+    (Pallas, interpret mode) per worker, full regularizer and bare cross
+    term (K10's).  Both are float32 sums of C-term chains in other
+    orders: each within 4·√C·2^-24·M of float64 (K1_LM_RULE), so they
+    are held to each other within twice that."""
+    k, B, C = shape
+    gamma, kappa = 0.05, 1e-4
+    logp, W = _lm_problem(k, B, C, seed=sum(shape))
+    plan = gr.fwd_plan(k, B, C, n_sm=132)
+    assert plan["route"] == "classes"
+    full = class_split_forward(logp, W, gamma, kappa, gamma, plan)
+    cross = class_split_forward(logp, W, 1.0, 0.0, 0.0, plan, full=False)
+    lp64, W64 = torch.from_numpy(logp).double(), torch.from_numpy(W).double()
+    M = ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma).numpy()
+    M_cross = ref.reg_forward_ref(lp64, W64, 1.0, 0.0, 0.0).numpy()
+    for z in range(k):
+        lp, w = jnp.asarray(logp[z]), jnp.asarray(W[z])
+        want = float(jops.graph_regularizer_fused(lp, w, gamma, kappa))
+        want_cross = float(jops.graph_regularizer_fused(lp, w))
+        tol = 8.0 * C ** 0.5 * 2.0 ** -24
+        assert abs(float(full[z]) - want) <= tol * abs(M[z])
+        assert abs(float(cross[z]) - want_cross) <= tol * abs(M_cross[z])

@@ -17,7 +17,7 @@ float32 round-off of ‖x‖² − 2·x·y + ‖y‖²; K8's indices must equal 
 plain version's except at such near ties, and exactly on integer inputs.
 The attention kernel K11 is held against its plain version on the same key
 tiles (``fa.block_k``: 128 keys on the tensor-core route, bfloat16 at head
-dim 64 or 128; 64 on the FMA route) at atol 3e-5 in float32, and in
+dim 64, 112 or 128; 64 on the FMA route) at atol 3e-5 in float32, and in
 bfloat16 at |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the
 output to bfloat16 at the same points; the float32 sums run in other
 orders, and the tensor cores take exp from ex2.approx, so a rounding may
@@ -614,6 +614,69 @@ def test_rbf_affinity_matches_plain_version(cuda, N, M, D):
     assert bool(((a - want).abs() <= tol).all())
 
 
+#: K1's plans: the paper's shapes (row plan), every LM head and ragged
+#: wide-C shapes (class-split plan: B 1 to 200, C odd or not a multiple of
+#: 4, one to 2 × 2 and 4 × 4 row tiles, k 1 to 3).
+K1_PLAN_SHAPES = [(1, 2176, 39), (4, 2176, 39), (3, 1001, 100),
+                  (1, 1001, 200), (1, 16, 151936), (2, 16, 151936),
+                  (1, 17, 32000), (1, 16, 32000), (1, 16, 50304),
+                  (1, 16, 50257), (1, 4, 512), (1, 1, 300), (1, 5, 1001), (2, 33, 777),
+                  (1, 65, 3000), (3, 17, 2049), (1, 200, 20000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", K1_PLAN_SHAPES)
+def test_k1_launch_plan_matches_its_mirror(cuda, k, B, C):
+    """The library's K1 plan and workspace are ``gr.fwd_plan``'s on this
+    card: the row plan at the paper's shapes, the class-split plan at
+    narrow B and wide C."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gr.fwd_plan(k, B, C, n_sm=n_sm)
+    assert gr.launch_plan("graph_reg_fwd", k, B, C) == {
+        key: plan[key] for key in ("rows_per_block", "dynamic_smem_bytes",
+                                   "class_chunk", "blocks")}
+    assert gr._lib().graph_reg_fwd_workspace(k, B, C) == \
+        plan["workspace_floats"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", [s for s in K1_PLAN_SHAPES
+                                   if s[1] <= 200 and s[2] > 256])
+def test_class_split_k1_holds_float64_and_equals_k10(cuda, k, B, C):
+    """K1 on the class-split plan at the LM heads and ragged wide shapes:
+    repeated bit for bit, held to float64 within 4·√C·2^-24·M (M = γ·Σ
+    W·Hc + Σ (κ + γ·deg)·H, chip_smoke.K1_LM_RULE) as its plain version
+    is, and with n, the plan's longest chain, for C (K1_CS_RULE); K10
+    equal to K1 at (1, 0, 0) on the same (1, B, C) bit for bit (the plan,
+    and with it the sum order, depends on k)."""
+    probs = [_problem(B, C, seed=s, density=0.5) for s in range(k)]
+    logp = torch.stack([p[0] for p in probs]).to(cuda)
+    W = torch.stack([p[1] for p in probs]).to(cuda)
+    W = W + W.mT
+    gamma, kappa = 0.05, 1e-4
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gr.fwd_plan(k, B, C, n_sm=n_sm)
+    assert plan["route"] == "classes"
+    a = gr.reg_forward(logp, W, gamma, kappa, gamma)
+    b = gr.reg_forward(logp, W, gamma, kappa, gamma)
+    plain = ref.reg_forward_ref(logp, W, gamma, kappa, gamma)
+    cross = torch.cat([gr.reg_forward(logp[z:z + 1], W[z:z + 1], 1.0, 0.0,
+                                      0.0) for z in range(k)])
+    k10 = torch.stack([gr.reg_pairwise(logp[z], W[z]) for z in range(k)])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(k10, cross)
+    lp64, W64 = logp.double(), W.double()
+    want64 = ref.reg_forward_ref(lp64, W64, gamma, kappa, gamma)
+    M = ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma)
+    tol = 4.0 * C ** 0.5 * 2.0 ** -24 * float(M.abs().max())
+    for value in (a, plain):
+        assert float((value.double() - want64).abs().max()) <= tol
+    n = gr.class_split_chain(B, plan)
+    assert float((a.double() - want64).abs().max()) <= \
+        4.0 * n ** 0.5 * 2.0 ** -24 * float(M.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C", [(200, 8), (257, 39), (1000, 39),
                                  (1001, 39)])
@@ -692,12 +755,12 @@ def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):
                           (1, 100, 300, 8, 2, 112, False)])
 def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
                                                KV, hd, causal):
-    """bfloat16 at hd 64 and 128 runs the tensor-core route: ragged Tq = Tk
-    (130, 1000), Tq < Tk (40 against 100, offset 60; 512 against 2048,
-    the kernel phase's case), non-causal with a ragged Tk, and B·H = 144
-    (more blocks a query row than the card's 132 SMs); the other cases run
-    the FMA route, hd 112 (kimi-k2's) ragged, with Tq < Tk and not
-    causal."""
+    """bfloat16 at hd 64, 112 (kimi-k2's, in the tile of hd 128) and 128
+    runs the tensor-core route: ragged Tq = Tk (130, 200, 1000), Tq < Tk
+    (40 against 100 or 130; 512 against 2048, the kernel phase's case),
+    non-causal with a ragged Tk, and B·H = 144 (more blocks a query row
+    than the card's 132 SMs); float32 runs the FMA route at every head
+    dim."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Tq, H, KV, hd, Tk, dtype))
     a = fa.flash_attention_gqa(q, k, v, causal=causal)
     b = fa.flash_attention_gqa(q, k, v, causal=causal)
@@ -717,10 +780,12 @@ def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
 
 @pytest.mark.cuda
 def test_flash_attention_routes(cuda):
-    """The serve path's shape (bf16, hd 128) takes the tensor cores; each
-    route's launch counts once and gives the same bits twice."""
-    assert fa.route(torch.bfloat16, 128) == "wgmma"
-    assert fa.block_k(torch.bfloat16, 128) == 128
+    """The serve paths' shapes (bf16, hd 64, 112 and 128) take the tensor
+    cores; each route's launch counts once and gives the same bits
+    twice."""
+    for hd in (64, 112, 128):
+        assert fa.route(torch.bfloat16, hd) == "wgmma"
+        assert fa.block_k(torch.bfloat16, hd) == 128
     for dtype, hd in ((torch.bfloat16, 128), (torch.bfloat16, 64),
                       (torch.bfloat16, 32), (torch.float32, 128),
                       (torch.bfloat16, 112), (torch.float32, 112)):
