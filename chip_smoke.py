@@ -64,7 +64,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    kernels whose redesign changes their bits, K1 at the LM head (1, 16,
    151936) on the class-split plan and K11 at kimi's bf16 shape on the
    tensor-core route, timed in turns with DIR's, each build held to its
-   own rule, whether they differ printed, K11 at least 8× faster; after
+   own rule, whether they differ printed, K11 at least 8× faster than a
+   DIR that still runs the FMA kernel at hd 112; K2 on its class route at
+   every LM head equal to DIR's bit for bit, timed in turns at (1, 16,
+   151936) and at least 5× faster than a DIR on the row route; after
    the dense epoch, a fresh dense epoch on this build's K1/K2 and one on
    DIR's, both equal to the main path's row bit for bit); the
    redesigned K1 and K2 also at k in {1, 3}, B in
@@ -161,8 +164,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    plain versions (K1 to float64, :data:`K1_LM_RULE`), repeated bit for
    bit and timed beside them with their share of the bound; K1's plan
    printed at each (the class-split plan: pass-1 blocks, class chunk,
-   the library's equal to the Python mirror's) and K1 no slower than its
-   plain version at any; ``qwen2-1.5b`` at full width, 2 layers, f32: one
+   the library's equal to the Python mirror's), and K2's (the class
+   route: class span, blocks, threads, no workspace, the library's equal
+   to the mirror's), each kernel's passes profiled, K1 and K2 no slower
+   than their plain versions at any; ``qwen2-1.5b`` at full width, 2 layers, f32: one
    ``lm_loss`` forward and backward on the card against the CPU (the
    example's first batch, 8 sequences of 64 tokens, W from the host
    graph; metrics within rtol 1e-4, each gradient leaf within 1e-3 of its
@@ -808,6 +813,11 @@ def kernel_phase(W_path, gamma: float, kappa: float) -> dict:
             s_flops = 2.0 * B * B * C
             for name in ("graph_reg_fwd", "graph_reg_bwd_dlogp"):
                 records[name].update(gr.launch_plan(name, 1, B, C))
+            # The paper's shape keeps K1's row plan and K2's row route.
+            check(records["graph_reg_fwd"]["class_chunk"] == 0
+                  and records["graph_reg_bwd_dlogp"]["class_span"] == 0,
+                  f"K1 or K2 at the paper's shape (1, {B}, {C}) leaves the "
+                  f"row plan")
             records["graph_reg_fwd"]["bound"] = bound_ms(
                 f4 * (B * B + B * C + 1), s_flops + 2.0 * B * B + 4.0 * B * C)
             records["graph_reg_bwd_dlogp"]["bound"] = bound_ms(
@@ -1963,24 +1973,30 @@ def redesign_build_report() -> dict:
     return rec
 
 
-def class_split_build_report() -> dict:
-    """Registers, spills and static shared memory of the two passes of
-    K1's class-split plan (``-Xptxas -v``), by kernel name; no spill is
-    allowed."""
+#: The kernels of the LM heads' class routes: K1's two class-split passes
+#: and K2's class route.
+CLASS_ROUTE_KERNELS = ("reg_bwd_dlogp_classes", "reg_fwd_class_partials",
+                       "reg_fwd_class_sum")
+
+
+def class_routes_build_report() -> dict:
+    """Registers, spills and static shared memory of the kernels of the LM
+    heads' class routes (:data:`CLASS_ROUTE_KERNELS`, ``-Xptxas -v``), by
+    kernel name; no spill is allowed."""
     import re
     from repro_torch.analysis.launch_audit import ptxas_entries
     rec = {}
     for name, r in ptxas_entries("graph_reg"):
-        m = re.search(r"reg_fwd_class_(?:partials|sum)", name)
+        m = re.search(r"\d(%s)E" % "|".join(CLASS_ROUTE_KERNELS), name)
         if m is None:
             continue
-        check(r["spill_bytes"] == 0, f"{m.group(0)} spills: {r}")
-        rec[m.group(0)] = r
-        print(f"{m.group(0)} (-Xptxas -v): {r['registers']} registers, "
+        check(r["spill_bytes"] == 0, f"{m.group(1)} spills: {r}")
+        rec[m.group(1)] = r
+        print(f"{m.group(1)} (-Xptxas -v): {r['registers']} registers, "
               f"{r['static_smem_bytes']} bytes of static shared memory, "
               f"{r['spill_bytes']} bytes spilled")
-    check(sorted(rec) == ["reg_fwd_class_partials", "reg_fwd_class_sum"],
-          f"no compiler report for K1's class-split passes: {sorted(rec)}")
+    check(sorted(rec) == sorted(CLASS_ROUTE_KERNELS),
+          f"no compiler report for every class-route kernel: {sorted(rec)}")
     return rec
 
 
@@ -2382,17 +2398,22 @@ def lm_kernel_phase() -> dict:
     repeated bit for bit, timed from CUDA graphs in turns with them; K1's
     plan (the class-split plan at every LM head: pass 1's blocks and
     class chunk as the library launches them, equal to
-    ``graph_reg.fwd_plan``'s) printed, K1 held to float64 by
-    :data:`K1_LM_RULE` and :data:`K1_CS_RULE`, and no slower than its
-    plain version at any of them.  The records at the path's (1, 16,
-    151936), each shape's K1 record under ``"graph_reg_fwd"["lm_heads"]``."""
+    ``graph_reg.fwd_plan``'s) and K2's (the class route at every LM head:
+    class span, blocks and threads as the library launches them, equal to
+    ``graph_reg.dlogp_plan``'s, no workspace) printed, K1 held to float64
+    by :data:`K1_LM_RULE` and :data:`K1_CS_RULE`, each kernel's passes
+    profiled (``pass_ms``), and both no slower than their plain versions
+    at any of them.  The records at the path's (1, 16, 151936), each
+    shape's record under ``"graph_reg_fwd"["lm_heads"]`` and
+    ``"graph_reg_bwd_dlogp"["lm_heads"]``."""
     import torch
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import ref
 
     gc, kap = LM_GAMMA, LM_KAPPA
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    records, heads = {}, {}
+    records = {}
+    heads = {"graph_reg_fwd": {}, "graph_reg_bwd_dlogp": {}}
     for k, B, C in LM_HEAD_SHAPES:
         plan = gr.fwd_plan(k, B, C, n_sm=n_sm)
         lib_plan = gr.launch_plan("graph_reg_fwd", k, B, C)
@@ -2408,6 +2429,22 @@ def lm_kernel_phase() -> dict:
               f"{lib_plan['dynamic_smem_bytes']} bytes of dynamic shared "
               f"memory; the mirror's: {plan['class_chunks']} chunks, "
               f"{plan['class_groups']} class groups a block")
+        dplan = gr.dlogp_plan(k, B, C, n_sm=n_sm)
+        lib_dplan = gr.launch_plan("graph_reg_bwd_dlogp", k, B, C)
+        check(lib_dplan == {key: dplan[key] for key in lib_dplan},
+              f"K2's plan at ({k}, {B}, {C}): the library's {lib_dplan}, "
+              f"the mirror's {dplan}")
+        check(lib_dplan["class_span"] > 0, f"K2 at the LM head ({k}, {B}, "
+              f"{C}) takes the row route")
+        check(gr._lib().graph_reg_bwd_dlogp_workspace(k, B, C) == 0,
+              f"K2 at the LM head ({k}, {B}, {C}) asks for a workspace")
+        print(f"graph_reg_bwd_dlogp plan [LM head k={k} B={B} C={C}], the "
+              f"library's: class route, {lib_dplan['blocks']} blocks of "
+              f"{lib_dplan['threads']} threads, class span "
+              f"{lib_dplan['class_span']}, all {lib_dplan['rows_per_block']}"
+              f" rows, {lib_dplan['dynamic_smem_bytes']} bytes of dynamic "
+              f"shared memory, no workspace; the mirror's: tiles of "
+              f"{dplan['tile_classes']} classes")
         logp, W, g = lm_inputs(k, B, C, seed=B + k)
         pk = torch.exp(logp)
         runs = {
@@ -2455,19 +2492,23 @@ def lm_kernel_phase() -> dict:
             rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
             if name == "graph_reg_fwd":
                 rec["route"] = "classes" if rec["class_chunk"] else "rows"
-                rec["pass_ms"] = pass_ms(kern, ("reg_fwd_class_partials",
-                                                "reg_fwd_class_sum"))
-                print(f"{label} [{CARD}]: device ms a call by pass "
-                      f"(torch.profiler, 20 calls): {rec['pass_ms']}")
-                heads[f"k={k} B={B} C={C}"] = {
-                    key: rec[key] for key in (
-                        "ms", "plain_ms", "rounds", "max_abs_err", "tol",
-                        "err_over_tol", "class_split", "share_of_bound",
-                        "route", "blocks", "class_chunk", "pass_ms",
-                        "dynamic_smem_bytes")}
-                check(rec["ms"] <= rec["plain_ms"], f"{label}: "
-                      f"{rec['ms']:.5f} ms, slower than its plain version's "
-                      f"{rec['plain_ms']:.5f} ms")
+                passes = ("reg_fwd_class_partials", "reg_fwd_class_sum")
+            else:
+                rec["route"] = "classes" if rec["class_span"] else "rows"
+                passes = ("reg_bwd_dlogp_classes",)
+            rec["pass_ms"] = pass_ms(kern, passes)
+            print(f"{label} [{CARD}]: device ms a call by pass "
+                  f"(torch.profiler, 20 calls): {rec['pass_ms']}")
+            heads[name][f"k={k} B={B} C={C}"] = {
+                key: rec[key] for key in (
+                    "ms", "plain_ms", "rounds", "max_abs_err", "tol",
+                    "err_over_tol", "class_split", "share_of_bound",
+                    "route", "blocks", "class_chunk", "class_span",
+                    "threads", "pass_ms", "dynamic_smem_bytes", "bound")
+                if key in rec}
+            check(rec["ms"] <= rec["plain_ms"], f"{label}: "
+                  f"{rec['ms']:.5f} ms, slower than its plain version's "
+                  f"{rec['plain_ms']:.5f} ms")
             print(f"{label} [{CARD}]: {rec['ms']:.5f} ms (plain version "
                   f"{rec['plain_ms']:.5f} ms, no library call), bound "
                   f"{rec['bound'][0]:.5f} ms ({rec['bound'][1]}), "
@@ -2477,7 +2518,8 @@ def lm_kernel_phase() -> dict:
                   f"memory")
             if (k, B, C) == LM_HEAD_SHAPES[0]:
                 records[name] = rec
-    records["graph_reg_fwd"]["lm_heads"] = heads
+    for name, by_head in heads.items():
+        records[name]["lm_heads"] = by_head
     return records
 
 
@@ -3841,14 +3883,18 @@ HD112_MIN_SPEEDUP = 8.0
 
 def against_redesigned(root: Path, libs: dict, swapped, gamma: float,
                        kappa: float) -> dict:
-    """The two kernels whose bits change with their redesign, in turns
-    with the other build's (``--against``): K1 at qwen2-1.5b's LM head (1,
-    16, 151936) on the class-split plan, both builds held to float64 under
-    :data:`K1_LM_RULE`, and K11 at kimi's bf16 shape (:data:`KIMI_ATTN`)
-    on the tensor-core route, both held to the plain version on their own
-    route's key tiles, this build at least :data:`HD112_MIN_SPEEDUP`×
-    faster.  Whether their outputs differ bit for bit is printed (the sums
-    run in other orders), not checked."""
+    """The kernels redesigned for the LM heads and kimi's head dim, in
+    turns with the other build's (``--against``): K1 at qwen2-1.5b's LM
+    head (1, 16, 151936) on the class-split plan, both builds held to
+    float64 under :data:`K1_LM_RULE`, and K11 at kimi's bf16 shape
+    (:data:`KIMI_ATTN`) on the tensor-core route, both held to the plain
+    version on their own route's key tiles, this build at least
+    :data:`HD112_MIN_SPEEDUP`× faster where the other build still runs
+    the FMA kernel it replaced (their outputs differ bit for bit):
+    whether their outputs differ bit for bit is printed (the sums run in
+    other orders), not checked.  Then
+    K2 on its class route (:func:`against_k2_lm_heads`), whose bits are
+    checked."""
     import numpy as np
     import torch
     from repro_torch.bench import graph_ms
@@ -3910,14 +3956,90 @@ def against_redesigned(root: Path, libs: dict, swapped, gamma: float,
               f"({rec['speedup']:.2f}×; rounds {rounds}); outputs "
               f"{'equal' if rec['bit_equal'] else 'differ'} bit for bit "
               f"(sums in another order), err/tol {errs}")
-        if module is fa:
+        if module is fa and rec["bit_equal"]:
+            # Equal bf16 bits: the other build runs this tensor-core
+            # kernel too (a descendant of its redesign), not the FMA
+            # kernel it replaced.
+            print(f"{name}: {root} runs this build's kernel (outputs equal "
+                  f"bit for bit); no speedup over it is asked")
+        elif module is fa:
             check(rec["speedup"] >= HD112_MIN_SPEEDUP,
                   f"{name}: {rec['speedup']:.2f}× the other build's kernel, "
                   f"not the {HD112_MIN_SPEEDUP}× at least")
         records[name] = rec
     del qkv
     torch.cuda.empty_cache()
+    records["graph_reg_bwd_dlogp [LM head]"] = against_k2_lm_heads(
+        root, libs, swapped)
     return records
+
+
+#: The least factor by which K2's class route at qwen2-1.5b's LM head must
+#: beat the row route it replaced there (``--against`` its parent).
+K2_LM_MIN_SPEEDUP = 5.0
+
+
+def against_k2_lm_heads(root: Path, libs: dict, swapped) -> dict:
+    """K2 at every LM head (:data:`LM_HEAD_SHAPES`) on this build's class
+    route and on the other build's kernels (``--against``): the class
+    route keeps the row route's sums, so the outputs must be equal bit for
+    bit at every head; at qwen2-1.5b's (1, 16, 151936) both are timed in
+    turns (``bench.graph_ms``), each build's passes profiled
+    (``pass_ms``: the class kernel here, ``pad_classes`` and the cluster
+    kernel in the parent), and this build must be at least
+    :data:`K2_LM_MIN_SPEEDUP`× faster where the other build still runs
+    the row route there (it sizes a workspace at that head)."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import graph_ms
+    from repro_torch.kernels import graph_reg as gr
+
+    gc, kap = LM_GAMMA, LM_KAPPA
+    shapes, rec = [], None
+    for k, B, C in LM_HEAD_SHAPES:
+        logp, W, g = lm_inputs(k, B, C, seed=B + k)
+        pk = torch.exp(logp)
+
+        def call():
+            return gr.reg_bwd_dlogp(logp, W, g, gc, kap, gc, p=pk)
+        run_other = swapped(call, gr, libs["graph_reg"])
+        this, other = call(), run_other()
+        torch.cuda.synchronize()
+        where = f"graph_reg_bwd_dlogp [LM head k={k} B={B} C={C}]"
+        check(torch.equal(this, other), f"{where}: this checkout's kernel "
+              f"and {root}'s differ")
+        shapes.append(where)
+        if (k, B, C) != LM_HEAD_SHAPES[0]:
+            continue
+        rounds = {"ms": [], "against_ms": []}
+        for _ in range(2):
+            rounds["ms"].append(graph_ms(call))
+            rounds["against_ms"].append(graph_ms(run_other))
+        rec = {key: float(np.mean(v)) for key, v in rounds.items()}
+        rec.update(rounds=rounds, bit_equal=True,
+                   pass_ms=pass_ms(call, ("reg_bwd_dlogp_classes",)),
+                   against_pass_ms=pass_ms(run_other, ("pad_classes",
+                                                       "reg_bwd_dlogp")))
+        rec["speedup"] = rec["against_ms"] / rec["ms"]
+        print(f"{where} [redesigned, CUDA graphs, in turns; {CARD}]: this "
+              f"checkout {rec['ms']:.5f} ms, {root} {rec['against_ms']:.5f} "
+              f"ms ({rec['speedup']:.2f}×; rounds {rounds}); device ms by "
+              f"pass (torch.profiler, 20 calls): this checkout "
+              f"{rec['pass_ms']}, {root} {rec['against_pass_ms']}; outputs "
+              f"equal bit for bit")
+        rec["against_route"] = (
+            "rows" if libs["graph_reg"].graph_reg_bwd_dlogp_workspace(
+                k, B, C) > 0 else "classes")
+        if rec["against_route"] == "rows":
+            check(rec["speedup"] >= K2_LM_MIN_SPEEDUP,
+                  f"{where}: {rec['speedup']:.2f}× the other build's kernel, "
+                  f"not the {K2_LM_MIN_SPEEDUP}× at least")
+        else:
+            print(f"{where}: {root} runs the class route too; no speedup "
+                  f"over it is asked")
+    print(f"K2 equals {root}'s bit for bit at {', '.join(shapes)}")
+    rec["bit_equal_shapes"] = shapes
+    return rec
 
 
 def against_train_phase(exp, root: Path, dense_row: dict,
@@ -4157,7 +4279,8 @@ def _analysis_runs() -> dict:
         mod = [m["model"] for m in ms]
         print(f"launch model {kern} [{CARD}]: {len(ms)} shape(s), model "
               f"grids {min(g['grid'] for g in mod)}-"
-              f"{max(g['grid'] for g in mod)} of {mod[0]['threads']}-"
+              f"{max(g['grid'] for g in mod)} of "
+              f"{min(g['threads'] for g in mod)}-"
               f"{max(g['threads'] for g in mod)} threads, dynamic shared "
               f"memory up to {max(g['dynamic_smem_bytes'] for g in mod)} B "
               f"(launch bounds' minimum {mod[0]['min_blocks']} blocks); "
@@ -4310,7 +4433,7 @@ def main() -> int:
     build_all()
     fa_build = flash_attention_build_report()
     redesign_build = redesign_build_report()
-    class_split_build = class_split_build_report()
+    class_build = class_routes_build_report()
     pw_build = pairwise_build_report()
     t0 = time.time()
     exp = Experiment(paper_config(), device="cuda").build()
@@ -4524,16 +4647,18 @@ def main() -> int:
                     "max_abs_err", "tol", "err_over_tol", "ms", "plain_ms",
                     "share_of_bound", "rows_per_block",
                     "dynamic_smem_bytes", "rounds", "route", "blocks",
-                    "class_chunk", "lm_heads")
+                    "class_chunk", "class_span", "threads", "pass_ms",
+                    "lm_heads")
                    if key in lm_records[name]},
                 "bound_ms": lm_records[name]["bound"][0],
                 "bound_by": lm_records[name]["bound"][1],
                 "library_ms": None,
-                **({"class_split_build": class_split_build}
-                   if name == "graph_reg_fwd" else {}),
+                "class_route_build": {
+                    key: r for key, r in class_build.items()
+                    if key.startswith("reg_fwd" if name == "graph_reg_fwd"
+                                      else "reg_bwd")},
                 **({"against": {"dir": str(args.against), **against[
-                    "graph_reg_fwd [LM head]"]}}
-                   if name == "graph_reg_fwd" and against else {})}}
+                    f"{name} [LM head]"]}} if against else {})}}
                if name in lm_records else {}),
             **{key: rec[key] for key in ("note", "global_route", "P×P",
                                          "floor_ms", "by_mask_ms")

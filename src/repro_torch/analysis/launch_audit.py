@@ -1,6 +1,6 @@
 """Launch models of the port's CUDA kernels, and their checks (V-pass).
 
-The counterpart of the reference's ``vmem_audit.py``.  Each of the 17
+The counterpart of the reference's ``vmem_audit.py``.  Each of the 18
 ``__global__`` functions of ``src/repro_torch/csrc`` is mirrored here by a
 static *launch model* — the grid, threads, cluster, dynamic and static
 shared memory and ``__launch_bounds__`` its entry point uses, and for each
@@ -248,10 +248,34 @@ def _class_box(y: int, C: int, quads: int) -> tuple[int, int]:
     return (y * 128, min(y * 128 + 4 * quads, C))
 
 
+def _dlogp_classes(k: int, B: int, C: int, plan: dict) -> list:
+    """K2 on the class route: one launch, a block per class span and
+    worker, all B rows; no class padding, no cluster."""
+    span = plan["class_span"]
+
+    def writes(x, y, z):
+        return [((z, z + 1), (0, B), (x * span, min(x * span + span, C)))]
+
+    return [Launch(
+        "reg_bwd_dlogp_classes", f"k={k} B={B} C={C}", "graph_reg.cu",
+        _sym("reg_bwd_dlogp_classes"), (plan["blocks"] // k, 1, k),
+        plan["threads"], plan["dynamic_smem_bytes"], 0,
+        (graph_reg.DC_MAX_THREADS, 1),
+        outputs=(Output("dlogp", (k, B, C), writes),),
+        vectors=(Vector("P/logP/dlogp rows", 4 * C),) if C % 4 == 0 else (),
+        library=("graph_reg.launch_plan", ("graph_reg_bwd_dlogp", k, B, C),
+                 {}, tuple((key, plan[key]) for key in (
+                     "rows_per_block", "dynamic_smem_bytes", "class_span",
+                     "blocks", "threads"))))]
+
+
 def _dlogp(k: int, B: int, C: int, n_sm: int) -> list:
-    """K2: ``graph_reg_bwd_dlogp``, two-block clusters; block 1 of each
-    hands its Wᵀ·P tile to block 0, which writes the rows."""
+    """K2: ``graph_reg_bwd_dlogp``, on the row route two-block clusters
+    (block 1 of each hands its Wᵀ·P tile to block 0, which writes the
+    rows) after the class padding, or on the class route one kernel."""
     plan = graph_reg.dlogp_plan(k, B, C, n_sm=n_sm)
+    if plan["route"] == "classes":
+        return _dlogp_classes(k, B, C, plan)
     rows = plan["rows_per_block"]
     quads = min(_cdiv(C, 4), 32)
 
@@ -270,8 +294,9 @@ def _dlogp(k: int, B: int, C: int, n_sm: int) -> list:
         vectors=(Vector("padded P/logP rows", 16 * _cdiv(C, 4)),)
         + _w_rows(B),
         library=("graph_reg.launch_plan", ("graph_reg_bwd_dlogp", k, B, C),
-                 {}, (("rows_per_block", rows),
-                      ("dynamic_smem_bytes", plan["dynamic_smem_bytes"]))))
+                 {}, tuple((key, plan[key]) for key in (
+                     "rows_per_block", "dynamic_smem_bytes", "class_span",
+                     "blocks", "threads"))))
     return [_pad_classes(k * B, C, True), kern]
 
 

@@ -27,7 +27,8 @@
 // rows (pad_classes) in a workspace the caller allocates, of the size
 // graph_reg_fwd_workspace / graph_reg_bwd_dlogp_workspace give.  At narrow
 // B and wide C (the LM heads), K1 and K10 take a second plan instead, the
-// class-split plan below, with sums of their own order.  K1's
+// class-split plan below, with sums of their own order, and K2 its class
+// route, with the row route's bits and no workspace.  K1's
 // pipeline, the A half of K2's and K3's tile live in graph_reg_tiles.cuh,
 // where the block-sparse K4, K6 and K7 (graph_reg_bsp.cu) run them over
 // listed or occupied tiles.
@@ -85,7 +86,10 @@ reg_fwd_partials(const float* __restrict__ P, const float* __restrict__ L,
 // chain in increasing j from +0 (j padded to a multiple of 32 with zeros,
 // as the 32-wide j tiles of the kernel it replaces), and the epilogue is
 // the expression below.  So no split of j: parallelism comes from rows
-// and classes only.
+// and classes only.  Two routes: the row route here, for the paper's
+// shapes (B = 2176, C = 39) and every B past kDcMaxRows or C within one
+// 128-class chunk, and the class route (reg_bwd_dlogp_classes, below)
+// for narrow B and wide C, the LM heads; both give the same bits.
 //
 // What bounds it: 4*B*B*C flops (11 us at the path's shape), and feeding
 // them: every output needs all of logP or P and a row or column of W, so
@@ -515,6 +519,226 @@ dim3 fwd_grid(int k, int B, int C, int rows, int chunk) {
     return dim3((8 * ((B + 31) / 32) + rows / 4 - 1) / (rows / 4), 1, k);
 }
 
+// K2, the class route: narrow B and wide C.
+//
+// At the LM heads (B 4-17 sequences, C a vocabulary of 512 to 151,936)
+// the row route above runs a two-block cluster per 128-class chunk, half
+// of each 512-thread block without a row at B = 16, over 32-j pieces of
+// which 16 are zero padding, after a pad_classes pass that copies P and
+// logP once more: 0.149 + 0.011 ms at (1, 16, 151936) on an H100, against
+// an 8.7 us bound (P and logP read once, dlogp written once, 29.2 MB).  So
+// where B <= kDcMaxRows and C spans more than one of the row route's
+// 128-class chunks (dc_takes; the Python mirror is graph_reg.dlogp_plan),
+// one kernel without a cluster, a pad pass or a workspace takes over:
+//
+// * a block owns a span of classes (a multiple of 4, at least kDcMinSpan,
+//   sized so that the blocks of all workers fill every SM kDcSmBlocks
+//   times: 576 classes, 264 blocks at (1, 16, 151936) on 132 SMs), all B
+//   rows and one worker;
+// * it stages W and its transpose in shared memory once (zero past B),
+//   and each row's degree there, one chain in increasing j from +0;
+// * its threads are row groups of kDcRows rows (B rounded up) times a
+//   tile's class quads, whole warps a group, kDcWarps warps shared among
+//   the groups (a warp each at least: 5 warps of 128 classes at B = 17);
+//   it streams its span in such tiles of logP and P rows through a ring of
+//   kDcStages cp.async stages: 16-byte copies where C is a multiple of 4
+//   and P, logP aligned, 4-byte copies otherwise;
+// * a thread owns 4 adjacent classes of its group's rows and keeps A =
+//   W logP and Bt = W^T P for them in registers: per j one 16-byte read
+//   each of logP and P, and of W's column and row j (the same address
+//   across the warp, a broadcast); each output is one fmaf chain in
+//   increasing j from +0, as on the row route;
+// * the epilogue is the row route's expression, with p and logp from the
+//   stage, and adjacent threads store adjacent classes (16-byte stores
+//   where aligned).
+//
+// Its bits are the row route's: the row route runs the chains on over j
+// padded to a multiple of 32 with zeros, fmaf(+0, +0, acc), which changes
+// no value and turns a -0 into +0; where B is not a multiple of 32 the
+// class route adds that +0 once (__fadd_rn, never folded or contracted).
+constexpr int kDcMaxRows = 64;      // widest B the route takes
+constexpr int kDcRows = 4;          // rows of a thread's register tile
+constexpr int kDcWarps = 8;         // warps a block, shared by its groups
+constexpr int kDcMaxThreads = 32 * (kDcMaxRows / kDcRows);   // B = 64
+constexpr int kDcStages = 3;        // depth of the cp.async ring
+constexpr int kDcMinSpan = 128;     // classes: a warp's tile at least
+constexpr int kDcSmBlocks = 2;      // blocks an SM the spans fill it with
+
+bool dc_takes(int B, int C) {
+    return B <= kDcMaxRows && C > 4 * kDlMaxQuads;
+}
+
+// Row groups of a block: B over kDcRows, rounded up.
+__host__ __device__ __forceinline__ int dc_groups(int B) {
+    return (B + kDcRows - 1) / kDcRows;
+}
+
+// Classes a block: C's quads split over a worker's share of kDcSmBlocks
+// blocks an SM (kDcSmBlocks * n_sm / k blocks, at least one), at least
+// kDcMinSpan.
+int dc_span(int k, int C, int n_sm) {
+    const int per = (kDcSmBlocks * n_sm + k - 1) / k;
+    const int span = 4 * (((C + 3) / 4 + per - 1) / per);
+    return span < kDcMinSpan ? kDcMinSpan : span;
+}
+
+// Classes a tile: 4 a thread of a group's whole warps, as many as
+// kDcWarps share among the groups (one at least), and no more than the
+// span.
+int dc_tile(int B, int span) {
+    const int warps = kDcWarps / dc_groups(B);
+    const int tile = 128 * (warps < 1 ? 1 : warps);
+    return tile < span ? tile : span;
+}
+
+// Threads of a block: each group's whole warps over the tile's quads.
+__host__ __device__ __forceinline__ int dc_threads(int B, int tile) {
+    return dc_groups(B) * 32 * ((tile + 127) / 128);
+}
+
+// Floats of the route's dynamic shared memory: the ring, W and its
+// transpose (B rows of the groups' rows each) and the degrees.
+int dc_smem_floats(int B, int tile) {
+    return kDcStages * 2 * B * tile + (2 * B + 1) * kDcRows * dc_groups(B);
+}
+
+__device__ __forceinline__ void dc_fma4(float (&acc)[4], float w,
+                                        const float4& v) {
+    acc[0] = fmaf(w, v.x, acc[0]);
+    acc[1] = fmaf(w, v.y, acc[1]);
+    acc[2] = fmaf(w, v.z, acc[2]);
+    acc[3] = fmaf(w, v.w, acc[3]);
+}
+
+// The launch bounds allow the widest B's groups a warp each (512
+// threads at B = 64); the plans launch at most kDcWarps warps a block up to
+// B = 32 and fill each SM with kDcSmBlocks blocks (two at the LM heads).
+__global__ void __launch_bounds__(kDcMaxThreads, 1)
+reg_bwd_dlogp_classes(const float* __restrict__ P,
+                      const float* __restrict__ L,
+                      const float* __restrict__ W,
+                      const float* __restrict__ g, int B, int C, int span,
+                      int tile, float gc, float kappa, float ge, int vec,
+                      float* __restrict__ dlogp) {
+    extern __shared__ __align__(16) float ring[];
+    const int tid = threadIdx.x, z = blockIdx.z;
+    const int Bs = kDcRows * dc_groups(B);
+    const int per_group = blockDim.x / dc_groups(B);   // whole warps
+    const int q = tid % per_group, i0 = tid / per_group * kDcRows;
+    const int c_begin = blockIdx.x * span, c_end = min(C, c_begin + span);
+    const int n_tiles = (c_end - c_begin + tile - 1) / tile;
+    const int stage_floats = 2 * B * tile;   // logP rows, then P rows
+    float* Wn = ring + kDcStages * stage_floats;   // Wn[j * Bs + i] = W_ji
+    float* Wt = Wn + B * Bs;                       // Wt[j * Bs + i] = W_ij
+    float* degs = Wt + B * Bs;
+    P += (int64_t)z * B * C;
+    L += (int64_t)z * B * C;
+    W += (int64_t)z * B * B;
+    dlogp += (int64_t)z * B * C;
+    const float gz = g[z];
+
+    // Stage `slot` <- tile t: row j < B is logP's row j, row B + j P's.
+    auto load_tile = [&](int slot, int t) {
+        const int c0 = c_begin + t * tile, width = min(tile, c_end - c0);
+        float* dst = ring + slot * stage_floats;
+        if (vec) {
+            for (Walk w(tid, blockDim.x, width / 4); w.a < 2 * B; w.next()) {
+                const int j = w.a < B ? w.a : w.a - B;
+                cp_async16(dst + w.a * tile + 4 * w.b,
+                           (w.a < B ? L : P) + (int64_t)j * C + c0 + 4 * w.b,
+                           16);
+            }
+        } else {   // whole quads, zero past the tile's classes
+            for (Walk w(tid, blockDim.x, (width + 3) / 4 * 4); w.a < 2 * B;
+                 w.next()) {
+                const int j = w.a < B ? w.a : w.a - B;
+                const bool ok = w.b < width;
+                cp_async4(dst + w.a * tile + w.b,
+                          (w.a < B ? L : P)
+                              + (ok ? (int64_t)j * C + c0 + w.b : 0),
+                          ok ? 4 : 0);
+            }
+        }
+    };
+
+    for (int s = 0; s < kDcStages - 1; ++s) {
+        if (s < n_tiles) load_tile(s, s);
+        cp_async_commit();
+    }
+    for (int e = tid; e < B * Bs; e += blockDim.x) {
+        const int j = e / Bs, i = e - j * Bs;
+        Wn[e] = i < B ? W[(int64_t)j * B + i] : 0.f;
+        Wt[e] = i < B ? W[(int64_t)i * B + j] : 0.f;
+    }
+    __syncthreads();   // W staged
+    for (int i = tid; i < Bs; i += blockDim.x) {
+        float d = 0.f;
+        for (int j = 0; j < B; ++j) d += Wt[j * Bs + i];
+        degs[i] = d;
+    }
+    const bool padded = B % kDlPiece != 0;
+    for (int t = 0; t < n_tiles; ++t) {
+        cp_async_wait<kDcStages - 2>();
+        __syncthreads();   // tile t landed, degrees written; t - 1's slot free
+        if (t + kDcStages - 1 < n_tiles)
+            load_tile((t + kDcStages - 1) % kDcStages, t + kDcStages - 1);
+        cp_async_commit();
+        const int c0 = c_begin + t * tile, width = min(tile, c_end - c0);
+        if (4 * q >= width) continue;
+        const float* Ls = ring + (t % kDcStages) * stage_floats + 4 * q;
+        const float* Ps = Ls + B * tile;
+        float a[kDcRows][4] = {}, b[kDcRows][4] = {};
+        for (int j = 0; j < B; ++j) {
+            const float4 l = *reinterpret_cast<const float4*>(Ls + j * tile);
+            const float4 p = *reinterpret_cast<const float4*>(Ps + j * tile);
+            const float4* wa = reinterpret_cast<const float4*>(
+                Wt + j * Bs + i0);
+            const float4* wb = reinterpret_cast<const float4*>(
+                Wn + j * Bs + i0);
+#pragma unroll
+            for (int r4 = 0; r4 < kDcRows / 4; ++r4) {
+                const float4 x = wa[r4], y = wb[r4];
+                dc_fma4(a[4 * r4], x.x, l);
+                dc_fma4(a[4 * r4 + 1], x.y, l);
+                dc_fma4(a[4 * r4 + 2], x.z, l);
+                dc_fma4(a[4 * r4 + 3], x.w, l);
+                dc_fma4(b[4 * r4], y.x, p);
+                dc_fma4(b[4 * r4 + 1], y.y, p);
+                dc_fma4(b[4 * r4 + 2], y.z, p);
+                dc_fma4(b[4 * r4 + 3], y.w, p);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < kDcRows; ++r) {
+            const int i = i0 + r;
+            if (i >= B) break;
+            const float coef = kappa + ge * degs[i];
+            const float* pr = Ps + i * tile;
+            const float* lr = Ls + i * tile;
+            float o[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float acc = a[r][e], bt = b[r][e];
+                if (padded) {
+                    acc = __fadd_rn(acc, 0.f);
+                    bt = __fadd_rn(bt, 0.f);
+                }
+                const float p = pr[e];
+                o[e] = gz * (-gc * (p * acc + bt) + coef * p * (lr[e] + 1.f));
+            }
+            float* out = dlogp + (int64_t)i * C + c0 + 4 * q;
+            if (vec) {
+                *reinterpret_cast<float4*>(out) =
+                    make_float4(o[0], o[1], o[2], o[3]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (4 * q + e < width) out[e] = o[e];
+            }
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -534,10 +758,11 @@ int graph_reg_fwd_workspace(int k, int B, int C) {
     return fwd_n_partials(k, B) + k * B * pad4(C);
 }
 
-// Floats of a K2 launch's workspace: the class-padded copies of P and of
-// logP, k * B * C4 floats each.
+// Floats of a K2 launch's workspace: on the row route the class-padded
+// copies of P and of logP, k * B * C4 floats each; none on the class
+// route.
 int graph_reg_bwd_dlogp_workspace(int k, int B, int C) {
-    return 2 * k * B * pad4(C);
+    return dc_takes(B, C) ? 0 : 2 * k * B * pad4(C);
 }
 
 // Rows per block, dynamic shared memory (bytes) of pass 1, the class
@@ -566,13 +791,25 @@ int graph_reg_fwd_plan(int k, int B, int C, int* rows, int* smem,
     return 0;
 }
 
-// Rows per block and dynamic shared memory (bytes) of a K2 launch.
-int graph_reg_bwd_dlogp_plan(int k, int B, int C, int* rows, int* smem) {
+// Rows per block, dynamic shared memory (bytes), the class span (0 on
+// the row route), blocks and threads a block of a K2 launch: on the class
+// route every block holds all B rows of its span.
+int graph_reg_bwd_dlogp_plan(int k, int B, int C, int* rows, int* smem,
+                             int* span, int* blocks, int* threads) {
     if (k < 1 || B < 1 || C < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     int n_sm = 0;
     const cudaError_t err = sm_count(&n_sm);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (dc_takes(B, C)) {
+        *span = dc_span(k, C, n_sm);
+        const int tile = dc_tile(B, *span);
+        *rows = B;
+        *smem = static_cast<int>(sizeof(float)) * dc_smem_floats(B, tile);
+        *blocks = k * ((C + *span - 1) / *span);
+        *threads = dc_threads(B, tile);
+        return 0;
+    }
     const int quads = dl_quads(C);
     const int n_chunks = (C + 4 * kDlMaxQuads - 1) / (4 * kDlMaxQuads);
     const int fit = 2 * (kDlMaxThreads / quads);
@@ -584,6 +821,9 @@ int graph_reg_bwd_dlogp_plan(int k, int B, int C, int* rows, int* smem) {
                          n_sm > 1 ? n_sm / 2 : 1, 4, max_rows);
     *smem = static_cast<int>(sizeof(float)) * kDlStages
             * dl_stage_floats(*rows, quads);
+    *span = 0;
+    *blocks = 2 * ((B + *rows - 1) / *rows) * n_chunks * k;
+    *threads = *rows / 2 * quads;
     return 0;
 }
 
@@ -668,19 +908,37 @@ int graph_reg_pairwise(const void* p, const void* logp, const void* W, int B,
 }
 
 // workspace holds graph_reg_bwd_dlogp_workspace(k, B, C) floats, 16-byte
-// aligned; dlogp is the (k, B, C) output.
+// aligned (none on the class route); dlogp is the (k, B, C) output.
 int graph_reg_bwd_dlogp(const void* p, const void* logp, const void* W,
                         const void* g, int k, int B, int C, float gc,
                         float kappa, float ge, void* workspace, void* dlogp,
                         void* stream) {
-    int rows = 0, smem = 0;
-    int rc = graph_reg_bwd_dlogp_plan(k, B, C, &rows, &smem);
+    int rows = 0, smem = 0, span = 0, blocks = 0, threads = 0;
+    int rc = graph_reg_bwd_dlogp_plan(k, B, C, &rows, &smem, &span, &blocks,
+                                      &threads);
     if (rc != 0) return rc;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (span > 0) {
+        // 16-byte copies and stores need C a multiple of 4 and P, logP and
+        // dlogp aligned.
+        const int vec = C % 4 == 0
+                        && reinterpret_cast<uintptr_t>(p) % 16 == 0
+                        && reinterpret_cast<uintptr_t>(logp) % 16 == 0
+                        && reinterpret_cast<uintptr_t>(dlogp) % 16 == 0;
+        const cudaError_t err =
+            allow_dynamic_smem<reg_bwd_dlogp_classes>(smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        reg_bwd_dlogp_classes<<<dim3(blocks / k, 1, k), threads, smem, s>>>(
+            static_cast<const float*>(p), static_cast<const float*>(logp),
+            static_cast<const float*>(W), static_cast<const float*>(g), B, C,
+            span, dc_tile(B, span), gc, kappa, ge, vec,
+            static_cast<float*>(dlogp));
+        return static_cast<int>(cudaGetLastError());
+    }
     const int quads = dl_quads(C);
     const int n_chunks = (C + 4 * kDlMaxQuads - 1) / (4 * kDlMaxQuads);
     const cudaError_t err = allow_dynamic_smem<reg_bwd_dlogp>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* P4 = static_cast<float*>(workspace);
     float* L4 = P4 + (int64_t)k * B * pad4(C);
     rc = launch_pad(static_cast<const float*>(p),
@@ -727,6 +985,7 @@ const OccupancyQuery kOccupancy[] = {
     occupancy<reg_fwd_tree_sum>,
     occupancy<reg_fwd_class_partials>,
     occupancy<reg_fwd_class_sum>,
+    occupancy<reg_bwd_dlogp_classes>,
 };
 
 }  // namespace

@@ -44,7 +44,16 @@ f32 without tensor cores):
   logP, the other Wᵀ·P from W's columns and P, both through cp.async
   rings, 2 rows × 4 classes a thread; the second hands its tile to the
   first through distributed shared memory.  The Pallas wrapper's square
-  re-padding of W becomes edge masks.
+  re-padding of W becomes edge masks.  That is the row route.  At narrow
+  B and wide C (B ≤ ``DC_MAX_ROWS``, C past one 128-class chunk: every LM
+  head, never the paper's B = 2176, C = 39) K2 takes its class route
+  (:func:`dlogp_plan`): one kernel, no cluster, no class padding and no
+  workspace; a block owns a span of classes, all B rows and a worker,
+  stages W, Wᵀ and the degrees in shared memory once and streams its
+  span's logP and P through a cp.async ring, 4 classes × 4 rows a
+  thread.  Bound there by bytes (P and logP read once, dlogp written
+  once: 8.7 µs at (1, 16, 151936)).  Its chains are the row route's, so
+  the two routes give the same bits.
 * ``reg_bwd_dw`` — K3, replaces ``_reg_bwd_dw`` / ``_reg_bwd_dw_kernel``.
   Writes the P×P dW once (18.9 MB, 5.7 µs) and does 2·P²·C flops (5.5
   µs): bound by bytes, barely.  Output-tiled, redesigned for Hopper: each
@@ -88,9 +97,9 @@ from . import build, ref
 from .boundary import bounded
 
 __all__ = ["reg_forward", "reg_bwd_dlogp", "reg_bwd_dw", "reg_pairwise",
-           "fwd_plan", "class_split", "dlogp_plan", "launch_plan",
-           "launch_counts", "reset_launch_counts", "OCCUPANCY_KERNELS",
-           "occupancy", "SOURCE"]
+           "fwd_plan", "class_split", "dlogp_route", "dlogp_plan",
+           "launch_plan", "launch_counts", "reset_launch_counts",
+           "OCCUPANCY_KERNELS", "occupancy", "SOURCE"]
 
 SOURCE = "src/repro_torch/csrc/graph_reg.cu"
 
@@ -101,7 +110,7 @@ _SIGNATURES = {
     "graph_reg_fwd_workspace": (_I, _I, _I),
     "graph_reg_bwd_dlogp_workspace": (_I, _I, _I),
     "graph_reg_fwd_plan": (_I, _I, _I, _P, _P, _P, _P),
-    "graph_reg_bwd_dlogp_plan": (_I, _I, _I, _P, _P),
+    "graph_reg_bwd_dlogp_plan": (_I, _I, _I, _P, _P, _P, _P, _P),
     "graph_reg_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     "graph_reg_pairwise": (_P, _P, _P, _I, _I, _P, _P, _P),
     "graph_reg_bwd_dlogp": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
@@ -131,7 +140,8 @@ OCCUPANCY_KERNELS = ("16reg_fwd_partialsILb1E",
                      "11pad_classesE",
                      "16reg_fwd_tree_sumE",
                      "22reg_fwd_class_partialsE",
-                     "17reg_fwd_class_sumE")
+                     "17reg_fwd_class_sumE",
+                     "21reg_bwd_dlogp_classesE")
 
 
 def occupancy(symbol: str, threads: int, dynamic_smem: int) -> dict:
@@ -264,6 +274,13 @@ CS_STRIDE = CS_SLAB + 4        # floats a staged row (kCsStride)
 CS_SUM_THREADS = 256           # pass 2's block (kCsSumThreads)
 DL_PIECE, DL_MAX_ROWS, DL_MAX_QUADS, DL_MAX_THREADS = 32, 64, 32, 512
 DL_STAGES = 2                  # K2's ring (kDlStages)
+# K2's class route (``csrc/graph_reg.cu``): the widest B it takes, rows
+# of a row group (a thread's register tile), warps a block shares among
+# its groups, ring depth, the least span and the blocks an SM its spans
+# fill it with; its launch bounds give each group of the widest B a warp.
+DC_MAX_ROWS, DC_ROWS, DC_WARPS, DC_STAGES = 64, 4, 8, 3
+DC_MIN_SPAN, DC_SM_BLOCKS = 128, 2
+DC_MAX_THREADS = 32 * (DC_MAX_ROWS // DC_ROWS)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -355,19 +372,55 @@ def class_split_chain(B: int, plan: dict) -> int:
             + _cdiv(B * B, CS_SUM_THREADS) + 5 + CS_SUM_THREADS // 32)
 
 
+def dlogp_route(B: int, C: int) -> str:
+    """``dc_takes`` of the source: K2's class route where B ≤
+    ``DC_MAX_ROWS`` and C spans more than one of the row route's 128-class
+    chunks (every LM head), its row route elsewhere (the paper's
+    shapes)."""
+    return ("classes" if B <= DC_MAX_ROWS and C > 4 * DL_MAX_QUADS
+            else "rows")
+
+
 def dlogp_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
     """K2's launch plan on a card of ``n_sm`` SMs, as the source's
-    ``graph_reg_bwd_dlogp_plan``: rows a block (a multiple of 4, at most
+    ``graph_reg_bwd_dlogp_plan``.
+
+    ``route`` ``"rows"``: rows a block (a multiple of 4, at most
     ``DL_MAX_ROWS`` and what ``DL_MAX_THREADS`` threads of 2 rows × 4
     classes hold) that fill the card's n_sm/2 cluster slots once; dynamic
     shared memory (the ring) and workspace floats (class-padded P and
-    logP)."""
+    logP); ``class_span`` 0.
+
+    ``route`` ``"classes"`` (:func:`dlogp_route`): a block owns a
+    ``class_span`` of C (a multiple of 4, at least ``DC_MIN_SPAN``, sized
+    so that the blocks of all k workers fill each SM with
+    ``DC_SM_BLOCKS``) and all B rows (``rows_per_block``); its threads
+    are ⌈B/``DC_ROWS``⌉ row groups of whole warps (``DC_WARPS`` shared
+    among them, one each at least), 4 classes a thread, and it streams
+    the span in tiles of ``tile_classes``; its dynamic shared memory
+    holds the ring of ``DC_STAGES`` tiles of logP and P rows, W and Wᵀ (B
+    rows of the groups' rows each) and the degrees; no workspace.
+    ``blocks`` and ``threads`` are the launch's."""
+    if dlogp_route(B, C) == "classes":
+        span = max(4 * _cdiv(_cdiv(C, 4), _cdiv(DC_SM_BLOCKS * n_sm, k)),
+                   DC_MIN_SPAN)
+        groups = _cdiv(B, DC_ROWS)
+        tile = min(128 * max(DC_WARPS // groups, 1), span)
+        return {"route": "classes", "rows_per_block": B,
+                "class_span": span, "tile_classes": tile,
+                "blocks": k * _cdiv(C, span),
+                "threads": groups * 32 * _cdiv(tile, 128),
+                "dynamic_smem_bytes": 4 * (DC_STAGES * 2 * B * tile
+                                           + (2 * B + 1) * DC_ROWS * groups),
+                "workspace_floats": 0}
     quads = min(_cdiv(C, 4), DL_MAX_QUADS)
     n_chunks = _cdiv(C, 4 * DL_MAX_QUADS)
     max_rows = min(2 * (DL_MAX_THREADS // quads), DL_MAX_ROWS) & ~3
     rows = _rows_to_fill(k * n_chunks * B, n_sm // 2 if n_sm > 1 else 1, 4,
                          max_rows)
-    return {"rows_per_block": rows,
+    return {"route": "rows", "rows_per_block": rows, "class_span": 0,
+            "blocks": 2 * _cdiv(B, rows) * n_chunks * k,
+            "threads": rows // 2 * quads,
             "dynamic_smem_bytes": 4 * DL_STAGES * DL_PIECE
             * (rows + 4 * quads),
             "workspace_floats": 2 * k * B * _cdiv(C, 4) * 4}
@@ -376,11 +429,12 @@ def dlogp_plan(k: int, B: int, C: int, *, n_sm: int) -> dict:
 def launch_plan(name: str, k: int, B: int, C: int) -> dict:
     """Rows per block and dynamic shared memory (bytes) of one K1 / K10
     (``"graph_reg_fwd"``, also its ``class_chunk``, 0 on the row plan, and
-    pass 1's ``blocks``) or K2 (``"graph_reg_bwd_dlogp"``) launch on the
-    current card, as the library computes them."""
+    pass 1's ``blocks``) or K2 (``"graph_reg_bwd_dlogp"``, also its
+    ``class_span``, 0 on the row route, ``blocks`` and ``threads``) launch
+    on the current card, as the library computes them."""
     return _plan(_lib(), name, k, B, C,
                  extra=(("class_chunk", "blocks") if name == "graph_reg_fwd"
-                        else ()))
+                        else ("class_span", "blocks", "threads")))
 
 
 @bounded("graph_reg_fwd")
@@ -435,7 +489,9 @@ def reg_bwd_dlogp(logp: torch.Tensor, W: torch.Tensor, g: torch.Tensor,
                   gc: float, kappa: float, ge: float, *,
                   p: torch.Tensor | None = None) -> torch.Tensor:
     """K2: dL/dlogp, (k, B, C), for the cotangent ``g`` of shape (k,).
-    ``g`` stays on the device and the kernel reads it by pointer."""
+    ``g`` stays on the device and the kernel reads it by pointer.  The
+    library picks the route (:func:`dlogp_plan`) and sizes the workspace
+    for it (none on the class route)."""
     if _on_meta(logp, W, g):
         _dims(logp)
         return _reg_bwd_dlogp_rule(logp, W, g,

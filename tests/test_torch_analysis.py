@@ -373,8 +373,8 @@ class TestLaunchAudit:
     def test_default_models_validate_clean(self):
         findings, metrics = la.validate_launches()
         assert findings == []
-        assert metrics["kernels_in_source"] == 17
-        assert metrics["kernels_modelled"] == 17
+        assert metrics["kernels_in_source"] == 18
+        assert metrics["kernels_modelled"] == 18
         assert metrics["launches_checked"] >= 40
 
     def test_every_kernel_models_its_path_shapes(self):
@@ -452,7 +452,7 @@ class TestLaunchAudit:
             "__global__ void __launch_bounds__(128) stray(float* x) {}\n")
         findings, metrics = la.validate_launches(csrc=tmp_path)
         assert _rules(findings) == ["V005"]
-        assert metrics["kernels_in_source"] == 18
+        assert metrics["kernels_in_source"] == 19
 
     def test_launch_bounds_held_to_the_source(self):
         (where, ln), *rest = la.kernel_launches()
@@ -487,6 +487,27 @@ class TestLaunchAudit:
             "reg_fwd_class_partials", (4, 1, 1), 256)
         assert (total.kernel, total.grid) == ("reg_fwd_class_sum",
                                               (1, 1, 1))
+
+    @pytest.mark.parametrize("shape,grid,threads,smem", [
+        ((1, 16, 151936), (264, 1, 1), 256, 100416),
+        ((2, 16, 151936), (132, 1, 2), 256, 100416),
+        ((1, 17, 32000), (250, 1, 1), 160, 55024),
+        ((1, 4, 512), (4, 1, 1), 32, 12432)])
+    def test_k2_class_route_at_the_lm_heads(self, shape, grid, threads,
+                                            smem):
+        """At the LM heads K2 is one launch of ``reg_bwd_dlogp_classes``
+        (no ``pad_classes``, no cluster): a block per class span and
+        worker, two an SM on 132 SMs, 4-row groups of whole warps, 4
+        classes a thread, all B rows; the model covers dlogp once and
+        stays in budget."""
+        k, B, C = shape
+        (ln,) = la.call_launches("graph_reg_bwd_dlogp", k=k, B=B, C=C)
+        assert (ln.kernel, ln.grid, ln.threads, ln.dynamic_smem,
+                ln.cluster) == ("reg_bwd_dlogp_classes", grid, threads, smem,
+                                (1, 1, 1))
+        assert la.check_launch(ln, where="t") == []
+        cov = la.coverage(ln)["dlogp"]
+        assert cov == {"past": [], "overlap": None, "uncovered": 0}
 
     def test_v004_is_not_applicable(self):
         assert "not applicable" in RULES["V004"]

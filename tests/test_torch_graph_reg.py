@@ -82,11 +82,19 @@ def test_entry_forward_and_vjp_match_jax(entry, B, C):
     _close(got_dW.numpy(), want_dW)
 
 
-@pytest.mark.parametrize("B,C", SHAPES)
+# Narrow B and wide C, where K2 takes its class route on the card: an LM
+# head's B 16 over 4,096 classes, a ragged B 17 over C 1001 (not a
+# multiple of 4), the smoke's B 4 over V 512.
+NARROW_SHAPES = [(16, 4096), (17, 1001), (4, 512)]
+
+
+@pytest.mark.parametrize("B,C", SHAPES + NARROW_SHAPES)
 @pytest.mark.parametrize("triple", [(GAMMA, KAPPA, GAMMA), (1.0, 0.0, 0.0)])
 def test_plain_backward_closed_forms_match_jax_kernels(triple, B, C):
     """The plain versions of K2/K3 against the reference's backward kernels
-    (interpret mode), for the full-regularizer and cross-only triples."""
+    (interpret mode), for the full-regularizer and cross-only triples,
+    also at the narrow-B, wide-C shapes of K2's class route (RTOL, as
+    elsewhere: both sum float32 products over B in other orders)."""
     logp, W = _problem(B, C, seed=1)
     gc, kappa, ge = triple
     g = 1.3
@@ -228,14 +236,20 @@ def test_launch_counters_reset_and_untouched_by_plain_path():
 
 
 # ---------------------------------------------------------------- K1 plans
-# K1's launch plan (``graph_reg_fwd_plan`` in ``csrc/graph_reg.cu``) has a
-# Python mirror, ``gr.fwd_plan``: its constants are held to the source
-# here and its results to the library on the card
+# K1's and K2's launch plans (``graph_reg_fwd_plan`` and
+# ``graph_reg_bwd_dlogp_plan`` in ``csrc/graph_reg.cu``) have Python
+# mirrors, ``gr.fwd_plan`` and ``gr.dlogp_plan``: their constants are held
+# to the source here and their results to the library on the card
 # (tests/test_torch_kernels_cuda.py).
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 _CS_CONSTANTS = {"kCsSlab": gr.CS_SLAB, "kCsTile": gr.CS_TILE,
                  "kCsStages": gr.CS_STAGES, "kCsMaxGroups": gr.CS_MAX_GROUPS,
-                 "kCsSumThreads": gr.CS_SUM_THREADS}
+                 "kCsSumThreads": gr.CS_SUM_THREADS,
+                 # K2's class route
+                 "kDcMaxRows": gr.DC_MAX_ROWS, "kDcRows": gr.DC_ROWS,
+                 "kDcWarps": gr.DC_WARPS, "kDcStages": gr.DC_STAGES,
+                 "kDcMinSpan": gr.DC_MIN_SPAN,
+                 "kDcSmBlocks": gr.DC_SM_BLOCKS}
 
 
 @pytest.mark.parametrize("const", sorted(_CS_CONSTANTS))
@@ -245,6 +259,9 @@ def test_class_split_constants_follow_the_source(const):
         == _CS_CONSTANTS[const]
     assert re.search(r"constexpr int kCsStride = kCsSlab \+ 4;", src)
     assert gr.CS_STRIDE == gr.CS_SLAB + 4
+    assert re.search(r"constexpr int kDcMaxThreads = "
+                     r"32 \* \(kDcMaxRows / kDcRows\);", src)
+    assert gr.DC_MAX_THREADS == 32 * (gr.DC_MAX_ROWS // gr.DC_ROWS)
 
 
 # (k, B, C): the paper's shapes (P = 2176 on the card's machine, 2112 on a
@@ -339,6 +356,101 @@ def test_fwd_workspace_covers_both_plans(shape):
         assert set(written) == {"reg_fwd_class_partials",
                                 "reg_fwd_class_sum"}
     assert plan["workspace_floats"] == want
+
+
+# K2's row route at the same shapes and at the paper's k = 2 (the
+# parent's plans, unchanged: rows a block, dynamic shared memory bytes,
+# workspace floats on 132 SMs).
+DLOGP_ROW_PLANS = {(1, 2176, 39): (36, 19456, 174080),
+                   (2, 2176, 39): (64, 26624, 348160),
+                   (4, 2176, 39): (64, 26624, 696320),
+                   (1, 2112, 39): (32, 18432, 168960),
+                   (2, 2112, 39): (64, 26624, 337920),
+                   (4, 2112, 39): (64, 26624, 675840),
+                   (2, 1000, 39): (32, 18432, 160000),
+                   (3, 1001, 100): (40, 35840, 600600),
+                   (1, 1001, 200): (32, 40960, 400400),
+                   (1, 4096, 4): (64, 17408, 32768),
+                   (1, 528, 300): (24, 38912, 316800)}
+
+
+@pytest.mark.parametrize("shape", sorted(DLOGP_ROW_PLANS))
+def test_dlogp_plan_keeps_the_row_route_at_the_papers_shapes(shape):
+    """Past ``DC_MAX_ROWS`` rows (or within one 128-class chunk) K2 keeps
+    the parent's row route exactly: two-block clusters after the class
+    padding, and with them its bits."""
+    k, B, C = shape
+    plan = gr.dlogp_plan(k, B, C, n_sm=132)
+    assert gr.dlogp_route(B, C) == plan["route"] == "rows"
+    assert plan["class_span"] == 0
+    assert (plan["rows_per_block"], plan["dynamic_smem_bytes"],
+            plan["workspace_floats"]) == DLOGP_ROW_PLANS[shape]
+    quads = min(-(-C // 4), gr.DL_MAX_QUADS)
+    assert plan["threads"] == plan["rows_per_block"] // 2 * quads
+    assert plan["blocks"] == 2 * k * -(-B // plan["rows_per_block"]) \
+        * -(-C // (4 * gr.DL_MAX_QUADS))
+
+
+# Every LM head (chip_smoke.LM_HEAD_SHAPES) and ragged narrow shapes on
+# K2's class route: (class span, tile classes, threads, blocks) on 132
+# SMs.
+DLOGP_CLASS_PLANS = {(1, 16, 151936): (576, 256, 256, 264),
+                     (2, 16, 151936): (1152, 256, 256, 264),
+                     (1, 17, 32000): (128, 128, 160, 250),
+                     (1, 16, 32000): (128, 128, 128, 250),
+                     (1, 16, 50304): (192, 192, 256, 262),
+                     (1, 16, 50257): (192, 192, 256, 262),
+                     (1, 4, 512): (128, 128, 32, 4),
+                     (2, 33, 777): (128, 128, 288, 14),
+                     (1, 64, 1000): (128, 128, 512, 8)}
+
+
+@pytest.mark.parametrize("shape", sorted(DLOGP_CLASS_PLANS))
+def test_dlogp_plan_takes_the_class_route_at_the_lm_heads(shape):
+    """At narrow B and wide C K2 takes its class route: a block owns a
+    span of whole quads, as wide as lets the blocks of all workers fill
+    each SM twice (at least a warp's 128 classes), and all B rows; its
+    threads are 4-row groups of whole warps, 8 warps shared among them
+    (one a group at least), 4 classes a thread; no workspace."""
+    k, B, C = shape
+    n_sm = 132
+    plan = gr.dlogp_plan(k, B, C, n_sm=n_sm)
+    span, tile, threads, blocks = DLOGP_CLASS_PLANS[shape]
+    assert gr.dlogp_route(B, C) == plan["route"] == "classes"
+    assert (plan["class_span"], plan["tile_classes"], plan["threads"],
+            plan["blocks"]) == (span, tile, threads, blocks)
+    assert plan["rows_per_block"] == B and plan["workspace_floats"] == 0
+    assert span % 4 == 0 and span >= gr.DC_MIN_SPAN
+    assert (blocks // k - 1) * span < C <= blocks // k * span
+    assert blocks <= max(gr.DC_SM_BLOCKS * n_sm,
+                         k * -(-C // gr.DC_MIN_SPAN))
+    groups = -(-B // gr.DC_ROWS)
+    assert threads % (32 * groups) == 0
+    assert 4 * (threads // groups) >= tile
+    assert threads <= max(32 * gr.DC_WARPS, 32 * groups) \
+        <= gr.DC_MAX_THREADS
+    assert plan["dynamic_smem_bytes"] <= 232_448
+
+
+@pytest.mark.parametrize("shape", sorted(DLOGP_ROW_PLANS)
+                         + sorted(DLOGP_CLASS_PLANS))
+def test_dlogp_workspace_covers_both_routes(shape):
+    """K2's workspace is what its launch models write there: the row
+    route's class-padded P and logP (``pad_classes``), nothing on the
+    class route, which launches one kernel."""
+    from repro_torch.analysis import launch_audit as la
+    k, B, C = shape
+    plan = gr.dlogp_plan(k, B, C, n_sm=132)
+    written = {ln.kernel: sum(int(np.prod(o.shape)) for o in ln.outputs)
+               for ln in la.call_launches("graph_reg_bwd_dlogp", k=k, B=B,
+                                          C=C)}
+    if plan["route"] == "rows":
+        assert set(written) == {"pad_classes", "reg_bwd_dlogp"}
+        # pad_classes writes float4s: 4 floats an element of its output.
+        assert plan["workspace_floats"] == 4 * written["pad_classes"]
+    else:
+        assert set(written) == {"reg_bwd_dlogp_classes"}
+        assert plan["workspace_floats"] == 0
 
 
 # ------------------------------------------- K1's class-split sum order

@@ -678,6 +678,74 @@ def test_class_split_k1_holds_float64_and_equals_k10(cuda, k, B, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", K1_PLAN_SHAPES)
+def test_k2_launch_plan_matches_its_mirror(cuda, k, B, C):
+    """The library's K2 plan and workspace are ``gr.dlogp_plan``'s on this
+    card: the row route at the paper's shapes and past 64 rows, the class
+    route (no workspace) at narrow B and wide C."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gr.dlogp_plan(k, B, C, n_sm=n_sm)
+    got = gr.launch_plan("graph_reg_bwd_dlogp", k, B, C)
+    assert got == {key: plan[key] for key in got}
+    assert (got["class_span"] > 0) == (plan["route"] == "classes")
+    assert gr._lib().graph_reg_bwd_dlogp_workspace(k, B, C) == \
+        plan["workspace_floats"]
+
+
+#: K2's class route: every narrow shape of K1's plans (the LM heads, B 1
+#: to 33, C ragged or not a multiple of 4, k 1 to 3).
+K2_CLASS_SHAPES = [s for s in K1_PLAN_SHAPES
+                   if gr.dlogp_route(s[1], s[2]) == "classes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", K2_CLASS_SHAPES)
+def test_k2_class_route_repeats_and_matches_plain_version(cuda, k, B, C):
+    """K2 on its class route: repeated bit for bit, and within the usual
+    rule (rtol 2e-5, tighter than the LM path's 1e-4) of its plain
+    version, at the LM heads and at ragged narrow shapes (B 5, 17, 33; C
+    777, 1001, 2049: 4-byte copies), with a cotangent of either sign per
+    worker."""
+    probs = [_problem(B, C, seed=s, density=0.5) for s in range(k)]
+    logp = torch.stack([p[0] for p in probs]).to(cuda)
+    W = torch.stack([p[1] for p in probs]).to(cuda)
+    W = W + W.mT
+    g = torch.tensor([0.5, -2.0, 0.25][:k], device=cuda)
+    gamma, kappa = 0.05, 1e-4
+    before = gr.reg_bwd_dlogp.launches
+    a = gr.reg_bwd_dlogp(logp, W, g, gamma, kappa, gamma)
+    b = gr.reg_bwd_dlogp(logp, W, g, gamma, kappa, gamma)
+    want = ref.reg_bwd_dlogp_ref(logp, W, g, gamma, kappa, gamma)
+    torch.cuda.synchronize()
+    assert gr.reg_bwd_dlogp.launches == before + 2
+    assert torch.equal(a, b)
+    _close(a.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,B,C", [(1, 16, 4096), (2, 17, 1000)])
+def test_k2_class_route_takes_unaligned_inputs(cuda, k, B, C):
+    """P and logP one float past a 16-byte boundary (C a multiple of 4):
+    the class route falls back to 4-byte copies and scalar stores and
+    gives the aligned call's bits."""
+    logp, W = _problem(B, C, seed=k, density=0.5)
+    logp = logp.expand(k, B, C).contiguous().to(cuda)
+    W = (W + W.T).expand(k, B, B).contiguous().to(cuda)
+    g = torch.tensor([1.0 / B, -0.5][:k], device=cuda)
+    p = torch.exp(logp)
+    buf = torch.empty(2, 1 + k * B * C, device=cuda)
+    lp_off = buf[0, 1:].view(k, B, C)
+    p_off = buf[1, 1:].view(k, B, C)
+    lp_off.copy_(logp)
+    p_off.copy_(p)
+    assert lp_off.data_ptr() % 16 != 0
+    a = gr.reg_bwd_dlogp(logp, W, g, 0.05, 1e-4, 0.05, p=p)
+    b = gr.reg_bwd_dlogp(lp_off, W, g, 0.05, 1e-4, 0.05, p=p_off)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,C", [(200, 8), (257, 39), (1000, 39),
                                  (1001, 39)])
 def test_pairwise_cross_term_matches_plain_version_and_k1(cuda, B, C):
