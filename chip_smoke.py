@@ -140,11 +140,20 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 11. a step breakdown of both paths (``repro_torch.bench.profile_step``
    without the profiler): host batch assembly, staging, and one full step
    timed between CUDA events, back to back (which includes the host's
-   launch gaps);
+   launch gaps); then the quickstart (``quickstart_phase``, the twin of
+   ``examples/quickstart.py`` at its defaults: n 4000, label ratio 0.02,
+   10 epochs): the SSL run and the supervised run (γ = κ = 0) on the
+   card, each with K1 and K2 once a step and nothing else, every loss
+   finite, held per epoch to the same runs on the CPU from the same
+   initial params by the rule of :data:`QS_FIRST_RTOL` to :data:`QS_ACC`,
+   which two planted faults on the card (:data:`QS_PLANTED`) must break;
+   accuracies by epoch, the SSL − supervised gap, seconds and ms/step;
 12. the LM serve path (``python -m repro_torch.serve.serve_lm``): K11 at
    the prefill's shape, q (4, 2048, 12, 128) against k, v (4, 2048, 2,
    128), in bf16 (tensor-core route) and f32 (FMA route), and at a ragged
-   T = 1000 and a Tq < Tk case, each labelled with its route and held
+   T = 1000 and a Tq < Tk case, at llama/jamba's and at the four head
+   layouts of :data:`LAYOUT_ATTN` (groups 1, 3 and 8 at hd 64 and 128),
+   each labelled with its route and held
    against its plain version on the route's key tiles, repeated bit for
    bit and timed beside it and, in turns, beside
    ``scaled_dot_product_attention`` (the library column only), with the
@@ -159,8 +168,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
 13. the LM training path with the paper's sequence-level objective
    (``lm_kernel_phase`` to ``lm_train_phase``): K1 and K2 at the LM
    head's shapes (:data:`LM_HEAD_SHAPES`: (k, B, C) = (1, 16, 151936), (2,
-   16, 151936), (1, 17, 32000), the SSL heads and the smoke's (1, 4,
-   512)) with the example's γ = 0.05, κ = 1e-4, held against their
+   16, 151936), (1, 17, 32000), the SSL heads, the smoke's (1, 4,
+   512) and every other configuration's V, 200064, 64000, 2048, 163840,
+   128256 and 65536) with the example's γ = 0.05, κ = 1e-4, held against their
    plain versions (K1 to float64, :data:`K1_LM_RULE`), repeated bit for
    bit and timed beside them with their share of the bound; K1's plan
    printed at each (the class-split plan: pass-1 blocks, class chunk,
@@ -195,17 +205,21 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    turns beside it and SDPA, with its bound, its share of it and its
    factor over SDPA; the ``reduced()`` configs of
    mixtral-8x7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
-   jamba-1.5-large-398b and xlstm-125m in f32 on the card against the CPU
+   jamba-1.5-large-398b, xlstm-125m, qwen1.5-0.5b, musicgen-large,
+   phi4-mini-3.8b and yi-9b in f32 on the card against the CPU
    (prefill logits, every cache or state leaf and 4 greedy decode steps
    within atol 1e-4, MoE experts and keep masks equal, two card runs
    equal bit for bit); each family served at full width with depth cut
-   to one card (:data:`FAMILY_CUTS`, printed on its line): batch 4,
+   to one card (:data:`FAMILY_CUTS`, printed on its line; qwen1.5-0.5b,
+   musicgen-large, phi4-mini-3.8b, yi-9b and xlstm-125m whole): batch 4,
    prompt 2048, 32 greedy decode steps, cache 2080, the VLM with seeded
    (4, 1601, 1280) modality embeddings, K11 launches counted from 0 just
    before the timed prefill (2 kimi, 4 llama, 1 jamba, 0 mixtral and
-   xLSTM), logits finite, prefill ms, ms/token, tok/s, peak memory and
+   xLSTM, 24 qwen1.5, 48 musicgen, 32 phi4, 48 yi), logits finite,
+   prefill ms, ms/token, tok/s, peak memory and
    the MoE assignments dropped by capacity; then two ``lm_train_step``s
-   each of mixtral (full width, 2 layers) and xlstm-125m (whole) at the
+   of each of :data:`FAMILY_TRAIN` (mixtral, musicgen, phi4 and yi at full
+   width, 2 layers; xlstm-125m and qwen1.5-0.5b whole) at the
    example's 16 × 128 tokens: loss terms finite, ``moe_aux`` > 0, K1 and
    K2 once a step, ms/step and peak memory;
 16. the launcher (``launch_phase``): ``python -m
@@ -240,8 +254,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    float ``index_add_`` that D001 flags and that differs between two
    runs without deterministic algorithms;
 18. the ``{"kernels": [...]}`` line (K1's and K2's entries with their LM
-   head records under ``lm_train`` and their smoke launches under
-   ``launch_smoke``, K11 at hd 112 as ``flash_attention_hd112``, each
+   head records under ``lm_train``, their smoke launches under
+   ``launch_smoke`` and the quickstart's under ``quickstart``, K11's at
+   the four head layouts under ``head_layouts``, K11 at hd 112 as
+   ``flash_attention_hd112``, each
    entry with what the analysis phase read of its launch at the path's
    shape under ``launch_model``: registers, spills and static shared
    memory from the compiler, resident blocks from the runtime, dynamic
@@ -1909,6 +1925,212 @@ def chaos_phase() -> dict:
     return {"seconds": secs, "ok": report["ok"]}
 
 
+#: The quickstart (``quickstart_phase``) on the card against the same run
+#: on the port's CPU path (plain K1 and K2), from the same initial params,
+#: corpus, eval data, graph and plan, at every epoch of the SSL run and of
+#: the supervised one: |Δ loss/total| ≤ rtol·max(1, |CPU loss|) with
+#: QS_FIRST_RTOL at epoch 1 and QS_RTOL later, |Δ eval/acc| ≤ QS_FIRST_ACC
+#: at epoch 1 and QS_ACC later (the eval split holds 1,000 points, so one
+#: point is 0.001).  AdaGrad's update is lr·g/(√G + 1e-8), ±lr at the
+#: first step wherever |g| ≫ 1e-8, so a weight whose gradient lies within
+#: round-off of 0 moves by ±lr either way, and the devices drift apart
+#: after the first update (the port and the reference on the CPU too,
+#: ``tests/test_torch_quickstart.py``).  Each limit lies
+#: between the sound card's reading and a planted fault, both read in
+#: every run (:data:`QS_PLANTED`); on an H100 80GB HBM3 (700 W) the sound
+#: SSL run read 5.9e-6 / 0.002 at epoch 1 and at most 9.6e-4 / 0.005
+#: later, the supervised run at most 2.4e-7 / 0; K2 × (1 + 1e-3) read
+#: 3.1e-3 / 0.029 at epoch 1, K2 × 0 up to 0.31 / 0.151 later.
+QS_FIRST_RTOL = 1e-4
+QS_RTOL = 1e-2
+QS_FIRST_ACC = 0.01
+QS_ACC = 0.03
+#: Planted faults on the card's SSL run, each a scale of K2's output
+#: (``graph_reg.reg_bwd_dlogp``), and the limits each must break: K2 ×
+#: (1 + 1e-3) the first epoch's, K2 × 0 (the graph's gradient dropped,
+#: which trains the supervised model with the SSL loss) a later epoch's.
+QS_PLANTED = (("K2 × (1 + 1e-3)", 1 + 1e-3, "first"),
+              ("K2 × 0", 0.0, "later"))
+
+
+@contextlib.contextmanager
+def scaled_output(module, name: str, scale: float):
+    """A planted fault: ``module.name`` returns its output times
+    ``scale`` inside the ``with``."""
+    orig = getattr(module, name)
+
+    def planted(*args, **kwargs):
+        return orig(*args, **kwargs) * scale
+
+    # The wrapper counts its launches on the module's name for it.
+    planted.launches = getattr(orig, "launches", 0)
+    setattr(module, name, planted)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def qs_readings(history: list, want: list) -> list:
+    """Per epoch: (|Δ loss/total| / max(1, |want|), |Δ eval/acc|)."""
+    return [(abs(h["loss/total"] - w["loss/total"])
+             / max(1.0, abs(w["loss/total"])),
+             abs(h["eval/acc"] - w["eval/acc"]))
+            for h, w in zip(history, want)]
+
+
+def qs_breaks(readings: list, when: str) -> bool:
+    """True where ``readings`` break the first epoch's limits (``when`` =
+    "first") or a later epoch's ("later")."""
+    if when == "first":
+        loss, acc = readings[0]
+        return loss > QS_FIRST_RTOL or acc > QS_FIRST_ACC
+    return any(loss > QS_RTOL or acc > QS_ACC
+               for loss, acc in readings[1:])
+
+
+def quickstart_phase() -> dict:
+    """The twin of ``examples/quickstart.py`` on the card at its defaults
+    (``repro_torch.examples.quickstart``: n 4000, 16 classes, label ratio
+    0.02, the 3 × 512 DNN, 10 epochs, ``pairwise="auto"``): the SSL run,
+    then the supervised run (γ = κ = 0) on its corpus, eval data, graph
+    and plan.  Each run's counts from 0 just before it and read just
+    after: K1 and K2 once a step and no other kernel (neither package
+    skips the regularizer at γ = κ = 0, whose loss/graph must be 0 at
+    every epoch); every loss finite.  Then both runs on the port's CPU
+    path from the same initial params (captured from ``init_dnn`` in
+    both, equal bit for bit), and the card held to them by the rule of
+    :data:`QS_FIRST_RTOL` to :data:`QS_ACC`: at epoch 1 |Δ loss/total| ≤
+    1e-4·max(1, |loss|) and |Δ eval/acc| ≤ 0.01, at later epochs 1e-2
+    and 0.03.  The planted faults of :data:`QS_PLANTED` run on the card
+    and must break it.  Prints each run's accuracy by epoch, its best
+    eval/acc, the SSL − supervised gap, seconds and ms/step by the host
+    clock (the engine's epoch seconds over epochs 2-10, eval excluded),
+    each beside the card's name and power limit."""
+    import math
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import graph_reg as gr
+    from repro_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    cfg, sup_cfg = quickstart.configs()
+    exp, sup = quickstart.experiments(cfg, sup_cfg, "cuda")
+    build_s = time.perf_counter() - t_phase
+    print(f"quickstart [{CARD}]: corpus {exp.corpus.n} points, "
+          f"{int(exp.corpus.label_mask.sum())} labeled, eval "
+          f"{len(exp.eval_data[1])} points; graph {exp.graph.n_edges} "
+          f"edges; {exp.plan.n_meta} meta-batches; built in {build_s:.1f}s")
+
+    def experiment(c, device):
+        return Experiment(c, corpus=exp.corpus, eval_data=exp.eval_data,
+                          graph=exp.graph, plan=exp.plan, device=device)
+
+    inits, init_dnn = [], trainer.init_dnn
+
+    def recording(*args, **kwargs):
+        params = init_dnn(*args, **kwargs)
+        # A copy on the host: the optimizer updates the params in place.
+        inits.append([t.detach().cpu().clone() for layer in params["layers"]
+                      for t in (layer["w"], layer["b"])])
+        return params
+
+    trainer.init_dnn = recording
+    try:
+        card = {}
+        for label, e in (("ssl", exp), ("supervised", sup)):
+            e.build()
+            e.pipeline = counted = TimedPipeline(
+                e.pipeline, e.config.execution.prefetch)
+            gr.reset_launch_counts()
+            res = e.run()
+            torch.cuda.synchronize()
+            counts = gr.launch_counts()
+            E = len(res.history)
+            steps = counted.n
+            check(E == cfg.train.n_epochs and steps % E == 0,
+                  f"quickstart {label}: {E} epochs, {steps} steps")
+            want = {n: steps * (n in ("graph_reg_fwd", "graph_reg_bwd_dlogp"))
+                    for n in counts}
+            check(counts == want, f"quickstart {label}: launches {counts}, "
+                  f"not K1 and K2 once a step ({steps}) and nothing else")
+            check(all(math.isfinite(h[k]) for h in res.history
+                      for k in ("loss/total", "loss/supervised",
+                                "loss/graph", "eval/acc")),
+                  f"quickstart {label}: a non-finite loss or accuracy")
+            if label == "supervised":
+                check(all(h["loss/graph"] == 0.0 for h in res.history),
+                      "quickstart supervised: loss/graph is not 0 at γ = κ "
+                      "= 0")
+            card[label] = {
+                "history": res.history, "seconds": res.seconds,
+                "steps": steps, "counts": counts,
+                "best_acc": res.best("eval/acc"),
+                "ms_per_step": 1e3 * sum(h["seconds"]
+                                         for h in res.history[1:])
+                / (steps - steps // E)}
+        cpu = {label: experiment(c, "cpu").run()
+               for label, c in (("ssl", cfg), ("supervised", sup_cfg))}
+        planted = {}
+        for name, scale, when in QS_PLANTED:
+            with scaled_output(gr, "reg_bwd_dlogp", scale):
+                planted[name] = (experiment(cfg, "cuda").run().history,
+                                 when)
+    finally:
+        trainer.init_dnn = init_dnn
+    check(len(inits) == 4 + len(QS_PLANTED) and all(
+        torch.equal(a, b) for other in inits[1:]
+        for a, b in zip(inits[0], other)),
+        "quickstart: the runs did not start from the same params")
+    out = {"build_s": build_s, "rule": {
+        "first_rtol": QS_FIRST_RTOL, "rtol": QS_RTOL,
+        "first_acc": QS_FIRST_ACC, "acc": QS_ACC}}
+    for label, rec in card.items():
+        readings = qs_readings(rec["history"], cpu[label].history)
+        accs = " ".join(f"{h['eval/acc']:.3f}" for h in rec["history"])
+        cpu_accs = " ".join(f"{h['eval/acc']:.3f}"
+                            for h in cpu[label].history)
+        print(f"quickstart {label} [{CARD}]: acc by epoch {accs} (CPU "
+              f"{cpu_accs}); best eval/acc {rec['best_acc']:.3f}; loss/total "
+              + ", ".join(f"{h['loss/total']:.6g}" for h in rec["history"])
+              + f"; {rec['steps']} steps in {rec['seconds']:.2f}s, "
+              f"{rec['ms_per_step']:.3f} ms/step (host clock, epochs 2-"
+              f"{len(rec['history'])}); launches {rec['counts']}; card vs "
+              f"CPU by epoch (Δloss rel, Δacc): "
+              + ", ".join(f"({a:.2e}, {b:.3f})" for a, b in readings))
+        check(not qs_breaks(readings, "first")
+              and not qs_breaks(readings, "later"),
+              f"quickstart {label}: the card is farther from the CPU than "
+              f"the rule allows (epoch 1: {QS_FIRST_RTOL:g} / "
+              f"{QS_FIRST_ACC:g}; later: {QS_RTOL:g} / {QS_ACC:g}): "
+              f"{readings}")
+        rec["readings"] = readings
+        rec["cpu_best_acc"] = cpu[label].best("eval/acc")
+        out[label] = {k: rec[k] for k in (
+            "best_acc", "cpu_best_acc", "seconds", "ms_per_step", "steps",
+            "readings")}
+        out[label]["acc"] = [h["eval/acc"] for h in rec["history"]]
+    for name, (history, when) in planted.items():
+        readings = qs_readings(history, cpu["ssl"].history)
+        print(f"quickstart planted fault {name} on the card's SSL run: card "
+              f"vs CPU by epoch (Δloss rel, Δacc): "
+              + ", ".join(f"({a:.2e}, {b:.3f})" for a, b in readings)
+              + f"; breaks the {when} epoch's limits: "
+              f"{qs_breaks(readings, when)}")
+        check(qs_breaks(readings, when), f"quickstart: the planted fault "
+              f"{name} keeps within the {when} epoch's limits")
+        out.setdefault("planted", {})[name] = readings
+    gap = card["ssl"]["best_acc"] - card["supervised"]["best_acc"]
+    out["gap"] = gap
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"quickstart [{CARD}]: best eval/acc SSL "
+          f"{card['ssl']['best_acc']:.3f}, supervised "
+          f"{card['supervised']['best_acc']:.3f}, SSL − supervised "
+          f"{gap:+.3f} (CPU {cpu['ssl'].best('eval/acc') - cpu['supervised'].best('eval/acc'):+.3f}); "
+          f"phase {out['phase_s']:.1f}s")
+    return out
+
 #: K11 against its plain version on the same key tiles: float32 within the
 #: reference test's atol; bfloat16 within one bf16 ulp of the output's
 #: scale, |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the output
@@ -2074,6 +2296,14 @@ def flash_attention_build_report() -> dict:
 #: 64 query heads on 8 KV heads of 128): their prefill's shape, B 4 × T
 #: 2048, bf16 on the tensor-core route.
 LLAMA_ATTN = (4, 2048, 64, 8, 128)
+#: K11 at the head layouts of the four configurations served whole by
+#: ``family_serve_phase``: their prefill's shape (B 4 × T 2048, H query
+#: heads on KV heads of hd), bf16 on the tensor-core route.  Groups H / KV
+#: 1 (MHA at hd 64), 3 and 8.
+LAYOUT_ATTN = {"qwen1.5-0.5b": (4, 2048, 16, 16, 64),
+               "musicgen-large": (4, 2048, 32, 32, 64),
+               "phi4-mini-3.8b": (4, 2048, 24, 8, 128),
+               "yi-9b": (4, 2048, 32, 4, 128)}
 
 
 def fa_smem(hd: int) -> int:
@@ -2093,8 +2323,10 @@ def fa_smem(hd: int) -> int:
 def flash_attention_phase() -> dict:
     """K11 at the serve path's prefill shape in bf16 (the path's dtype,
     tensor-core route) and f32 (FMA route), at a ragged T, with Tq < Tk,
-    and at llama-3.2-vision's and jamba's prefill shape (:data:`LLAMA_ATTN`,
-    64 query heads on 8 KV heads); returns the records by case."""
+    at llama-3.2-vision's and jamba's prefill shape (:data:`LLAMA_ATTN`,
+    64 query heads on 8 KV heads) and at the prefill shapes of
+    :data:`LAYOUT_ATTN` (groups 1, 3 and 8; each on the tensor-core
+    route); returns the records by case (the last by arch)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2103,12 +2335,14 @@ def flash_attention_phase() -> dict:
     B, T, H, KV, hd = 4, 2048, 12, 2, 128
     gen = torch.Generator(device="cuda").manual_seed(11)
     records = {}
-    for label, Tq, Tk, H, KV, dtype in (
-            ("path bf16", T, T, H, KV, torch.bfloat16),
-            ("path f32", T, T, H, KV, torch.float32),
-            ("ragged bf16", 1000, 1000, H, KV, torch.bfloat16),
-            ("Tq<Tk bf16", 512, T, H, KV, torch.bfloat16),
-            ("llama/jamba bf16", T, T) + LLAMA_ATTN[2:4] + (torch.bfloat16,)):
+    for label, Tq, Tk, H, KV, hd, dtype in (
+            ("path bf16", T, T, H, KV, hd, torch.bfloat16),
+            ("path f32", T, T, H, KV, hd, torch.float32),
+            ("ragged bf16", 1000, 1000, H, KV, hd, torch.bfloat16),
+            ("Tq<Tk bf16", 512, T, H, KV, hd, torch.bfloat16),
+            ("llama/jamba bf16", T, T) + LLAMA_ATTN[2:] + (torch.bfloat16,),
+            *((arch, t, t, h, kv, d, torch.bfloat16)
+              for arch, (_, t, h, kv, d) in LAYOUT_ATTN.items())):
         q, k, v = (torch.randn(B, t, h, hd, generator=gen, device="cuda")
                    .to(dtype) for t, h in ((Tq, H), (Tk, KV), (Tk, KV)))
         route, bk = fa.route(dtype, hd), fa.block_k(dtype, hd)
@@ -2163,7 +2397,8 @@ def flash_attention_phase() -> dict:
             flops, rate)
         rec["tflop_per_s"] = flops / (rec["ms"] * 1e-3) / 1e12
         rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
-        print(f"{where}: {rec['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+        print(f"{where} [{CARD}]: {rec['ms']:.4f} ms; plain "
+              f"{rec['plain_ms']:.4f} ms; "
               f"SDPA {rec['library_ms']} ms (rounds {rec['rounds']}); bound "
               f"{rec['bound'][0]:.5f}"
               f" ms ({rec['bound'][1]}); {rec['tflop_per_s']:.1f} TFLOP/s, "
@@ -2172,6 +2407,10 @@ def flash_attention_phase() -> dict:
     path = records["path bf16"]
     check(path["kernel_route"] == "wgmma",
           f"the path's K11 runs the {path['kernel_route']} route")
+    for arch in LAYOUT_ATTN:
+        check(records[arch]["kernel_route"] == "wgmma",
+              f"K11 at {arch}'s layout runs the "
+              f"{records[arch]['kernel_route']} route")
     print(f"flash_attention [path bf16]: {path['ms'] / path['library_ms']:.3f}"
           f"× SDPA's time in the same call")
     return records
@@ -2250,6 +2489,11 @@ def serve_parity_phase() -> None:
           + f"; {flips} greedy tokens differ (near ties only)")
 
 
+#: The architecture ``serve_phase`` serves at full width and depth (the
+#: others go through ``family_serve_phase``, :data:`FAMILY_CUTS`).
+SERVE_ARCH = "qwen2-1.5b"
+
+
 def serve_phase() -> dict:
     """The full model through ``serve_lm``'s functions: prefill (K11 exactly
     n_layers times, nothing else), then greedy decode (no kernel)."""
@@ -2259,7 +2503,7 @@ def serve_phase() -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.serve import serve_lm
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(SERVE_ARCH)
     B, T, steps = 4, 2048, 32
     cuda = torch.device("cuda")
     torch.cuda.synchronize()
@@ -2332,14 +2576,20 @@ def serve_phase() -> dict:
 #: and K2 (qwen2-1.5b's V at k 1 and 2, a ragged B, the SSL heads of
 #: ``family_train_phase``: mixtral's V 32000 and xlstm-125m's 50304,
 #: gpt-2's V 50257, a whole number neither of 128-class slabs nor of
-#: 4-class copies, and that of ``launch_phase``'s ``--smoke``: B 4 over
-#: every reduced config's V of 512), and the steps of the full model.
+#: 4-class copies, that of ``launch_phase``'s ``--smoke``: B 4 over
+#: every reduced config's V of 512, then the SSL heads of phi4-mini-3.8b
+#: (V 200064, the widest, its last class chunk ragged), yi-9b (64000) and
+#: musicgen-large (2048, near both routes' thresholds), and the V of
+#: kimi-k2, llama-3.2-vision and jamba, so that every configuration's V
+#: is held), and the steps of the full model.
 LM_GAMMA, LM_KAPPA = 0.05, 1e-4
 LM_RTOL = 1e-4
 LM_GRAD_TOL = 1e-3
 LM_HEAD_SHAPES = ((1, 16, 151936), (2, 16, 151936), (1, 17, 32000),
                   (1, 16, 32000), (1, 16, 50304), (1, 16, 50257),
-                  (1, 4, 512))
+                  (1, 4, 512), (1, 16, 200064), (1, 16, 64000),
+                  (1, 16, 2048), (1, 16, 163840), (1, 16, 128256),
+                  (1, 16, 65536))
 LM_STEPS, LM_SUPERVISED_STEPS = 6, 2
 #: The card's name and power limit (``nvidia-smi``), set by ``main`` and
 #: printed beside the LM phases' numbers.
@@ -2931,12 +3181,17 @@ FAMILY_CUTS = {
                              "one super-block, 8 of 72 layers; experts 16 -> "
                              "4 per MoE layer, top 2 kept"),
     "xlstm-125m": ({}, "nothing"),
+    "qwen1.5-0.5b": ({}, "nothing"),
+    "musicgen-large": ({}, "nothing"),
+    "phi4-mini-3.8b": ({}, "nothing"),
+    "yi-9b": ({}, "nothing"),
 }
 #: K11 launches a prefill of each cut makes: one a causal self-attention
 #: layer without a window (mixtral's are ATTN_SWA, xLSTM has none).
 FAMILY_K11 = {"mixtral-8x7b": 0, "kimi-k2-1t-a32b": 2,
               "llama-3.2-vision-90b": 4, "jamba-1.5-large-398b": 1,
-              "xlstm-125m": 0}
+              "xlstm-125m": 0, "qwen1.5-0.5b": 24, "musicgen-large": 48,
+              "phi4-mini-3.8b": 32, "yi-9b": 48}
 
 
 @contextlib.contextmanager
@@ -3172,10 +3427,13 @@ def family_parity_phase() -> None:
     print(f"family parity: {time.perf_counter() - t0:.1f}s")
 
 
-#: LM training of two families at the example's 16 × 128 tokens a step
-#: (meta-batches of 8 with a sampled neighbour): mixtral at full width, 2
-#: layers, and xlstm-125m whole.
-FAMILY_TRAIN = {"mixtral-8x7b": {"n_layers": 2}, "xlstm-125m": {}}
+#: LM training of six families at the example's 16 × 128 tokens a step
+#: (meta-batches of 8 with a sampled neighbour): mixtral, musicgen-large,
+#: phi4-mini-3.8b and yi-9b at full width, 2 layers; xlstm-125m and
+#: qwen1.5-0.5b whole.
+FAMILY_TRAIN = {"mixtral-8x7b": {"n_layers": 2}, "xlstm-125m": {},
+                "qwen1.5-0.5b": {}, "musicgen-large": {"n_layers": 2},
+                "phi4-mini-3.8b": {"n_layers": 2}, "yi-9b": {"n_layers": 2}}
 FAMILY_TRAIN_STEPS, FAMILY_SEQ_LEN, FAMILY_BATCH = 2, 128, 8
 
 
@@ -4520,6 +4778,7 @@ def main() -> int:
     guard_overhead_phase(exp)
     print_step("main path", profile_step(exp, trace=False))
     print_step("block-sparse main path", profile_step(exp_bsp, trace=False))
+    quick = quickstart_phase()
 
     attn = flash_attention_phase()
     records["flash_attention"] = attn["path bf16"]
@@ -4552,6 +4811,13 @@ def main() -> int:
           f"{attn112['ms'] * kimi['k11_launches']:.3f} ms of the "
           f"{kimi['prefill_ms']:.3f} ms prefill (kernel phase time × "
           f"launches)")
+    for arch in LAYOUT_ATTN:
+        rec = served[arch]
+        print(f"serve prefill {arch} [{CARD}]: K11 {attn[arch]['ms']:.4f} ms "
+              f"× {rec['k11_launches']} launches = "
+              f"{attn[arch]['ms'] * rec['k11_launches']:.3f} ms of the "
+              f"{rec['prefill_ms']:.3f} ms prefill (kernel phase time × "
+              f"launches)")
     trained = {arch: family_train_phase(arch) for arch in FAMILY_TRAIN}
     print(f"the LM stack's families (K11 at hd 112, parity, serve, "
           f"training): {time.perf_counter() - t_families:.1f}s")
@@ -4685,6 +4951,18 @@ def main() -> int:
         **({"against": {"dir": str(args.against),
                         **against["flash_attention_hd112"]}}
            if against else {})})
+    kernels[[e["name"] for e in kernels].index("flash_attention")][
+        "head_layouts"] = {arch: {
+            "shape": dict(zip(("B", "T", "H", "KV", "hd"),
+                              LAYOUT_ATTN[arch])),
+            "path": f"serve_prefill {arch}",
+            "launches": served[arch]["k11_launches"],
+            **{key: attn[arch][key] for key in (
+                "max_abs_err", "tol", "err_over_tol", "ms", "plain_ms",
+                "library_ms", "rounds", "kernel_route", "tflop_per_s",
+                "share_of_bound")},
+            "bound_ms": attn[arch]["bound"][0],
+            "bound_by": attn[arch]["bound"][1]} for arch in LAYOUT_ATTN}
     for entry in kernels:
         entry["launch_model"] = launch_model_of(entry["name"],
                                                 analysis["models"])
@@ -4692,6 +4970,9 @@ def main() -> int:
             entry["lm_train_families"] = {
                 arch: rec["counts"][entry["name"]]
                 for arch, rec in trained.items()}
+            entry["quickstart"] = {
+                label: quick[label]["steps"]
+                for label in ("ssl", "supervised")}
             entry["launch_smoke"] = {
                 arch: rec["launches"].get(entry["name"], 0)
                 for arch, rec in launch["smoke"].items()}

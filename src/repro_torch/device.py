@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "card_label"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -35,3 +35,24 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+
+
+def card_label(device: str | torch.device = "cuda") -> str:
+    """What a measurement on ``device`` is labelled with: the name and
+    power limit of the card at its index (the current device's when it
+    has none) as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them, the torch name where
+    ``nvidia-smi`` cannot be run; ``"cpu"`` on the CPU."""
+    import subprocess
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    return out or f"{torch.cuda.get_device_name(index)}, power limit not read"

@@ -57,10 +57,15 @@ def _bf16_close(got, want):
                          [(2, 64, 4, 2, 32, 16, 16),
                           (1, 100, 4, 4, 16, 32, 32),
                           (2, 48, 8, 2, 64, 16, 8),
-                          (1, 100, 12, 2, 128, 64, 64)])
+                          (1, 100, 12, 2, 128, 64, 64),
+                          (1, 100, 4, 4, 64, 32, 32),
+                          (2, 70, 6, 2, 128, 32, 64)])
 def test_matches_pallas_gqa_kernel(B, T, H, KV, hd, bq, bk):
-    """The three shapes of the reference's kernel test, and a ragged T=100
-    at qwen2's head layout (12 query heads on 2 KV heads, hd 128)."""
+    """The three shapes of the reference's kernel test, a ragged T=100
+    at qwen2's head layout (12 query heads on 2 KV heads, hd 128), and
+    the groups of the four configurations served whole: H/KV 1 at hd 64
+    (qwen1.5-0.5b, musicgen-large) and 3 at hd 128 (phi4-mini-3.8b),
+    ragged T."""
     q, k, v = _qkv(B, T, H, KV, hd)
     want = np.asarray(flash_attention_gqa_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, bq=bq,
@@ -101,10 +106,14 @@ def test_matches_reference_attention(causal, Tq, Tk):
 
 @pytest.mark.parametrize("B,T,H,KV,hd", [(2, 64, 4, 2, 32),
                                          (1, 130, 12, 2, 128),
-                                         (2, 200, 8, 2, 64)])
+                                         (2, 200, 8, 2, 64),
+                                         (1, 130, 4, 4, 64),
+                                         (1, 200, 6, 2, 128)])
 def test_bf16_matches_pallas_kernel_on_the_same_tiles(B, T, H, KV, hd):
     """Both routes' key tiles: 64 keys (FMA route, hd 32) and 128 keys
-    (tensor-core route, hd 64 and 128) in the Pallas kernel too."""
+    (tensor-core route, hd 64 and 128) in the Pallas kernel too; groups
+    H/KV 1 at hd 64 and 3 at hd 128, ragged T (the tensor-core route's
+    new head layouts on the card)."""
     q, k, v = _qkv(B, T, H, KV, hd, seed=1)
     bk = fa.block_k(torch.bfloat16, hd)
     assert bk == (128 if hd >= 64 else 64)

@@ -294,9 +294,17 @@ def test_fwd_plan_keeps_the_row_plan_at_the_papers_shapes(shape):
 
 # Every LM head of chip_smoke.LM_HEAD_SHAPES (qwen2-1.5b's V at k 1 and
 # 2, a ragged B, the SSL heads of mixtral and xlstm-125m, gpt-2's ragged
-# V 50257, the smoke's B 4 over V 512) and a wide B that takes row tiles:
-# (class chunk, chunks, class groups) on 132 SMs.
-CLASS_PLANS = {(1, 16, 151936): (1024, 149, 16),
+# V 50257, the smoke's B 4 over V 512, phi4-mini-3.8b's V 200064 with a
+# ragged last chunk, yi-9b's 64000, musicgen-large's 2048, kimi-k2's
+# 163840, llama-3.2-vision's 128256 and jamba's 65536) and a wide B that
+# takes row tiles: (class chunk, chunks, class groups) on 132 SMs.
+CLASS_PLANS = {(1, 16, 200064): (1408, 143, 16),
+               (1, 16, 64000): (384, 167, 16),
+               (1, 16, 2048): (128, 16, 16),
+               (1, 16, 163840): (1152, 143, 16),
+               (1, 16, 128256): (896, 144, 16),
+               (1, 16, 65536): (384, 171, 16),
+               (1, 16, 151936): (1024, 149, 16),
                (2, 16, 151936): (2176, 70, 16),
                (1, 17, 32000): (128, 250, 8),
                (1, 16, 32000): (128, 250, 16),
@@ -394,7 +402,13 @@ def test_dlogp_plan_keeps_the_row_route_at_the_papers_shapes(shape):
 # Every LM head (chip_smoke.LM_HEAD_SHAPES) and ragged narrow shapes on
 # K2's class route: (class span, tile classes, threads, blocks) on 132
 # SMs.
-DLOGP_CLASS_PLANS = {(1, 16, 151936): (576, 256, 256, 264),
+DLOGP_CLASS_PLANS = {(1, 16, 200064): (760, 256, 256, 264),
+                     (1, 16, 64000): (244, 244, 256, 263),
+                     (1, 16, 2048): (128, 128, 128, 16),
+                     (1, 16, 163840): (624, 256, 256, 263),
+                     (1, 16, 128256): (488, 256, 256, 263),
+                     (1, 16, 65536): (252, 252, 256, 261),
+                     (1, 16, 151936): (576, 256, 256, 264),
                      (2, 16, 151936): (1152, 256, 256, 264),
                      (1, 17, 32000): (128, 128, 160, 250),
                      (1, 16, 32000): (128, 128, 128, 250),
@@ -558,6 +572,30 @@ def test_class_split_order_within_k1_lm_rule_of_float64():
           f"{tol_cs:.3e}, err/tol {err / tol_cs:.4f}")
     assert err <= tol
     assert err <= tol_cs
+
+
+@pytest.mark.parametrize("shape,chain", [((1, 16, 200064), 261),
+                                         ((1, 16, 64000), 221),
+                                         ((1, 16, 2048), 54)])
+def test_class_split_order_within_k1_lm_rule_at_the_new_heads(shape, chain):
+    """The SSL heads of phi4-mini-3.8b (V 200064: 143 chunks of 1,408
+    classes, the last ragged), yi-9b (64000) and musicgen-large (2048: 16
+    chunks of one slab) in the class-split plan's order, against float64:
+    within K1_LM_RULE (n = C) and K1_CS_RULE (n = the plan's longest
+    chain), as chip_smoke.lm_kernel_phase holds the card's kernel."""
+    k, B, C = shape
+    gamma, kappa = 0.05, 1e-4
+    logp, W = _lm_problem(k, B, C, seed=B + k)
+    plan = gr.fwd_plan(k, B, C, n_sm=132)
+    assert gr.class_split_chain(B, plan) == chain
+    got = class_split_forward(logp, W, gamma, kappa, gamma, plan)
+    lp64, W64 = torch.from_numpy(logp).double(), torch.from_numpy(W).double()
+    want = ref.reg_forward_ref(lp64, W64, gamma, kappa, gamma).numpy()
+    M = np.abs(ref.reg_forward_ref(lp64, W64, gamma, -kappa, -gamma)
+               .numpy()).max()
+    err = np.abs(got.astype(np.float64) - want).max()
+    assert err <= 4.0 * C ** 0.5 * 2.0 ** -24 * M
+    assert err <= 4.0 * chain ** 0.5 * 2.0 ** -24 * M
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 4096), (2, 17, 1001),

@@ -820,15 +820,19 @@ def _attn_inputs(B, Tq, H, KV, hd, Tk=None, dtype=torch.float32, seed=0):
                           (12, 256, 256, 12, 2, 128, True),
                           (2, 200, 200, 8, 1, 112, True),
                           (1, 40, 130, 16, 2, 112, True),
-                          (1, 100, 300, 8, 2, 112, False)])
+                          (1, 100, 300, 8, 2, 112, False),
+                          (2, 130, 130, 4, 4, 64, True),
+                          (1, 70, 200, 6, 2, 128, True),
+                          (1, 300, 300, 6, 2, 128, False)])
 def test_flash_attention_matches_plain_version(cuda, dtype, B, Tq, Tk, H,
                                                KV, hd, causal):
     """bfloat16 at hd 64, 112 (kimi-k2's, in the tile of hd 128) and 128
     runs the tensor-core route: ragged Tq = Tk (130, 200, 1000), Tq < Tk
     (40 against 100 or 130; 512 against 2048, the kernel phase's case),
-    non-causal with a ragged Tk, and B·H = 144 (more blocks a query row
-    than the card's 132 SMs); float32 runs the FMA route at every head
-    dim."""
+    non-causal with a ragged Tk, B·H = 144 (more blocks a query row
+    than the card's 132 SMs), and the groups of qwen1.5-0.5b and
+    musicgen-large (H/KV 1 at hd 64) and phi4-mini-3.8b (3 at hd 128);
+    float32 runs the FMA route at every head dim."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Tq, H, KV, hd, Tk, dtype))
     a = fa.flash_attention_gqa(q, k, v, causal=causal)
     b = fa.flash_attention_gqa(q, k, v, causal=causal)
