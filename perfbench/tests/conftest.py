@@ -1,0 +1,9 @@
+"""Import path of the benchmark's CPU tests: the checkout's root and its
+``src``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
