@@ -1,10 +1,8 @@
 """Measurements of the port on the GPU: the paper's configuration, kernel
-timing from CUDA graphs and with CUDA events, a profiled training step and
-a profiled serve.
+timing from CUDA graphs and with CUDA events, and profiled training steps.
 
     PYTHONPATH=src python -m repro_torch.bench [--steps 5] [--out DIR]
                                                [--layout-bt 128]
-    PYTHONPATH=src python -m repro_torch.bench --serve [--steps 4]
     PYTHONPATH=src python -m repro_torch.bench --lm [--steps 2]
 
 builds the paper's configuration (4×2000 DNN, 351→39, batch 1024, 20k
@@ -15,12 +13,10 @@ one JSON line with the device time per step by kernel group (dense
 matmuls, the graph-regularizer kernels, everything else), the device's
 busy share of the profiled window, and the host's batch-assembly and
 staging times; the full kernel table goes to ``DIR/step_profile.txt``
-(``step_profile_bt<N>.txt`` with a layout).  ``--serve`` profiles the LM
-serve path instead (:func:`profile_serve`: ``qwen2-1.5b`` at full width,
-batch 4, prompt 2048): one prefill and ``--steps`` greedy decode steps,
-device time by group (matmuls, K11, everything else), the device's busy
-share of each window, and the peak device memory of each; the kernel
-table goes to ``DIR/serve_profile.txt``.  ``--lm`` profiles ``--steps``
+(``step_profile_bt<N>.txt`` with a layout).  The serve path has its own
+record: ``python -m repro_torch.serve.serve_lm --spans PATH`` (the
+program's spans, host and device time by span) and the benchmark's
+traced runs (``perfbench/``).  ``--lm`` profiles ``--steps``
 steps of the LM training path after a warm-up one
 (:func:`profile_lm_train`: ``qwen2-1.5b`` at full width and depth, 16
 sequences of 4,096 tokens a step, the sequence-level SSL term on K1/K2):
@@ -40,7 +36,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["paper_config", "lm_train_setup", "time_ms", "graph_ms",
-           "profile_step", "profile_serve", "profile_lm_train"]
+           "profile_step", "profile_lm_train"]
 
 #: Names of this package's kernels in a profiler trace: K1–K3 and the
 #: block-sparse K4–K7, with the second pass of K1 and K4, the two passes
@@ -218,7 +214,7 @@ def profile_step(exp, steps: int = 5, out: Path | None = None, *,
             step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups, rows = _device_rows(prof, steps, "graph_reg_kernels")
+    groups, rows = _device_rows(prof, steps)
     busy = sum(groups.values())
     result.update(profiled_wall_ms_per_step=wall_ms / steps,
                   device_ms_per_step=groups,
@@ -239,11 +235,11 @@ def profile_step(exp, steps: int = 5, out: Path | None = None, *,
     return result
 
 
-def _device_rows(prof, per: int, kernels: str) -> tuple[dict, list]:
-    """Device ms by group (matmuls, the ``kernels`` group of this package's
-    kernels, everything else) and the kernel table of a profile, each per
-    ``per`` (steps or tokens)."""
-    groups = {"matmul": 0.0, kernels: 0.0, "other": 0.0}
+def _device_rows(prof, per: int) -> tuple[dict, list]:
+    """Device ms by group (matmuls, this package's regularizer kernels,
+    everything else) and the kernel table of a profile, each per ``per``
+    steps."""
+    groups = {"matmul": 0.0, "graph_reg_kernels": 0.0, "other": 0.0}
     rows = []
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
@@ -255,69 +251,6 @@ def _device_rows(prof, per: int, kernels: str) -> tuple[dict, list]:
         rows.append((dev_us / 1e3 / per, evt.count / per, evt.key))
     rows.sort(reverse=True)
     return groups, rows
-
-
-def profile_serve(arch: str = "qwen2-1.5b", batch: int = 4,
-                  prompt_len: int = 2048, steps: int = 4,
-                  out: Path | None = None) -> dict:
-    """Profile one prefill and ``steps`` greedy decode steps of ``arch`` at
-    full width (weights from seed 0) after one warm-up of each, through
-    ``serve_lm``'s functions."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.device import resolve_device
-    from repro_torch.serve import serve_lm
-
-    dev = resolve_device("cuda")
-    cfg = get_config(arch)
-    params = serve_lm.load_model(cfg, seed=0, device=dev)
-    prompts = serve_lm.make_prompts(cfg, batch, prompt_len, seed=0,
-                                    device=dev)
-    weights_gb = torch.cuda.memory_allocated() / 1e9
-    result = {"device": torch.cuda.get_device_name(0), "arch": arch,
-              "batch": batch, "prompt_len": prompt_len,
-              "weights_gb": weights_gb}
-    tables = {}
-    cache = None
-    for phase in ("prefill", "decode"):
-        def run():
-            if phase == "prefill":
-                return serve_lm.prefill(params, cfg, prompts, steps)[1]
-            return serve_lm.decode(params, cfg, cache, prompts, steps,
-                                   temperature=0.0)[1]
-        cache = run()          # warm-up; the decode rewrites the same slots
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cache = run()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        per = 1 if phase == "prefill" else steps
-        groups, rows = _device_rows(prof, per, "flash_attention")
-        busy = sum(groups.values())
-        result[phase] = {
-            "wall_ms" if per == 1 else "wall_ms_per_token": wall_ms / per,
-            "device_ms": groups, "device_busy_share": busy / (wall_ms / per),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        tables[phase] = rows
-    if out is not None:
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / "serve_profile.txt", "w") as fh:
-            fh.write(json.dumps(result) + "\n")
-            for phase, rows in tables.items():
-                unit = "ms" if phase == "prefill" else "ms/token"
-                fh.write(f"--- {phase} ({unit}, calls)\n")
-                for ms, calls, name in rows:
-                    fh.write(f"{ms:10.4f} {calls:8.1f}  {name}\n")
-    for phase, rows in tables.items():
-        print(f"top {phase} kernels (device ms, calls"
-              f"{' per token' if phase == 'decode' else ''}):")
-        for ms, calls, name in rows[:10]:
-            print(f"  {ms:9.4f}  {calls:6.1f}  {name[:110]}")
-    return result
 
 
 def profile_lm_train(steps: int = 2, out: Path | None = None) -> dict:
@@ -350,7 +283,7 @@ def profile_lm_train(steps: int = 2, out: Path | None = None) -> dict:
             step(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups, rows = _device_rows(prof, steps, "graph_reg_kernels")
+    groups, rows = _device_rows(prof, steps)
     busy = sum(groups.values())
     result = {"device": torch.cuda.get_device_name(0), **LM_TRAIN,
               "sequences_per_step": 2 * LM_TRAIN["batch"],
@@ -376,14 +309,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out"))
     ap.add_argument("--layout-bt", type=int, default=None)
-    ap.add_argument("--serve", action="store_true",
-                    help="profile the LM serve path instead")
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM training path instead")
     args = ap.parse_args(argv)
-    if args.serve:
-        print(json.dumps(profile_serve(steps=args.steps, out=args.out)))
-        return
     if args.lm:
         print(json.dumps(profile_lm_train(steps=args.steps, out=args.out)))
         return

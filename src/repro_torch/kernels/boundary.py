@@ -11,36 +11,33 @@ holds the launch.  :mod:`repro_torch.kernels.ref` called directly (the
 ``graph_reg_ref`` canary entry) stays outside.
 
 The state is per thread: the ops a wrapper runs run on the thread that
-entered it.
+entered it.  It is :mod:`repro_torch.spans`'s per-thread state, whose
+stack of open spans sits beside this stack of boundaries: while the
+thread records spans, :func:`bounded` also opens a ``kernel.<name>``
+span with a device interval.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import threading
+
+from .. import spans
 
 __all__ = ["boundary", "bounded", "current"]
 
-_STATE = threading.local()
-
-
-def _stack() -> list:
-    stack = getattr(_STATE, "stack", None)
-    if stack is None:
-        stack = _STATE.stack = []
-    return stack
+_STATE = spans._STATE
 
 
 def current() -> str | None:
     """The innermost open kernel boundary on this thread, else None."""
-    stack = getattr(_STATE, "stack", None)
+    stack = _STATE.stack
     return stack[-1] if stack else None
 
 
 @contextlib.contextmanager
 def boundary(name: str):
     """Mark the ops run inside as kernel ``name``'s."""
-    stack = _stack()
+    stack = _STATE.stack
     stack.append(name)
     try:
         yield
@@ -51,15 +48,21 @@ def boundary(name: str):
 def bounded(name: str):
     """Decorator: run the wrapper inside kernel ``name``'s boundary (a
     push and a pop of this thread's list, no context manager: the
-    wrappers run it on every call)."""
+    wrappers run it on every call), and inside a ``kernel.<name>`` span
+    while the thread records."""
+    label = "kernel." + name
+
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            stack = _stack()
-            stack.append(name)
+            st = _STATE
+            st.stack.append(name)
             try:
+                if st.on:
+                    with spans.span(label, device=True):
+                        return fn(*args, **kwargs)
                 return fn(*args, **kwargs)
             finally:
-                stack.pop()
+                st.stack.pop()
         return wrapper
     return deco

@@ -33,6 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ... import spans
 from ...kernels import ops
 from ...kernels.ref import NEG_INF, scale_queries
 from .common import apply_rope, variance_scaling
@@ -370,9 +371,11 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *,
     p % window as :meth:`KVCache.update` places it.  Every other call runs
     :func:`chunked_attention`, which has a backward."""
     B, T = x.shape[:2]
-    q, k, v = qkv_proj(p, x)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    with spans.span("attn.qkv"):
+        q, k, v = qkv_proj(p, x)
+    with spans.span("attn.rope", device=True):
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     pos1d = positions[0]
     if return_kv and window is None:
         o = ops.flash_attention_gqa(q, k, v, causal=causal)
@@ -381,27 +384,29 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *,
                               torch.ones_like(pos1d, dtype=torch.bool),
                               causal=causal, window=window,
                               sequential_positions=True)
-    out = out_proj(p, o)
+    with spans.span("attn.out"):
+        out = out_proj(p, o)
     if not return_kv:
         return out
-    posB = pos1d[None].expand(B, T).to(torch.int32).contiguous()
-    valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
-    if window is None:
-        cache = KVCache(k=k, v=v, positions=posB, valid=valid)
-    elif T <= window:
-        # A ring cache is exactly `window` slots; slot p % window == p here.
-        pad = window - T
-        cache = KVCache(k=F.pad(k, (0, 0, 0, 0, 0, pad)),
-                        v=F.pad(v, (0, 0, 0, 0, 0, pad)),
-                        positions=F.pad(posB, (0, pad)),
-                        valid=F.pad(valid, (0, pad)))
-    else:
-        # The last `window` tokens, at slot (position % window): slot s
-        # holds source index T - window + (s - T) % window.
-        s = torch.arange(window, device=x.device)
-        src = T - window + (s - T) % window
-        cache = KVCache(k=k[:, src], v=v[:, src], positions=posB[:, src],
-                        valid=valid[:, :window])
+    with spans.span("attn.cache"):
+        posB = pos1d[None].expand(B, T).to(torch.int32).contiguous()
+        valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
+        if window is None:
+            cache = KVCache(k=k, v=v, positions=posB, valid=valid)
+        elif T <= window:
+            # A ring cache is exactly `window` slots; slot p % window == p.
+            pad = window - T
+            cache = KVCache(k=F.pad(k, (0, 0, 0, 0, 0, pad)),
+                            v=F.pad(v, (0, 0, 0, 0, 0, pad)),
+                            positions=F.pad(posB, (0, pad)),
+                            valid=F.pad(valid, (0, pad)))
+        else:
+            # The last `window` tokens, at slot (position % window): slot s
+            # holds source index T - window + (s - T) % window.
+            s = torch.arange(window, device=x.device)
+            src = T - window + (s - T) % window
+            cache = KVCache(k=k[:, src], v=v[:, src], positions=posB[:, src],
+                            valid=valid[:, :window])
     return out, cache
 
 

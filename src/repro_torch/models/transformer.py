@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import spans
 from .config import ATTN, ATTN_SWA, MAMBA, MLSTM, SLSTM, XATTN, ModelConfig
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
@@ -206,7 +207,8 @@ def _apply_mixer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  return_state: bool = False):
     """The mixer of one layer on norm1(x); with ``return_state`` (the
     prefill) also its decode cache or state."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
+    with spans.span("attn.norm", device=True):
+        h = apply_norm(p["norm1"], x, cfg.norm)
     if kind in (ATTN, ATTN_SWA):
         return attn_lib.attention_block(p["attn"], h, positions,
                                         theta=cfg.rope_theta,
@@ -238,13 +240,15 @@ def _apply_ffn(p, cfg: ModelConfig,
                x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Post-mixer FFN (dense or MoE) of a layer that has one -> (out, the
     MoE load-balance loss or None)."""
-    h = apply_norm(p["norm2"], x, cfg.norm)
+    with spans.span("ffn.norm", device=True):
+        h = apply_norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
         return moe_lib.apply_moe(p["moe"], h, top_k=cfg.top_k,
                                  capacity_factor=cfg.capacity_factor,
                                  activation=cfg.activation,
                                  dispatch_groups=cfg.moe_dispatch_groups)
-    return apply_mlp(p["mlp"], h, cfg.activation), None
+    with spans.span("ffn.mlp", device=True):
+        return apply_mlp(p["mlp"], h, cfg.activation), None
 
 
 def _superblock_fwd(block_params: list, cfg: ModelConfig, x: torch.Tensor,
@@ -338,16 +342,23 @@ def _stack(states: list):
 
 def _superblock_prefill(block_params: list, cfg: ModelConfig,
                         x: torch.Tensor, positions: torch.Tensor,
-                        mem: torch.Tensor | None, cache_len: int | None):
+                        mem: torch.Tensor | None, cache_len: int | None,
+                        layer0: int):
+    """-> (x, the block's caches); its first layer is decoder layer
+    ``layer0`` (the ``i`` of its ``layer`` span)."""
     caches = []
-    for p, kind in zip(block_params, cfg.block_pattern):
-        y, c = _apply_mixer(p, cfg, kind, x, positions, mem,
-                            return_state=True)
-        if kind == ATTN and cache_len is not None:
-            c = _pad_kv_cache(c, cache_len)
-        x = x + y
-        if "norm2" in p:
-            x = x + _apply_ffn(p, cfg, x)[0]
+    for j, (p, kind) in enumerate(zip(block_params, cfg.block_pattern)):
+        with spans.span("layer", i=layer0 + j):
+            with spans.span("attn"):
+                y, c = _apply_mixer(p, cfg, kind, x, positions, mem,
+                                    return_state=True)
+                if kind == ATTN and cache_len is not None:
+                    with spans.span("attn.cache"):
+                        c = _pad_kv_cache(c, cache_len)
+                x = x + y
+            if "norm2" in p:
+                with spans.span("ffn"):
+                    x = x + _apply_ffn(p, cfg, x)[0]
         caches.append(c)
     return x, caches
 
@@ -361,25 +372,40 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     to ``cache_len`` slots, ring caches of ATTN_SWA layers
     ``sliding_window`` slots laid out as incremental ``decode_step``
     updates would lay them out, XATTN layers the memory's k and v, Mamba
-    and xLSTM layers their states after the last token."""
+    and xLSTM layers their states after the last token.
+
+    The pass is a request of :mod:`repro_torch.spans` (``prefill``, with
+    a device interval): ``prefill.embed``, a ``layer`` span a decoder
+    layer (``attn``, ``ffn`` and their parts), ``prefill.cache_stack``
+    and ``prefill.head``."""
     check_supported(cfg)
     B, T = tokens.shape
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    mem = _memory(params, modality_embeds, x.dtype)
-    cache: dict[str, Any] = {}
-    if cfg.first_layer_dense:
-        x, cache["first"] = _superblock_prefill(
-            params["first_block"], cfg, x, positions, mem, cache_len)
-    per_position: list[list] = [[] for _ in cfg.block_pattern]
-    for i in range(_n_scan(cfg)):
-        x, caches = _superblock_prefill(_block(params, i), cfg, x, positions,
-                                        mem, cache_len)
-        for j, c in enumerate(caches):
-            per_position[j].append(c)
-    cache["layers"] = [_stack(c) for c in per_position]
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    return {"logits": x @ output_head(params, cfg)}, cache
+    n = len(cfg.block_pattern)
+    with spans.request("prefill", device=tokens.device, batch=B, tokens=T):
+        with spans.span("prefill.embed"):
+            x = embed(params["embed"], tokens)
+            positions = torch.arange(T, device=tokens.device)[None].expand(
+                B, T)
+            mem = _memory(params, modality_embeds, x.dtype)
+        cache: dict[str, Any] = {}
+        layer0 = 0
+        if cfg.first_layer_dense:
+            x, cache["first"] = _superblock_prefill(
+                params["first_block"], cfg, x, positions, mem, cache_len, 0)
+            layer0 = n
+        per_position: list[list] = [[] for _ in cfg.block_pattern]
+        for i in range(_n_scan(cfg)):
+            x, caches = _superblock_prefill(_block(params, i), cfg, x,
+                                            positions, mem, cache_len,
+                                            layer0 + i * n)
+            for j, c in enumerate(caches):
+                per_position[j].append(c)
+        with spans.span("prefill.cache_stack"):
+            cache["layers"] = [_stack(c) for c in per_position]
+        with spans.span("prefill.head"):
+            with spans.span("head.norm", device=True):
+                x = apply_norm(params["final_norm"], x, cfg.norm)
+            return {"logits": x @ output_head(params, cfg)}, cache
 
 
 # ==================================================================== decode

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..models import transformer as tf
 from ..models.config import ModelConfig
 
@@ -21,16 +22,19 @@ from ..models.config import ModelConfig
 def sample_tokens(logits: torch.Tensor,
                   generator: torch.Generator | None = None, *,
                   temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
-    """logits: (B, 1, V) -> (B, 1) int32 token ids."""
-    lg = logits[:, -1].float()
-    if temperature <= 0.0:
-        return torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
-    lg = lg / temperature
-    if top_k > 0:
-        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
-        lg = torch.where(lg < kth, -torch.inf, lg)
-    probs = torch.softmax(lg, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+    """logits: (B, 1, V) -> (B, 1) int32 token ids; a ``sample`` span of
+    the last request of :mod:`repro_torch.spans`."""
+    with spans.request("sample", new=False):
+        lg = logits[:, -1].float()
+        if temperature <= 0.0:
+            return torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+        lg = lg / temperature
+        if top_k > 0:
+            kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+            lg = torch.where(lg < kth, -torch.inf, lg)
+        probs = torch.softmax(lg, dim=-1)
+        return torch.multinomial(probs, 1,
+                                 generator=generator).to(torch.int32)
 
 
 def serve_step(params: dict, cfg: ModelConfig, cache: dict,

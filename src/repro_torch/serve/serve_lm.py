@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.serve.serve_lm
     PYTHONPATH=src python -m repro_torch.serve.serve_lm --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.serve.serve_lm --prompt-len 2048 \
+        --spans spans.json
 
 The port's counterpart of ``examples/serve_lm.py``.  It serves any
 architecture of :mod:`repro_torch.configs` (default ``qwen2-1.5b``) at its
@@ -17,19 +19,34 @@ reference demo does, against a cache of ``prompt_len + steps`` slots.
 Prints the parameter count of the drawn tree, the prefill's ms, the
 decode's ms per token and tokens per second.  ``--device`` defaults to
 ``cuda`` and fails without a GPU.
+
+``--spans PATH`` then serves :data:`SPAN_REQUESTS` more requests (the
+prefill and its greedy first token, copied to the host) after one that
+warms up, inside :func:`repro_torch.spans.recording` and with no
+profiler, so that the host's times are free of the profiler's cost;
+it writes their spans to PATH as JSON and prints, per span name, the
+median over the requests of its host self-time (its host time less its
+children's) and of its device time, in ms.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
 import time
+from pathlib import Path
 
 import torch
 
+from .. import spans
 from ..configs import ARCH_IDS, get_config
 from ..device import resolve_device
 from ..models import transformer as tf
 from ..models.config import ModelConfig
-from .decode import serve_step
+from .decode import sample_tokens, serve_step
+
+#: Requests that ``--spans`` records, after one that warms up.
+SPAN_REQUESTS = 8
 
 
 def load_model(cfg: ModelConfig, *, seed: int,
@@ -94,6 +111,61 @@ def decode(params: dict, cfg: ModelConfig, cache: dict,
     return torch.cat(toks, dim=1), cache
 
 
+def span_table(records: list[dict]) -> dict:
+    """span name -> {"host_ms", "host_self_ms", "device_ms", "count"}: per
+    request, the sums over the name's spans of their host time, of it less
+    their children's, and of their device intervals (0 without one), and
+    their number; the median of each over the requests."""
+    children: dict = {}
+    for r in records:
+        children[r["parent"]] = children.get(r["parent"], 0.0) + (
+            r["end"] - r["start"])
+    per: dict = {}
+    for r in records:
+        row = per.setdefault(r["name"], {}).setdefault(r["req"],
+                                                       [0.0, 0.0, 0.0, 0])
+        row[0] += r["end"] - r["start"]
+        row[1] += r["end"] - r["start"] - children.get(r["id"], 0.0)
+        if r["dev"]:
+            row[2] += r["dev"][1] - r["dev"][0]
+        row[3] += 1
+    keys = ("host_ms", "host_self_ms", "device_ms", "count")
+    return {name: {k: (1e3 if j < 3 else 1) * statistics.median(
+                       v[j] for v in reqs.values())
+                   for j, k in enumerate(keys)}
+            for name, reqs in per.items()}
+
+
+def record_spans(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
+                 steps: int, modality: torch.Tensor | None,
+                 path: Path) -> dict:
+    """Serve SPAN_REQUESTS requests after a warm-up one inside
+    ``spans.recording()``, write their spans to ``path`` and print the
+    :func:`span_table` of them -> that table."""
+    def request():
+        out, _ = prefill(params, cfg, prompts, steps, modality)
+        sample_tokens(out["logits"][:, -1:])[:, 0].cpu()
+
+    request()
+    spans.clear()
+    with spans.recording():
+        for _ in range(SPAN_REQUESTS):
+            request()
+    recs = spans.records()
+    spans.clear()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(recs))
+    table = span_table(recs)
+    print(f"spans of {SPAN_REQUESTS} requests (medians, ms): {path}")
+    print(f"  {'span':<24}{'count':>7}{'host':>10}{'host self':>11}"
+          f"{'device':>10}")
+    for name, row in sorted(table.items(), key=lambda kv:
+                            -kv[1]["host_self_ms"]):
+        print(f"  {name:<24}{row['count']:>7g}{row['host_ms']:>10.3f}"
+              f"{row['host_self_ms']:>11.3f}{row['device_ms']:>10.3f}")
+    return table
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -112,6 +184,10 @@ def main(argv: list[str] | None = None) -> dict:
                     help="serve the CPU-sized variant (ModelConfig.reduced)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--spans", type=Path, default=None, metavar="PATH",
+                    help="then record the program spans of "
+                    f"{SPAN_REQUESTS} requests into this JSON file and "
+                    "print host self-time and device time per span name")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -152,6 +228,9 @@ def main(argv: list[str] | None = None) -> dict:
               f"{torch.cuda.get_device_name(device)}")
     for b in range(args.batch):
         print(f"  seq{b}: {out[b].tolist()}")
+    if args.spans is not None:
+        stats["spans"] = record_spans(params, cfg, prompts, args.steps,
+                                      modality, args.spans)
     return stats
 
 

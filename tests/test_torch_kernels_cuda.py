@@ -1027,3 +1027,73 @@ def test_full_width_lm_loss_on_the_card_matches_cpu(cuda):
         b = b.numpy()
         np.testing.assert_allclose(a.cpu().numpy(), b, rtol=0,
                                    atol=1e-3 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_prefill_spans_hold_to_the_profilers_clock(cuda):
+    """qwen2-1.5b at full width, 4 layers, bf16, 4 × 2,048 tokens, two
+    prefills under the benchmark's CUDA-only profiler: the profiler check
+    reads True and each prefill records its spans.  On the second (the
+    first holds the profiler's start): every kernel runs inside the host
+    clock's ``prefill`` span, from its start to the host's sight of the
+    device's end (kernels run after their launch), within 0.5 ms of the
+    profiler's clock against the host's; and the request's device
+    intervals, carried onto the profiler's clock (which drifts from the
+    host's) by the line through K11's ends against their intervals' ends,
+    hold each K11 kernel in exactly one ``kernel.flash_attention``
+    interval, its end within 10 µs of the line, as many as the layers and
+    as K11's launches (the count the benchmark's ``k11_launches``
+    takes)."""
+    import dataclasses
+    import statistics
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
+    params = tf.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    tf.prefill(params, cfg, toks, cache_len=2049)
+    torch.cuda.synchronize()
+    spans.clear()
+    launches = fa.flash_attention_gqa.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        enabled = torch.autograd._profiler_enabled()
+        ends = []
+        for _ in range(2):
+            tf.prefill(params, cfg, toks, cache_len=2049)
+            torch.cuda.synchronize()
+            ends.append(time.time_ns() * 1e-9)
+    assert enabled
+    assert fa.flash_attention_gqa.launches - launches == 2 * cfg.n_layers
+    kernels = sorted((k.start_ns() * 1e-9, k.end_ns() * 1e-9, k.name())
+                     for k in prof.profiler.kineto_results.events()
+                     if k.device_type() == torch.autograd.DeviceType.CUDA)
+    reqs = spans.requests()
+    assert len(reqs) == 2 and len(kernels) % 2 == 0
+    recs = reqs[max(reqs)]
+    top = next(r for r in recs if r["name"] == "prefill")
+    mine = kernels[len(kernels) // 2:]
+    assert all(top["start"] - 5e-4 <= s and e <= ends[1] + 5e-4
+               for s, e, _ in mine)
+    k11 = [(s, e) for s, e, n in mine if "flash_fwd" in n]
+    ivs = sorted(r["dev"] for r in recs
+                 if r["name"] == "kernel.flash_attention")
+    assert len(ivs) == len(k11) == cfg.n_layers
+    x0, y0 = ivs[0][1], k11[0][1]
+    slope, y_at_x0 = statistics.linear_regression(
+        [b - x0 for _, b in ivs], [e - y0 for _, e in k11])
+
+    def on_trace(t):
+        return y0 + y_at_x0 + slope * (t - x0)
+    for (a, b), (_, e) in zip(ivs, k11):
+        assert abs(on_trace(b) - e) <= 1e-5
+        held = [k for k in k11
+                if on_trace(a) - 1e-5 <= k[0] and k[1] <= on_trace(b) + 1e-5]
+        assert len(held) == 1
