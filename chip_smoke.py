@@ -203,21 +203,28 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    128-key tiles) and a ragged f32 case (FMA route, 64-key tiles), held to
    its plain version on its route's tiles, repeated bit for bit, timed in
    turns beside it and SDPA, with its bound, its share of it and its
-   factor over SDPA; the ``reduced()`` configs of
+   factor over SDPA; K12 and K13 (``moe_kernel_phase``) in bf16 at the
+   mixtral prefill cell's request (8,192 tokens of 4,096, 8 experts, top
+   2), at a skewed load and at a decode step's batch of 4, bit for bit
+   against their plain versions on the same card tensors and against a
+   second launch, timed in turns with them, with their bounds by bytes
+   and their share of them; the ``reduced()`` configs of
    mixtral-8x7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
    jamba-1.5-large-398b, xlstm-125m, qwen1.5-0.5b, musicgen-large,
    phi4-mini-3.8b and yi-9b in f32 on the card against the CPU
    (prefill logits, every cache or state leaf and 4 greedy decode steps
-   within atol 1e-4, MoE experts and keep masks equal, two card runs
+   within atol 1e-4, MoE experts and the prefill's rows an expert or the
+   decode's keep masks equal, two card runs
    equal bit for bit); each family served at full width with depth cut
    to one card (:data:`FAMILY_CUTS`, printed on its line; qwen1.5-0.5b,
    musicgen-large, phi4-mini-3.8b, yi-9b and xlstm-125m whole): batch 4,
    prompt 2048, 32 greedy decode steps, cache 2080, the VLM with seeded
    (4, 1601, 1280) modality embeddings, K11 launches counted from 0 just
-   before the timed prefill (2 kimi, 4 llama, 1 jamba, 0 mixtral and
-   xLSTM, 24 qwen1.5, 48 musicgen, 32 phi4, 48 yi), logits finite,
-   prefill ms, ms/token, tok/s, peak memory and
-   the MoE assignments dropped by capacity; then two ``lm_train_step``s
+   before the timed prefill (2 kimi, 4 llama, 1 jamba, 4 mixtral, 0
+   xLSTM, 24 qwen1.5, 48 musicgen, 32 phi4, 48 yi; K12 and K13 once a MoE
+   layer), logits finite, prefill ms, ms/token, tok/s, peak memory and
+   the MoE assignments dropped (none: serving is dropless); then two
+   ``lm_train_step``s
    of each of :data:`FAMILY_TRAIN` (mixtral, musicgen, phi4 and yi at full
    width, 2 layers; xlstm-125m and qwen1.5-0.5b whole) at the
    example's 16 × 128 tokens: loss terms finite, ``moe_aux`` > 0, K1 and
@@ -257,7 +264,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    head records under ``lm_train``, their smoke launches under
    ``launch_smoke`` and the quickstart's under ``quickstart``, K11's at
    the four head layouts under ``head_layouts``, K11 at hd 112 as
-   ``flash_attention_hd112``, each
+   ``flash_attention_hd112``, K12's and K13's at the mixtral prefill
+   cell's request with the launches of the served mixtral prefill and
+   their other cases under ``cases``, each
    entry with what the analysis phase read of its launch at the path's
    shape under ``launch_model``: registers, spills and static shared
    memory from the compiler, resident blocks from the runtime, dynamic
@@ -3187,18 +3196,101 @@ FAMILY_CUTS = {
     "yi-9b": ({}, "nothing"),
 }
 #: K11 launches a prefill of each cut makes: one a causal self-attention
-#: layer without a window (mixtral's are ATTN_SWA, xLSTM has none).
-FAMILY_K11 = {"mixtral-8x7b": 0, "kimi-k2-1t-a32b": 2,
+#: layer without a window or with one that covers the 2,048-token prompt
+#: (mixtral's ATTN_SWA at 4,096; xLSTM has none).
+FAMILY_K11 = {"mixtral-8x7b": 4, "kimi-k2-1t-a32b": 2,
               "llama-3.2-vision-90b": 4, "jamba-1.5-large-398b": 1,
               "xlstm-125m": 0, "qwen1.5-0.5b": 24, "musicgen-large": 48,
               "phi4-mini-3.8b": 32, "yi-9b": 48}
 
 
+#: K12 and K13 in :func:`moe_kernel_phase`: (label, tokens N, width d,
+#: experts E, top k, skewed): the mixtral prefill cell's request (4 ×
+#: 2,048 tokens of 4,096, 8 experts, top 2), the same with nine tokens in
+#: ten led by expert 0, and a decode step's batch of 4.
+MOE_CASES = (("prefill", 8192, 4096, 8, 2, False),
+             ("prefill skewed", 8192, 4096, 8, 2, True),
+             ("decode B=4", 4, 4096, 8, 2, False))
+
+
+def moe_kernel_phase() -> dict:
+    """K12 (``moe_dispatch``) and K13 (``moe_combine``) in bf16 at
+    :data:`MOE_CASES` on card tensors: routes drawn on the card from a
+    seed (the top k of random softmax probabilities, renormalised; skewed,
+    nine tokens in ten lead with expert 0), every output equal bit for bit
+    to the plain version's (``moe_dispatch_ref``, ``moe_combine_ref``) on
+    the same tensors and to a second launch, one launch a call; each timed
+    in turns with its plain version (:func:`timed`), its bound by bytes
+    (``perfbench/count/moe_flops.py``: every input read once, every
+    output written once); returns the records by kernel, then case."""
+    import torch
+    from perfbench.count import moe_flops
+    from repro_torch.kernels import moe as kmoe
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    records = {name: {} for name in kmoe.WRAPPERS}
+    for label, N, d, E, k, skewed in MOE_CASES:
+        c = {"d_model": d, "n_experts": E, "top_k": k, "dtype": "bfloat16"}
+        x = torch.randn((N, d), generator=gen, device=cuda).bfloat16()
+        probs = torch.softmax(torch.randn((N, E), generator=gen,
+                                          device=cuda), -1)
+        top_w, ids = torch.topk(probs, k, dim=-1)
+        if skewed:
+            rest = torch.argsort(torch.rand((N, E - 1), generator=gen,
+                                            device=cuda), -1)[:, :k - 1] + 1
+            led = torch.cat([torch.zeros_like(ids[:, :1]), rest], dim=1)
+            lead = torch.rand(N, generator=gen, device=cuda) < 0.9
+            ids = torch.where(lead[:, None], led, ids)
+        w = top_w / top_w.sum(-1, keepdim=True)
+        out = torch.randn((N * k, d), generator=gen, device=cuda).bfloat16()
+        kmoe.reset_launch_counts()
+        got, again = (kmoe.moe_dispatch(x, ids, E) for _ in range(2))
+        y, y_again = (kmoe.moe_combine(out, got[1], w) for _ in range(2))
+        want = kmoe.moe_dispatch_ref(x, ids, E)
+        want_y = kmoe.moe_combine_ref(out, want[1], w)
+        torch.cuda.synchronize()
+        where = f"moe [{label}: N {N}, d {d}, E {E}, k {k}, bf16]"
+        check(kmoe.launch_counts() == {n: 2 for n in kmoe.WRAPPERS},
+              f"{where}: launches {kmoe.launch_counts()}, not 2 each")
+        check(all(a.dtype == b.dtype and torch.equal(a, b) and
+                  torch.equal(a, r) for a, b, r in zip(got, want, again)),
+              f"{where}: K12 differs from its plain version or from itself")
+        check(int(got[2].sum()) == N * k and
+              int(got[2][0]) == int((ids == 0).sum()),
+              f"{where}: K12 counted {got[2].tolist()}")
+        check(torch.equal(y, want_y) and torch.equal(y, y_again),
+              f"{where}: K13 differs from its plain version or from itself")
+        counts = got[2].tolist()
+        for name, kern, plain, moved in (
+                ("moe_dispatch", lambda: kmoe.moe_dispatch(x, ids, E),
+                 lambda: kmoe.moe_dispatch_ref(x, ids, E),
+                 moe_flops.dispatch_bytes(c, N)),
+                ("moe_combine", lambda: kmoe.moe_combine(out, got[1], w),
+                 lambda: kmoe.moe_combine_ref(out, want[1], w),
+                 moe_flops.combine_bytes(c, N))):
+            rec = {"max_abs_err": 0.0, "tol": 0.0, "tol_rule": "bit for bit",
+                   "err_over_tol": 0.0, **timed(kern, plain),
+                   "bound": bound_ms(moved, 0.0), "bytes": moved,
+                   "shape": {"N": N, "d": d, "E": E, "k": k,
+                             "dtype": "bfloat16"}, "expert_rows": counts}
+            rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+            print(f"{name} [{label}] [{CARD}]: bit for bit with its plain "
+                  f"version and with itself (rows an expert {counts}); "
+                  f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms "
+                  f"(rounds {rec['rounds']}); bound {rec['bound'][0]:.5f} ms "
+                  f"({moved} bytes), {100 * rec['share_of_bound']:.1f} % of "
+                  "it")
+            records[name][label] = rec
+        del x, out, got, again, want, y, y_again, want_y
+    return records
+
+
 @contextlib.contextmanager
 def recorded_routes():
     """Records the experts (G, A) and capacity keep mask (G, A) of every
-    ``apply_moe`` call made inside the ``with``, by wrapping ``moe.slots``
-    (on their device, no host sync); yields the list."""
+    capacity-path MoE call made inside the ``with``, by wrapping
+    ``moe.slots`` (on their device, no host sync); yields the list."""
     from repro_torch.models.layers import moe
     routes, slots = [], moe.slots
 
@@ -3214,12 +3306,22 @@ def recorded_routes():
         moe.slots = slots
 
 
+def prefill_routes(out) -> list:
+    """A prefill's MoE routing as its output records it (``out["moe"]``,
+    one record a layer): (experts (N, k), assignments each expert
+    computed (E,)), on their device."""
+    return [(r["experts"], r["rows"]) for r in out.get("moe", ())]
+
+
 def dropped_share(routes) -> float | None:
-    """Share of the recorded assignments dropped by capacity."""
+    """Share of the recorded assignments that no expert computed: each
+    route pairs the experts with what was kept, a keep mask
+    (:func:`recorded_routes`) or the rows an expert (:func:`prefill_routes`),
+    whose sum is the assignments computed either way."""
     if not routes:
         return None
-    kept = sum(int(keep.sum()) for _, keep in routes)
-    return 1.0 - kept / sum(keep.numel() for _, keep in routes)
+    computed = sum(int(kept.sum()) for _, kept in routes)
+    return 1.0 - computed / sum(e.numel() for e, _ in routes)
 
 
 def family_serve_phase(arch: str) -> dict:
@@ -3227,14 +3329,17 @@ def family_serve_phase(arch: str) -> dict:
     weights and, for the VLM, (4, 1601, 1280) modality embeddings from a
     seed on the card): batch 4, prompt 2048, cache 2080, a warm-up prefill
     (xLSTM's at a 128-token prompt), then the timed one with the counts at
-    0 just before (K11 :data:`FAMILY_K11` times, nothing else), 32 greedy
-    decode steps (no kernel); logits finite; MoE drop shares printed."""
+    0 just before (K11 :data:`FAMILY_K11` times and nothing else of
+    K1-K11; K12 and K13 once a MoE layer), 32 greedy decode steps (none
+    of K1-K11; K12 and K13 once a MoE layer a step); logits finite; MoE
+    drop shares printed (dropless: 0)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import moe as kmoe
     from repro_torch.models import transformer as tf
-    from repro_torch.models.config import ATTN
+    from repro_torch.models.config import ATTN, ATTN_SWA
     from repro_torch.serve import serve_lm
 
     over, cut = FAMILY_CUTS[arch]
@@ -3256,11 +3361,19 @@ def family_serve_phase(arch: str) -> dict:
     del warm
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
-    with recorded_routes() as routes:
+    kmoe.reset_launch_counts()
+    with recorded_routes() as capacity:
         (out, cache), prefill_s = sync_time(
             lambda: serve_lm.prefill(params, cfg, prompts, steps, modality))
-    counts = gr.launch_counts()
-    k11 = sum(kind == ATTN for kind in cfg.layer_kinds())
+    counts, moe_counts = gr.launch_counts(), kmoe.launch_counts()
+    routes = prefill_routes(out)
+    n_moe = len(routes)
+    check(not capacity and moe_counts == {n: n_moe for n in kmoe.WRAPPERS},
+          f"{arch}: the prefill launched {moe_counts} of K12 and K13, not "
+          f"{n_moe} each, and dispatched {len(capacity)} MoE calls by "
+          "capacity")
+    k11 = sum(kind == ATTN or (kind == ATTN_SWA and cfg.sliding_window >= T)
+              for kind in cfg.layer_kinds())
     check(k11 == FAMILY_K11[arch], f"{arch}: {k11} causal layers")
     check(counts == {n: k11 * (n == "flash_attention") for n in counts},
           f"{arch}: the prefill launched {counts}, not K11 {k11} times and "
@@ -3278,11 +3391,18 @@ def family_serve_phase(arch: str) -> dict:
     del out, logits, routes
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
-    with recorded_routes() as routes:
+    kmoe.reset_launch_counts()
+    with recorded_routes() as capacity:
         (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
             params, cfg, cache, prompts, steps, temperature=0.0))
-    decode_drop = dropped_share(routes)
-    del routes
+    # Every decode assignment is computed: K12 and K13 run once a MoE
+    # layer a step, and nothing goes through the capacity path.
+    check(not capacity and kmoe.launch_counts() == {
+        n: steps * n_moe for n in kmoe.WRAPPERS},
+          f"{arch}: the decode launched {kmoe.launch_counts()} of K12 and "
+          f"K13, not {steps * n_moe} each, and dispatched {len(capacity)} "
+          "MoE calls by capacity")
+    decode_drop = 0.0 if n_moe else None
     last, _ = tf.decode_step(params, cfg, cache, toks[:, -1:], torch.full(
         (B,), T + steps - 1, dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
@@ -3301,12 +3421,13 @@ def family_serve_phase(arch: str) -> dict:
            "peak_prefill_gb": peak_prefill / 1e9,
            "peak_decode_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "k11_launches": counts["flash_attention"],
+           "moe_launches": moe_counts,
            "prefill_dropped": prefill_drop, "decode_dropped": decode_drop}
     del params, cache, prompts, modality
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     drops = ("" if prefill_drop is None else
-             f"; assignments dropped by capacity: prefill "
+             f"; assignments dropped: prefill "
              f"{100 * prefill_drop:.3f} %, decode {100 * decode_drop:.3f} %")
     print(f"serve {arch} [{CARD}] (full width, cut: {cut}; "
           f"{cfg.n_layers} layers, bf16, {n_params / 1e9:.3f}e9 params in "
@@ -3329,8 +3450,9 @@ def family_parity_phase() -> None:
     of 2 × 64 tokens and 4 greedy decode steps on the CPU, then twice on
     the card from the same params, fed the CPU's tokens; logits within
     atol 1e-4 of the CPU's and every cache or state leaf within 1e-4 of
-    max(1, its largest |value|), MoE experts and keep masks equal at
-    every call, and the two card runs equal bit for bit.  Prints the
+    max(1, its largest |value|), MoE experts equal at every call with the
+    prefill's rows an expert (its dropless records) and the decode's
+    capacity keep masks, and the two card runs equal bit for bit.  Prints the
     worst logits step and the worst state leaf by name, with its |Δ| and
     largest |value|."""
     import torch
@@ -3355,10 +3477,11 @@ def family_parity_phase() -> None:
         feed = []                       # the CPU's greedy tokens
 
         def run(dev: str) -> dict:
-            with recorded_routes() as routes:
-                out, cache = serve_lm.prefill(
-                    params[dev], cfg, prompts.to(dev), steps,
-                    None if mem is None else mem.to(dev))
+            out, cache = serve_lm.prefill(
+                params[dev], cfg, prompts.to(dev), steps,
+                None if mem is None else mem.to(dev))
+            routes = prefill_routes(out)
+            with recorded_routes() as decoded:
                 logits, cur = [out["logits"].cpu()], prompts[:, -1:].cpu()
                 for s in range(steps):
                     pos = torch.full((B,), T + s - 1, dtype=torch.int32)
@@ -3373,7 +3496,8 @@ def family_parity_phase() -> None:
             states = leaf_paths(cache)
             return {"names": names + [p for p, _ in states],
                     "out": logits + [t.cpu() for _, t in states],
-                    "routes": [(e.cpu(), k.cpu()) for e, k in routes]}
+                    "routes": [(e.cpu(), k.cpu())
+                               for e, k in routes + decoded]}
 
         cpu, gpu, again = run("cpu"), run("cuda"), run("cuda")
         check(gpu["names"] == cpu["names"], f"{arch}: the card's cache "
@@ -4508,7 +4632,7 @@ def _analysis_runs() -> dict:
     card = report.metrics["vmem/card"]
     models = {}
     reports = [e for src in ("graph_reg", "graph_reg_bsp", "pairwise",
-                             "flash_attention")
+                             "flash_attention", "moe")
                for e in launch_audit.ptxas_entries(src)]
     for where, ln in launch_audit.kernel_launches(card["n_sm"]):
         r = next(r for m, r in reports if ln.symbol in m)
@@ -4636,6 +4760,10 @@ PATH_MODELS = {
     "flash_attention_hd112": ("flash_attention", "flash_fwd_wgmma_kernel",
                               dict(B=4, Tq=2048, Tk=2048, H=64, KV=8,
                                    hd=112, dtype="bfloat16")),
+    "moe_dispatch": ("moe_dispatch", "moe_dispatch_kernel",
+                     dict(N=8192, d=4096, E=8, k=2, dtype="bfloat16")),
+    "moe_combine": ("moe_combine", "moe_combine_kernel",
+                    dict(N=8192, d=4096, k=2, dtype="bfloat16")),
 }
 
 
@@ -4803,6 +4931,7 @@ def main() -> int:
 
     t_families = time.perf_counter()
     attn112 = flash_attention_hd112_phase()
+    moe_recs = moe_kernel_phase()
     family_parity_phase()
     served = {arch: family_serve_phase(arch) for arch in FAMILY_CUTS}
     kimi = served["kimi-k2-1t-a32b"]
@@ -4811,6 +4940,14 @@ def main() -> int:
           f"{attn112['ms'] * kimi['k11_launches']:.3f} ms of the "
           f"{kimi['prefill_ms']:.3f} ms prefill (kernel phase time × "
           f"launches)")
+    mixtral = served["mixtral-8x7b"]
+    for name, rec in moe_recs.items():
+        n = mixtral["moe_launches"][name]
+        print(f"serve prefill mixtral-8x7b [{CARD}]: {name} "
+              f"{rec['prefill']['ms']:.5f} ms × {n} launches = "
+              f"{rec['prefill']['ms'] * n:.3f} ms of the "
+              f"{mixtral['prefill_ms']:.3f} ms prefill (kernel phase time × "
+              f"launches)")
     for arch in LAYOUT_ATTN:
         rec = served[arch]
         print(f"serve prefill {arch} [{CARD}]: K11 {attn[arch]['ms']:.4f} ms "
@@ -4858,6 +4995,7 @@ def main() -> int:
 
     from repro_torch.kernels import (flash_attention, graph_reg,
                                      graph_reg_bsp, pairwise)
+    from repro_torch.kernels import moe as kmoe
     kernels = []
     for name, rec in records.items():
         b_ms, b_by = rec["bound"]
@@ -4951,6 +5089,25 @@ def main() -> int:
         **({"against": {"dir": str(args.against),
                         **against["flash_attention_hd112"]}}
            if against else {})})
+    for name, recs in moe_recs.items():
+        rec = recs["prefill"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": kmoe.SOURCE,
+            "replaces": None,
+            "note": "replaces no TPU kernel: the JAX package dispatches by "
+                    "capacity; the plain version is the same function in "
+                    "PyTorch ops on the same card tensors",
+            "launches": mixtral["moe_launches"][name],
+            "path": "serve_prefill mixtral-8x7b",
+            **{key: rec[key] for key in (
+                "max_abs_err", "tol", "tol_rule", "err_over_tol", "ms",
+                "plain_ms", "library_ms", "rounds", "share_of_bound",
+                "bytes", "shape")},
+            "kernel_ms": rec["ms"], "bound_ms": rec["bound"][0],
+            "bound_by": rec["bound"][1],
+            "cases": {label: {key: r[key] for key in (
+                "ms", "plain_ms", "share_of_bound", "shape", "expert_rows")}
+                for label, r in recs.items() if label != "prefill"}})
     kernels[[e["name"] for e in kernels].index("flash_attention")][
         "head_layouts"] = {arch: {
             "shape": dict(zip(("B", "T", "H", "KV", "hd"),

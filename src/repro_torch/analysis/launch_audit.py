@@ -1,6 +1,6 @@
 """Launch models of the port's CUDA kernels, and their checks (V-pass).
 
-The counterpart of the reference's ``vmem_audit.py``.  Each of the 18
+The counterpart of the reference's ``vmem_audit.py``.  Each of the 20
 ``__global__`` functions of ``src/repro_torch/csrc`` is mirrored here by a
 static *launch model* — the grid, threads, cluster, dynamic and static
 shared memory and ``__launch_bounds__`` its entry point uses, and for each
@@ -506,6 +506,42 @@ def _flash(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
                  (("", smem),)))]
 
 
+def _moe_dispatch(N: int, d: int, E: int, k: int, dtype: str) -> list:
+    """K12: 128 assignments a block, each block writing its assignments'
+    rows of ``pos`` and block 0 the counts and ends.  Each gathered row
+    of ``xs`` goes to the row the counting sort gives its assignment, a
+    permutation of the rows that no box per block describes: it is not
+    modelled as an output."""
+    A = N * k
+
+    def own(x, y, z):
+        return [((x * 128, min(x * 128 + 128, A)),)]
+
+    def first(x, y, z):
+        return [((0, E),)] if x == 0 else []
+    es = 4 if dtype == "float32" else 2
+    return [Launch(
+        "moe_dispatch_kernel", f"{dtype} N={N} d={d} E={E} k={k}", "moe.cu",
+        _sym("moe_dispatch_kernel"), (_cdiv(A, 128), 1, 1), 256, 3 * E * 4,
+        2 * 128 * 4, (256, 0),
+        outputs=(Output("pos", (A,), own), Output("counts", (E,), first),
+                 Output("ends", (E,), first)),
+        vectors=(Vector("x and xs rows", es * d),))]
+
+
+def _moe_combine(N: int, d: int, k: int, dtype: str) -> list:
+    """K13: one warp a token, 8 tokens a block."""
+    def writes(x, y, z):
+        return [((x * 8, min(x * 8 + 8, N)), (0, d))]
+    es = 4 if dtype == "float32" else 2
+    t = "f" if dtype == "float32" else "13__nv_bfloat16"
+    return [Launch(
+        "moe_combine_kernel", f"{dtype} N={N} d={d} k={k}", "moe.cu",
+        _sym("moe_combine_kernel", t), (_cdiv(N, 8), 1, 1), 256, 0, 0,
+        (256, 0), outputs=(Output("y", (N, d), writes),),
+        vectors=(Vector("out and y rows", es * d),))]
+
+
 #: Wrapper calls -> their launch models.
 _CALLS = {
     "graph_reg_fwd": lambda k, B, C, n_sm: _fwd(k, B, C, n_sm),
@@ -523,6 +559,9 @@ _CALLS = {
     "rbf_affinity": _rbf,
     "flash_attention": lambda B, Tq, Tk, H, KV, hd, dtype, n_sm: _flash(
         B, Tq, Tk, H, KV, hd, dtype),
+    "moe_dispatch": lambda N, d, E, k, dtype, n_sm: _moe_dispatch(
+        N, d, E, k, dtype),
+    "moe_combine": lambda N, d, k, dtype, n_sm: _moe_combine(N, d, k, dtype),
 }
 
 _P, _C, _BT = 2176, 39, 128
@@ -532,7 +571,9 @@ _T = _cdiv(_P, _BT) ** 2
 #: (k, B, V); K8 on the corpus (N 20,000, D 351) at k 10 / 40 / 300 /
 #: 1,000 and on the online refresh's embeddings (D 2000); K9 at P × P, at
 #: both tile heights; K11 in bf16 at the serve paths' head layouts and in
-#: float32 at the small head dims.
+#: float32 at the small head dims; K12 and K13 at the mixtral prefill's
+#: 8,192 tokens of 4,096 (8 experts, top 2) and a decode step's 4, and in
+#: float32 at the reduced configs' width.
 DEFAULT_SHAPES: tuple = (
     *((name, dict(k=k, B=_P, C=_C)) for k in (1, 4) for name in (
         "graph_reg_fwd", "graph_reg_bwd_dlogp", "graph_reg_bwd_dw")),
@@ -557,6 +598,12 @@ DEFAULT_SHAPES: tuple = (
                             ("bfloat16", 128, 12, 2),
                             ("float32", 16, 4, 2),
                             ("float32", 32, 4, 2))),
+    *(("moe_dispatch", dict(N=N, d=d, E=8, k=2, dtype=dt))
+      for N, d, dt in ((8192, 4096, "bfloat16"), (4, 4096, "bfloat16"),
+                       (64, 128, "float32"))),
+    *(("moe_combine", dict(N=N, d=d, k=2, dtype=dt))
+      for N, d, dt in ((8192, 4096, "bfloat16"), (4, 4096, "bfloat16"),
+                       (64, 128, "float32"))),
 )
 
 
@@ -824,7 +871,7 @@ REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
 _LIBRARY = {"graph_reg.cu": "graph_reg", "graph_reg_tiles.cuh": "graph_reg",
             "graph_reg_bsp.cu": "graph_reg_bsp", "pairwise.cu": "pairwise",
             "d2_tile.cuh": "pairwise", "flash_attention.cu": "flash_attention",
-            "flash_attention_wgmma.cuh": "flash_attention"}
+            "flash_attention_wgmma.cuh": "flash_attention", "moe.cu": "moe"}
 
 
 def occupancy(launch: Launch) -> dict:
@@ -873,7 +920,7 @@ def check_against_library(launches=None, *, reports: dict | None = None
     if reports is None:
         reports = {name: ptxas_entries(name) for name in
                    ("graph_reg", "graph_reg_bsp", "pairwise",
-                    "flash_attention")}
+                    "flash_attention", "moe")}
     entries = [(mangled, r) for rs in reports.values() for mangled, r in rs]
     findings: list[Finding] = []
     plans = static_diff = 0

@@ -10,8 +10,10 @@ k and the saved log-sum-exp.  The reference writes it in jnp, not Pallas,
 so it is plain PyTorch here, a ``torch.autograd.Function`` whose residuals
 are O(T·H·hd).  The prefill of a layer without a window runs every causal
 self-attention on :func:`repro_torch.kernels.ops.flash_attention_gqa`
-(K11, forward only); a windowed layer's prefill (ATTN_SWA) runs
-``chunked_attention`` and returns the reference's ring-compacted cache.
+(K11, forward only), and so does a windowed layer's (ATTN_SWA) while its
+window covers the prompt (T ≤ window: the window masks no pair, so K11 is
+exact there); a longer windowed prefill runs ``chunked_attention``.  Both
+windowed prefills return the reference's ring-compacted cache.
 Decode attends one query against a :class:`KVCache` (full, or a ring of
 ``window`` slots) in plain PyTorch, as the reference does.
 
@@ -368,8 +370,9 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *,
     seeded with this sequence: full length without a window, where the
     attention runs on K11 (forward only); ring-compacted to exactly
     ``window`` slots with one (ATTN_SWA), the slot of position p at
-    p % window as :meth:`KVCache.update` places it.  Every other call runs
-    :func:`chunked_attention`, which has a backward."""
+    p % window as :meth:`KVCache.update` places it, the attention on K11
+    too while T ≤ window.  Every other call runs :func:`chunked_attention`,
+    which has a backward."""
     B, T = x.shape[:2]
     with spans.span("attn.qkv"):
         q, k, v = qkv_proj(p, x)
@@ -377,7 +380,7 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *,
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     pos1d = positions[0]
-    if return_kv and window is None:
+    if return_kv and (window is None or T <= window):
         o = ops.flash_attention_gqa(q, k, v, causal=causal)
     else:
         o = chunked_attention(q, k, v, pos1d, pos1d,

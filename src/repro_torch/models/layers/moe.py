@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN with capacity-based token dispatch (GShard /
-Switch), and the Switch load-balance loss.
+"""Mixture-of-Experts FFN: capacity-based token dispatch (GShard /
+Switch) with the Switch load-balance loss, and the serving path's
+dropless dispatch.
 
 Port of ``repro/models/layers/moe.py``.  A float32 softmax router picks
 each token's top-k experts (ties to the lower expert id, as
@@ -17,13 +18,36 @@ otherwise G = 1.  Capacity per group is ``int(max(1, round(n_g·k/E·
 capacity_factor)))`` with Python's ``round`` (halves to even).  The G
 groups' slots go through the experts in one product: row results do not
 depend on each other.
+
+Dropless (:func:`apply_moe_dropless`, the serving path's; the JAX
+package has no such layer): the same router, and every assignment is
+computed.  K12 (:func:`repro_torch.kernels.moe.moe_dispatch`) sorts the
+assignments by expert on the device and gathers their rows; the expert
+products run over exactly each expert's rows (:func:`expert_ffn_grouped`,
+the groups' ends read on the device); K13 (``moe_combine``) adds each
+token's weighted rows back in token order, in float32.  In bfloat16 on
+the card nothing in the layer waits for the host.  :data:`DISPATCH`
+names the two; training (``forward``) keeps capacity, and so does
+``transformer.prefill`` unless its caller asks for ``"dropless"``, as
+the serving entry points do.
+
+``stats``: a list that the layer appends one record to, ``{"experts":
+(N, k) expert ids, "rows": (E,) int32 assignments each expert computed}``,
+kept on the device; :func:`dropped` reads a record's dropped assignments
+(and waits for the device), so the caller reads them after the pass.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ... import spans
+from ...kernels import moe as kmoe
 from .common import activation_fn, variance_scaling
+
+#: The layer's dispatches: GShard capacity (the JAX package's, training)
+#: and dropless (serving).
+DISPATCH = ("capacity", "dropless")
 
 
 def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
@@ -85,9 +109,15 @@ def slots(top_e: torch.Tensor, n_experts: int, cap: int):
     return slot, keep
 
 
+def dropped(rec: dict) -> int:
+    """Assignments of a ``stats`` record that no expert computed (reads
+    the device)."""
+    return rec["experts"].numel() - int(rec["rows"].sum())
+
+
 def apply_moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
-              activation: str,
-              dispatch_groups: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+              activation: str, dispatch_groups: int = 0,
+              stats: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (y (B, T, d), the Switch load-balance loss, 0-d
     float32)."""
     B, T, d = x.shape
@@ -116,4 +146,43 @@ def apply_moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
     ya = out[g, slot]                                         # (G, A, d)
     wk = (top_w.reshape(G, A) * keep).to(ya.dtype)
     y = (ya * wk[..., None]).reshape(N, top_k, d).sum(1)
+    if stats is not None:
+        rows = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+            0, top_e.reshape(-1), keep.reshape(-1).to(torch.int32))
+        stats.append({"experts": top_e, "rows": rows})
     return y.reshape(B, T, d), aux
+
+
+def expert_ffn_grouped(p, xs: torch.Tensor, ends: torch.Tensor,
+                       activation: str) -> torch.Tensor:
+    """xs (R, d) rows in expert order, ``ends`` (E,) int32 the cumulative
+    ends of the experts' rows on xs's device -> (R, d): each row through
+    its expert's FFN.  Each product is one ``torch._grouped_mm``: on the
+    card in bfloat16 a CUTLASS grouped GEMM that reads ``ends`` there; in
+    float32 on the card the library reads them on the host (the tests'
+    and the smoke's reduced configs only)."""
+    def mm(a, w):
+        return torch._grouped_mm(a, w, offs=ends)
+
+    if activation == "swiglu":
+        return mm(F.silu(mm(xs, p["wg"])) * mm(xs, p["wu"]), p["wd"])
+    return mm(activation_fn(activation)(mm(xs, p["wu"])), p["wd"])
+
+
+def apply_moe_dropless(p, x: torch.Tensor, *, top_k: int, activation: str,
+                       stats: list | None = None) -> torch.Tensor:
+    """x: (B, T, d) -> y (B, T, d), every assignment computed: the router
+    (span ``moe.route``), K12, the grouped expert products (``ffn.mlp``,
+    the span of a dense layer's MLP) and K13."""
+    B, T, d = x.shape
+    E = p["router"].shape[-1]
+    xf = x.reshape(B * T, d)
+    with spans.span("moe.route", device=True):
+        _, top_w, top_e = route(p, xf, top_k)
+    xs, pos, rows, ends = kmoe.moe_dispatch(xf, top_e, E)
+    with spans.span("ffn.mlp", device=True):
+        out = expert_ffn_grouped(p, xs, ends, activation)
+    y = kmoe.moe_combine(out, pos, top_w)
+    if stats is not None:
+        stats.append({"experts": top_e, "rows": rows})
+    return y.reshape(B, T, d)

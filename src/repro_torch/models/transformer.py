@@ -31,8 +31,8 @@ Entry points:
   * ``prefill``         — full-sequence pass that returns the logits and
     fills the decode cache ``{"layers": [one cache per pattern position,
     stacked over the scanned super-blocks]}`` (and ``"first"``), the
-    structure of ``init_cache``; causal self-attention without a window
-    runs on K11;
+    structure of ``init_cache``; causal self-attention runs on K11 where
+    no window or a window that covers the prompt masks it;
   * ``init_cache`` / ``decode_step`` — one-token autoregressive step; the
     caches and states are updated in place and returned.
 """
@@ -236,19 +236,34 @@ def _apply_mixer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
     raise ValueError(kind)
 
 
-def _apply_ffn(p, cfg: ModelConfig,
-               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _apply_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
+               moe_dispatch: str = "capacity", moe_stats: list | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Post-mixer FFN (dense or MoE) of a layer that has one -> (out, the
-    MoE load-balance loss or None)."""
+    MoE load-balance loss or None).  A MoE layer dispatches as
+    ``moe_dispatch`` says (:data:`~.layers.moe.DISPATCH`; the dropless
+    layer computes no loss) and appends its record to ``moe_stats``."""
     with spans.span("ffn.norm", device=True):
         h = apply_norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
-        return moe_lib.apply_moe(p["moe"], h, top_k=cfg.top_k,
-                                 capacity_factor=cfg.capacity_factor,
-                                 activation=cfg.activation,
-                                 dispatch_groups=cfg.moe_dispatch_groups)
+        with spans.span("ffn.moe", device=True):
+            if moe_dispatch == "dropless":
+                return moe_lib.apply_moe_dropless(
+                    p["moe"], h, top_k=cfg.top_k, activation=cfg.activation,
+                    stats=moe_stats), None
+            return moe_lib.apply_moe(p["moe"], h, top_k=cfg.top_k,
+                                     capacity_factor=cfg.capacity_factor,
+                                     activation=cfg.activation,
+                                     dispatch_groups=cfg.moe_dispatch_groups,
+                                     stats=moe_stats)
     with spans.span("ffn.mlp", device=True):
         return apply_mlp(p["mlp"], h, cfg.activation), None
+
+
+def _check_dispatch(moe_dispatch: str) -> None:
+    if moe_dispatch not in moe_lib.DISPATCH:
+        raise ValueError(f"moe_dispatch must be one of {moe_lib.DISPATCH}, "
+                         f"got {moe_dispatch!r}")
 
 
 def _superblock_fwd(block_params: list, cfg: ModelConfig, x: torch.Tensor,
@@ -343,9 +358,10 @@ def _stack(states: list):
 def _superblock_prefill(block_params: list, cfg: ModelConfig,
                         x: torch.Tensor, positions: torch.Tensor,
                         mem: torch.Tensor | None, cache_len: int | None,
-                        layer0: int):
+                        layer0: int, ffn_kw: dict):
     """-> (x, the block's caches); its first layer is decoder layer
-    ``layer0`` (the ``i`` of its ``layer`` span)."""
+    ``layer0`` (the ``i`` of its ``layer`` span); ``ffn_kw`` goes to
+    :func:`_apply_ffn`."""
     caches = []
     for j, (p, kind) in enumerate(zip(block_params, cfg.block_pattern)):
         with spans.span("layer", i=layer0 + j):
@@ -358,29 +374,37 @@ def _superblock_prefill(block_params: list, cfg: ModelConfig,
                 x = x + y
             if "norm2" in p:
                 with spans.span("ffn"):
-                    x = x + _apply_ffn(p, cfg, x)[0]
+                    x = x + _apply_ffn(p, cfg, x, **ffn_kw)[0]
         caches.append(c)
     return x, caches
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             modality_embeds: torch.Tensor | None = None,
-            cache_len: int | None = None) -> tuple[dict, dict]:
+            cache_len: int | None = None,
+            moe_dispatch: str = "capacity") -> tuple[dict, dict]:
     """Full-sequence pass that also fills the decode cache.
 
     tokens (B, T) -> ({"logits": (B, T, V)}, cache): full KV caches padded
     to ``cache_len`` slots, ring caches of ATTN_SWA layers
     ``sliding_window`` slots laid out as incremental ``decode_step``
     updates would lay them out, XATTN layers the memory's k and v, Mamba
-    and xLSTM layers their states after the last token.
+    and xLSTM layers their states after the last token.  MoE layers
+    dispatch as ``moe_dispatch`` says (the reference's capacity by
+    default; the serving entry points ask for ``"dropless"``), and the
+    output's ``"moe"`` holds their records (``layers.moe``'s ``stats``),
+    in layer order.
 
     The pass is a request of :mod:`repro_torch.spans` (``prefill``, with
     a device interval): ``prefill.embed``, a ``layer`` span a decoder
     layer (``attn``, ``ffn`` and their parts), ``prefill.cache_stack``
     and ``prefill.head``."""
     check_supported(cfg)
+    _check_dispatch(moe_dispatch)
     B, T = tokens.shape
     n = len(cfg.block_pattern)
+    moe_stats: list = []
+    ffn_kw = {"moe_dispatch": moe_dispatch, "moe_stats": moe_stats}
     with spans.request("prefill", device=tokens.device, batch=B, tokens=T):
         with spans.span("prefill.embed"):
             x = embed(params["embed"], tokens)
@@ -391,13 +415,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         layer0 = 0
         if cfg.first_layer_dense:
             x, cache["first"] = _superblock_prefill(
-                params["first_block"], cfg, x, positions, mem, cache_len, 0)
+                params["first_block"], cfg, x, positions, mem, cache_len, 0,
+                ffn_kw)
             layer0 = n
         per_position: list[list] = [[] for _ in cfg.block_pattern]
         for i in range(_n_scan(cfg)):
             x, caches = _superblock_prefill(_block(params, i), cfg, x,
                                             positions, mem, cache_len,
-                                            layer0 + i * n)
+                                            layer0 + i * n, ffn_kw)
             for j, c in enumerate(caches):
                 per_position[j].append(c)
         with spans.span("prefill.cache_stack"):
@@ -405,7 +430,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         with spans.span("prefill.head"):
             with spans.span("head.norm", device=True):
                 x = apply_norm(params["final_norm"], x, cfg.norm)
-            return {"logits": x @ output_head(params, cfg)}, cache
+            out = {"logits": x @ output_head(params, cfg)}
+    if cfg.is_moe:
+        out["moe"] = moe_stats
+    return out, cache
 
 
 # ==================================================================== decode
@@ -454,7 +482,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 
 def _decode_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                  pos: torch.Tensor, cache):
+                  pos: torch.Tensor, cache, moe_dispatch: str):
     h = apply_norm(p["norm1"], x, cfg.norm)
     if kind in (ATTN, ATTN_SWA):
         y, cache = attn_lib.attention_decode(p["attn"], h, pos, cache,
@@ -474,27 +502,31 @@ def _decode_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
         raise ValueError(kind)
     x = x + y
     if "norm2" in p:
-        x = x + _apply_ffn(p, cfg, x)[0]
+        x = x + _apply_ffn(p, cfg, x, moe_dispatch=moe_dispatch)[0]
     return x, cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, pos: torch.Tensor):
+                tokens: torch.Tensor, pos: torch.Tensor, *,
+                moe_dispatch: str = "capacity"):
     """One autoregressive step. tokens: (B, 1); pos: (B,). Returns
     (logits (B, 1, V), cache), the cache updated in place: KV caches take
     the token in place, new recurrent states are copied into the stacked
-    ones."""
+    ones.  MoE layers dispatch as ``moe_dispatch`` says (as in
+    :func:`prefill`)."""
+    _check_dispatch(moe_dispatch)
     x = embed(params["embed"], tokens)
     if cfg.first_layer_dense:
         x, c = _decode_layer(params["first_block"][0], cfg,
-                             cfg.block_pattern[0], x, pos, cache["first"][0])
+                             cfg.block_pattern[0], x, pos, cache["first"][0],
+                             moe_dispatch)
         cache["first"] = [c]
     for i in range(_n_scan(cfg)):
         for p, kind, stacked in zip(_block(params, i), cfg.block_pattern,
                                     cache["layers"]):
             view = type(stacked)(**{f: getattr(stacked, f)[i]
                                     for f in _fields(stacked)})
-            x, new = _decode_layer(p, cfg, kind, x, pos, view)
+            x, new = _decode_layer(p, cfg, kind, x, pos, view, moe_dispatch)
             if new is not view:
                 for f in _fields(stacked):
                     getattr(stacked, f)[i].copy_(getattr(new, f))

@@ -40,10 +40,13 @@ def sample_tokens(logits: torch.Tensor,
 def serve_step(params: dict, cfg: ModelConfig, cache: dict,
                tokens: torch.Tensor, pos: torch.Tensor,
                generator: torch.Generator | None = None, *,
-               temperature: float = 0.0):
+               temperature: float = 0.0, moe_dispatch: str = "capacity"):
     """One decode step: (B, 1) token in -> (B, 1) token out + the cache,
-    updated in place."""
-    logits, cache = tf.decode_step(params, cfg, cache, tokens, pos)
+    updated in place; MoE layers dispatch as ``moe_dispatch`` says (the
+    reference's capacity here and in :func:`generate`; ``serve_lm``'s
+    loop asks for ``"dropless"``)."""
+    logits, cache = tf.decode_step(params, cfg, cache, tokens, pos,
+                                   moe_dispatch=moe_dispatch)
     return sample_tokens(logits, generator, temperature=temperature), cache
 
 

@@ -12,10 +12,13 @@ is loaded); ``--reduced`` serves the CPU-sized variant the reference demo
 always uses.  A config with ``modality_tokens`` (the VLM) is given
 (batch, modality_tokens, modality_dim) embeddings in the config's dtype,
 drawn from the same seed, the shapes of the reference's
-``launch/inputs.py``.  The prefill runs every causal self-attention
-without a window on K11; the decode loop then feeds the last prompt token
-at position ``prompt_len − 1`` and each sampled token after it, as the
-reference demo does, against a cache of ``prompt_len + steps`` slots.
+``launch/inputs.py``.  The prefill runs every causal self-attention on
+K11 whose window, if it has one, covers the prompt; MoE layers route
+every assignment (the dropless dispatch: K12, grouped expert products,
+K13), in the prefill and in every decode step.  The decode loop then
+feeds the last prompt token at position ``prompt_len − 1`` and each
+sampled token after it, as the reference demo does, against a cache of
+``prompt_len + steps`` slots.
 Prints the parameter count of the drawn tree, the prefill's ms, the
 decode's ms per token and tokens per second.  ``--device`` defaults to
 ``cuda`` and fails without a GPU.
@@ -90,23 +93,26 @@ def param_count(params) -> int:
 
 def prefill(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
             steps: int, modality: torch.Tensor | None = None):
-    """The prompts' logits and the cache, ``prompt_len + steps`` slots."""
+    """The prompts' logits (and a MoE model's routing records, ``"moe"``)
+    and the cache, ``prompt_len + steps`` slots; MoE layers dropless."""
     return tf.prefill(params, cfg, prompts, modality_embeds=modality,
-                      cache_len=prompts.shape[1] + steps)
+                      cache_len=prompts.shape[1] + steps,
+                      moe_dispatch="dropless")
 
 
 def decode(params: dict, cfg: ModelConfig, cache: dict,
            prompts: torch.Tensor, steps: int, *, temperature: float,
            generator: torch.Generator | None = None):
-    """``steps`` calls of ``serve_step`` after the prefill -> ((B, steps)
-    tokens, cache)."""
+    """``steps`` calls of ``serve_step`` after the prefill, MoE layers
+    dropless -> ((B, steps) tokens, cache)."""
     B, T = prompts.shape
     cur, toks = prompts[:, -1:], []
     for s in range(steps):
         pos = torch.full((B,), T + s - 1, dtype=torch.int32,
                          device=prompts.device)
         cur, cache = serve_step(params, cfg, cache, cur, pos, generator,
-                                temperature=temperature)
+                                temperature=temperature,
+                                moe_dispatch="dropless")
         toks.append(cur)
     return torch.cat(toks, dim=1), cache
 

@@ -373,8 +373,8 @@ class TestLaunchAudit:
     def test_default_models_validate_clean(self):
         findings, metrics = la.validate_launches()
         assert findings == []
-        assert metrics["kernels_in_source"] == 18
-        assert metrics["kernels_modelled"] == 18
+        assert metrics["kernels_in_source"] == 20
+        assert metrics["kernels_modelled"] == 20
         assert metrics["launches_checked"] >= 40
 
     def test_every_kernel_models_its_path_shapes(self):
@@ -417,9 +417,9 @@ class TestLaunchAudit:
         """The card reads each model's resident blocks from its library's
         occupancy table, by the model's symbol."""
         from repro_torch.kernels import (flash_attention, graph_reg,
-                                         graph_reg_bsp, pairwise)
+                                         graph_reg_bsp, moe, pairwise)
         modules = {m.__name__.rsplit(".", 1)[1]: m for m in
-                   (graph_reg, graph_reg_bsp, pairwise, flash_attention)}
+                   (graph_reg, graph_reg_bsp, pairwise, flash_attention, moe)}
         for where, ln in la.kernel_launches():
             table = modules[la._LIBRARY[ln.source]].OCCUPANCY_KERNELS
             assert ln.symbol in table, where
@@ -452,7 +452,7 @@ class TestLaunchAudit:
             "__global__ void __launch_bounds__(128) stray(float* x) {}\n")
         findings, metrics = la.validate_launches(csrc=tmp_path)
         assert _rules(findings) == ["V005"]
-        assert metrics["kernels_in_source"] == 19
+        assert metrics["kernels_in_source"] == 21
 
     def test_launch_bounds_held_to_the_source(self):
         (where, ln), *rest = la.kernel_launches()

@@ -1097,3 +1097,152 @@ def test_prefill_spans_hold_to_the_profilers_clock(cuda):
         held = [k for k in k11
                 if on_trace(a) - 1e-5 <= k[0] and k[1] <= on_trace(b) + 1e-5]
         assert len(held) == 1
+
+
+# ------------------------------------------------------------ K12 and K13
+def _routes(N, E, k, seed, skew=False):
+    """(N, k) distinct experts a token, drawn from ``seed`` on the CPU;
+    with ``skew`` nine tokens in ten lead with expert 0."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.argsort(torch.rand((N, E), generator=g), dim=-1)[:, :k]
+    if skew:
+        rest = torch.argsort(torch.rand((N, E - 1), generator=g), dim=-1) + 1
+        led = torch.cat([torch.zeros((N, 1), dtype=ids.dtype),
+                         rest[:, :k - 1]], dim=1)
+        lead = torch.rand(N, generator=g) < 0.9
+        ids = torch.where(lead[:, None], led, ids)
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,E,k,skew", [(8192, 4096, 8, 2, False),
+                                          (8192, 4096, 8, 2, True),
+                                          (4, 4096, 8, 2, False),
+                                          (1000, 128, 384, 8, False)])
+def test_moe_dispatch_and_combine_match_plain_versions(cuda, N, d, E, k,
+                                                       skew):
+    """K12 and K13 at the mixtral prefill cell's shapes (8,192 tokens of
+    4,096, 8 experts, top 2), at a skewed load, at a decode step's batch of
+    4 and at kimi's 384 experts, top 8: the same bits as their plain
+    versions on the CPU, twice."""
+    from repro_torch.kernels import moe as kmoe
+    ids = _routes(N, E, k, seed=N + E, skew=skew)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((N, d), generator=g).bfloat16()
+    w = torch.softmax(torch.randn((N, k), generator=g), -1)
+    out = torch.randn((N * k, d), generator=g).bfloat16()
+    want = kmoe.moe_dispatch_ref(x, ids, E)
+    want_y = kmoe.moe_combine_ref(out, want[1], w)
+    kmoe.reset_launch_counts()
+    for _ in range(2):
+        got = kmoe.moe_dispatch(x.to(cuda), ids.to(cuda), E)
+        y = kmoe.moe_combine(out.to(cuda), got[1], w.to(cuda))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert torch.equal(y.cpu(), want_y)
+    assert kmoe.launch_counts() == {"moe_dispatch": 2, "moe_combine": 2}
+    f32 = kmoe.moe_combine(out.float().to(cuda), got[1], w.to(cuda))
+    assert torch.equal(f32.cpu(), kmoe.moe_combine_ref(out.float(), want[1],
+                                                       w))
+
+
+@pytest.mark.cuda
+def test_moe_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import moe as kmoe
+    ids = torch.zeros((4, 2), dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kmoe.moe_dispatch(torch.zeros((4, 6), device=cuda,
+                                      dtype=torch.bfloat16), ids, 4)
+    with pytest.raises(TypeError, match="dtype"):
+        kmoe.moe_dispatch(torch.zeros((4, 8), device=cuda,
+                                      dtype=torch.float16), ids, 4)
+    with pytest.raises(ValueError, match="one device"):
+        kmoe.moe_dispatch(torch.zeros((4, 8)), ids, 4)
+
+
+def _mixtral_stage(cuda, n_layers=16):
+    """Mixtral-8x7B at full width, ``n_layers`` of its layers, bf16
+    weights drawn on the card (the benchmark's draw), and the config."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench.harness import moe_inputs
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=n_layers)
+    c = {"n_layers": n_layers, "d_model": cfg.d_model,
+         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+         "head_dim": cfg.hd, "d_ff": cfg.moe_d_ff, "n_experts": cfg.n_experts,
+         "top_k": cfg.top_k, "vocab_size": cfg.vocab_size,
+         "dtype": cfg.dtype}
+    return cfg, moe_inputs.program_tree(moe_inputs.make_weights(c, 0, cuda))
+
+
+@pytest.mark.cuda
+def test_mixtral_prefill_waits_for_no_host_and_launches_once_a_layer(cuda):
+    """A 16-layer Mixtral prefill of 4 x 2,048 tokens through
+    ``serve_lm.prefill`` under ``set_sync_debug_mode("error")``: nothing
+    synchronises with the host; K12 and K13 launch once a MoE layer and
+    K11 once a layer (the 4,096-token window covers the prompt); every
+    assignment is computed."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models.layers import moe
+    from repro_torch.serve import serve_lm
+    resolve_device("cuda")
+    cfg, params = _mixtral_stage(cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 2048), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+    serve_lm.prefill(params, cfg, prompts, 1)
+    torch.cuda.synchronize()
+    kmoe.reset_launch_counts()
+    gr.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, cache = serve_lm.prefill(params, cfg, prompts, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kmoe.launch_counts() == {"moe_dispatch": 16, "moe_combine": 16}
+    assert gr.launch_counts()["flash_attention"] == 16
+    assert len(out["moe"]) == 16
+    assert all(moe.dropped(r) == 0 for r in out["moe"])
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert cache["layers"][0].k.shape == (16, 4, 4096, 8, 128)
+
+
+@pytest.mark.cuda
+def test_reduced_mixtral_serves_on_the_card_as_on_the_cpu(cuda):
+    """mixtral-8x7b reduced (f32): the dropless prefill and 4 decode steps
+    on the card against the CPU from the same params: logits within 1e-4,
+    the same experts in every layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import serve_lm
+    resolve_device("cuda")
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 24),
+                         generator=torch.Generator().manual_seed(1))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else to_torch(params, cuda)
+        out, cache = serve_lm.prefill(p, cfg, toks[:, :20].to(dev), 4)
+        logits = [out["logits"]]
+        for s in range(4):
+            lg, cache = tf.decode_step(
+                p, cfg, cache, toks[:, 20 + s:21 + s].to(dev),
+                torch.full((4,), 20 + s, dtype=torch.int32, device=dev),
+                moe_dispatch="dropless")
+            logits.append(lg)
+        got[dev] = (torch.cat(logits, 1).cpu(),
+                    [r["experts"].cpu() for r in out["moe"]])
+    np.testing.assert_allclose(got["cuda"][0].numpy(), got["cpu"][0].numpy(),
+                               atol=1e-4)
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        assert torch.equal(a, b)

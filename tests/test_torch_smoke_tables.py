@@ -3,7 +3,8 @@
 Every architecture of ``repro_torch.configs`` runs on the card: served
 whole by ``serve_phase`` (:data:`chip_smoke.SERVE_ARCH`) or at the cut of
 :data:`chip_smoke.FAMILY_CUTS`; :data:`chip_smoke.FAMILY_K11` is each cut's
-count of causal self-attention layers (K11's launches a prefill); every
+count of causal self-attention layers without a window or with one that
+covers the families' 2,048-token prompt (K11's launches a prefill); every
 configuration's vocabulary is an LM head C that ``lm_kernel_phase`` holds
 K1 and K2 at; and K11's new head layouts are the served configs' own.
 """
@@ -16,7 +17,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.models.config import ATTN  # noqa: E402
+from repro_torch.models.config import ATTN, ATTN_SWA  # noqa: E402
 
 
 def _chip_smoke():
@@ -39,7 +40,9 @@ def test_every_architecture_is_served_on_the_card(arch):
 def test_family_k11_counts_the_causal_layers_of_the_cut(arch):
     over, cut = cs.FAMILY_CUTS[arch]
     cfg = dataclasses.replace(get_config(arch), **over)
-    assert cs.FAMILY_K11[arch] == sum(k == ATTN for k in cfg.layer_kinds())
+    assert cs.FAMILY_K11[arch] == sum(
+        k == ATTN or (k == ATTN_SWA and cfg.sliding_window >= 2048)
+        for k in cfg.layer_kinds())
     assert (over == {}) == (cut == "nothing")
 
 
