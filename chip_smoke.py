@@ -162,8 +162,9 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    and cache, 4 greedy decode steps); then the full model (28 layers,
    bf16, weights from a seed on the card), batch 4, prompt 2048, 32
    greedy decode steps, cache 2080, through ``serve_lm``'s functions:
-   counts at 0 just before the prefill (K11 exactly 28 times, nothing
-   else) and again before the decode (no kernel at all), logits finite,
+   counts at 0 just before the prefill (K11 exactly 28 times, K14 57,
+   nothing else) and again before the decode (no kernel at all), logits
+   finite,
    prefill ms, decode ms/token, tok/s and peak device memory;
 13. the LM training path with the paper's sequence-level objective
    (``lm_kernel_phase`` to ``lm_train_phase``): K1 and K2 at the LM
@@ -208,7 +209,14 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    2), at a skewed load and at a decode step's batch of 4, bit for bit
    against their plain versions on the same card tensors and against a
    second launch, timed in turns with them, with their bounds by bytes
-   and their share of them; the ``reduced()`` configs of
+   and their share of them; K14 (``norm_kernel_phase``) against its
+   plain version, the float32 composite, on the same card tensors under
+   ``kernels.norm.RULE`` at the four prefill cells' norms (bf16: 8,192
+   rows of 1,536, 3,072 and 4,096, 32,768 of 1,536) and at every config's
+   width on 64 rows in bf16 and float32, repeated bit for bit, its launch
+   plan the library's, the cells' shapes timed in turns with the
+   composite and ``torch.nn.functional.rms_norm`` over inputs cycled past
+   the L2, with its bound by bytes; the ``reduced()`` configs of
    mixtral-8x7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
    jamba-1.5-large-398b, xlstm-125m, qwen1.5-0.5b, musicgen-large,
    phi4-mini-3.8b and yi-9b in f32 on the card against the CPU
@@ -222,7 +230,8 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    (4, 1601, 1280) modality embeddings, K11 launches counted from 0 just
    before the timed prefill (2 kimi, 4 llama, 1 jamba, 4 mixtral, 0
    xLSTM, 24 qwen1.5, 48 musicgen, 32 phi4, 48 yi; K12 and K13 once a MoE
-   layer), logits finite, prefill ms, ms/token, tok/s, peak memory and
+   layer; K14 at every RMSNorm, ``prefill_norms``, and never in the
+   decode), logits finite, prefill ms, ms/token, tok/s, peak memory and
    the MoE assignments dropped (none: serving is dropless); then two
    ``lm_train_step``s
    of each of :data:`FAMILY_TRAIN` (mixtral, musicgen, phi4 and yi at full
@@ -266,7 +275,10 @@ Phases, each fatal on failure (nothing is caught and swallowed):
    the four head layouts under ``head_layouts``, K11 at hd 112 as
    ``flash_attention_hd112``, K12's and K13's at the mixtral prefill
    cell's request with the launches of the served mixtral prefill and
-   their other cases under ``cases``, each
+   their other cases under ``cases``, K14's at qwen2-1.5b's prefill norm
+   (8,192 rows of 1,536, bf16) with the launches of the served qwen2
+   prefill, the families' under ``family_launches`` and its other shapes
+   under ``cases``, each
    entry with what the analysis phase read of its launch at the path's
    shape under ``launch_model``: registers, spills and static shared
    memory from the compiler, resident blocks from the runtime, dynamic
@@ -2503,12 +2515,26 @@ def serve_parity_phase() -> None:
 SERVE_ARCH = "qwen2-1.5b"
 
 
+def prefill_norms(cfg) -> int:
+    """K14 launches of a prefill of ``cfg``: norm1 of every layer, norm2
+    of every layer with an FFN (none in the xLSTM blocks) and the final
+    norm, where the config's norm is RMSNorm (LayerNorm keeps the
+    composite)."""
+    from repro_torch.models.config import MLSTM, SLSTM
+    if cfg.norm != "rmsnorm":
+        return 0
+    return 1 + sum(1 + (kind not in (SLSTM, MLSTM) and cfg.d_ff > 0)
+                   for kind in cfg.layer_kinds())
+
+
 def serve_phase() -> dict:
     """The full model through ``serve_lm``'s functions: prefill (K11 exactly
-    n_layers times, nothing else), then greedy decode (no kernel)."""
+    n_layers times, nothing else of K1-K11, K14 2·n_layers + 1 times),
+    then greedy decode (no kernel)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import graph_reg as gr
+    from repro_torch.kernels import norm as knorm
     from repro_torch.models import transformer as tf
     from repro_torch.serve import serve_lm
 
@@ -2529,13 +2555,15 @@ def serve_phase() -> dict:
     del warm
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
+    knorm.reset_launch_counts()
     (out, cache), prefill_s = sync_time(
         lambda: serve_lm.prefill(params, cfg, prompts, steps))
-    counts = gr.launch_counts()
+    counts = {**gr.launch_counts(), **knorm.launch_counts()}
     check(counts == {n: cfg.n_layers * (n == "flash_attention")
+                     + prefill_norms(cfg) * (n == "rms_norm")
                      for n in counts},
-          f"the prefill launched {counts}, not K11 {cfg.n_layers} times and "
-          f"nothing else")
+          f"the prefill launched {counts}, not K11 {cfg.n_layers} times, "
+          f"K14 {prefill_norms(cfg)} times and nothing else")
     logits = out["logits"]
     check(tuple(logits.shape) == (B, T, cfg.vocab_size)
           and logits.dtype == torch.bfloat16, f"prefill logits "
@@ -2545,12 +2573,13 @@ def serve_phase() -> dict:
     del out, logits
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
+    knorm.reset_launch_counts()
     (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
         params, cfg, cache, prompts, steps, temperature=0.0))
     last, _ = tf.decode_step(params, cfg, cache, toks[:, -1:], torch.full(
         (B,), T + steps - 1, dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
-    dcounts = gr.launch_counts()
+    dcounts = {**gr.launch_counts(), **knorm.launch_counts()}
     check(not any(dcounts.values()), f"the decode launched {dcounts}")
     check(bool(torch.isfinite(last).all()), "non-finite decode logits")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -3286,6 +3315,112 @@ def moe_kernel_phase() -> dict:
     return records
 
 
+#: K14 in :func:`norm_kernel_phase`: (label, rows, d) in bf16, the four
+#: prefill cells' norms (4 × 2,048 or 1 × 32,768 positions of d_model);
+#: then every config's width on 64 rows in bf16 and float32.
+NORM_CASES = (("qwen2-1.5b prefill_2k", 8192, 1536),
+              ("phi4-mini-3.8b prefill_2k", 8192, 3072),
+              ("qwen2-1.5b prefill_32k", 32768, 1536),
+              ("mixtral-8x7b prefill_2k", 8192, 4096))
+NORM_WIDTHS = (768, 1024, 1536, 2048, 3072, 4096, 7168, 8192)
+#: Inputs of one K14 timing cycle at least this many bytes, twice the
+#: 50 MB L2, so each call reads its rows from device memory, as the
+#: bound assumes.
+NORM_COLD_BYTES = 100e6
+
+
+def norm_inputs(rows: int, d: int, dtype, gen):
+    """x (rows, d) in ``dtype``, each row normal at a scale of its own
+    (e^N(0, 1)), and a float32 scale 1 + 0.1·N(0, 1), on the card."""
+    import torch
+    cuda = torch.device("cuda")
+    mag = torch.exp(torch.randn((rows, 1), generator=gen, device=cuda))
+    x = (torch.randn((rows, d), generator=gen, device=cuda) * mag).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda)
+    return x, scale
+
+
+def cycling(fn, xs):
+    """A call of ``fn`` on the next of ``xs`` each time (a CUDA graph of
+    such calls holds them in turn)."""
+    it = [0]
+
+    def call():
+        it[0] += 1
+        return fn(xs[it[0] % len(xs)])
+    return call
+
+
+def norm_kernel_phase() -> dict:
+    """K14 (``kernels.norm.rms_norm``) against its plain version, the
+    float32 composite, on the same card tensors under ``norm.RULE``
+    (readings printed: ulps, relative, the share of elements that differ,
+    each one's worst error against float64), repeated bit for bit, one
+    launch a call, and its launch plan the library's: at
+    :data:`NORM_CASES` in bf16, each timed in turns with the composite and
+    ``torch.nn.functional.rms_norm`` (a yardstick the port never calls;
+    scale cast to the rows' dtype) from CUDA graphs over inputs that
+    cycle through at least :data:`NORM_COLD_BYTES`, its bound by bytes
+    (rows read once and written once, scale read once); then at every
+    config width on 64 rows in bf16 and float32 (the rule, untimed).
+    Returns the records by label."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import norm as knorm
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    records = {}
+    cases = [(label, rows, d, torch.bfloat16) for label, rows, d in
+             NORM_CASES] + [(f"d {d} {dt}", 64, d, getattr(torch, dt))
+                            for d in NORM_WIDTHS
+                            for dt in ("bfloat16", "float32")]
+    for label, rows, d, dtype in cases:
+        x, scale = norm_inputs(rows, d, dtype, gen)
+        knorm.reset_launch_counts()
+        got, again = (knorm.rms_norm(x, scale) for _ in range(2))
+        want = knorm.rms_norm_ref(x, scale)
+        torch.cuda.synchronize()
+        dt = str(dtype).removeprefix("torch.")
+        where = f"rms_norm [{label}: rows {rows}, d {d}, {dt}]"
+        check(knorm.launch_counts() == {"rms_norm": 2},
+              f"{where}: launches {knorm.launch_counts()}, not 2")
+        check(torch.equal(got, again), f"{where}: differs from itself")
+        r = knorm.rule_readings(got, want, x, scale)
+        plan = knorm.plan(rows, d, dt)
+        lib_plan = knorm.launch_plan(rows, d, dt)
+        check(lib_plan == {k: plan[k] for k in lib_plan},
+              f"{where}: the library's plan {lib_plan}, the mirror's {plan}")
+        print(f"{where} [{CARD}]: {r['ulps']:.3f} ulps, rel "
+              f"{r['rel']:.3e} from the composite, {100 * r['differing']:.4f}"
+              f" % of elements differ; against float64 {r['ulps_f64']:.3f} "
+              f"ulps (composite {r['composite_ulps_f64']:.3f}); "
+              f"{plan['warps']} warps a row, {plan['blocks']} blocks")
+        check(r["ok"], f"{where} breaks the rule ({knorm.RULE}): {r}")
+        rec = {"readings": r, "tol_rule": knorm.RULE, "plan": plan,
+               "shape": {"rows": rows, "d": d, "dtype": dt}}
+        if rows > 64:
+            del got, again, want
+            xs = [x] + [norm_inputs(rows, d, dtype, gen)[0] for _ in range(
+                max(1, math.ceil(NORM_COLD_BYTES / x.nbytes) - 1))]
+            moved = 2 * x.nbytes + scale.nbytes
+            rec.update(timed(
+                cycling(lambda t: knorm.rms_norm(t, scale), xs),
+                cycling(lambda t: knorm.rms_norm_ref(t, scale), xs),
+                cycling(lambda t: F.rms_norm(t, (d,), scale.to(dtype)), xs)),
+                bound=bound_ms(moved, 0.0), bytes=moved, buffers=len(xs))
+            rec["share_of_bound"] = rec["bound"][0] / rec["ms"]
+            print(f"rms_norm [{label}] [{CARD}]: {rec['ms']:.5f} ms, plain "
+                  f"{rec['plain_ms']:.5f} ms, F.rms_norm "
+                  f"{rec['library_ms']:.5f} ms (rounds {rec['rounds']}, "
+                  f"inputs cycled over {len(xs)} buffers); bound "
+                  f"{rec['bound'][0]:.5f} ms ({moved} bytes), "
+                  f"{100 * rec['share_of_bound']:.1f} % of it")
+            del xs
+        records[label] = rec
+        del x, scale
+    return records
+
+
 @contextlib.contextmanager
 def recorded_routes():
     """Records the experts (G, A) and capacity keep mask (G, A) of every
@@ -3332,12 +3467,14 @@ def family_serve_phase(arch: str) -> dict:
     0 just before (K11 :data:`FAMILY_K11` times and nothing else of
     K1-K11; K12 and K13 once a MoE layer), 32 greedy decode steps (none
     of K1-K11; K12 and K13 once a MoE layer a step); logits finite; MoE
-    drop shares printed (dropless: 0)."""
+    drop shares printed (dropless: 0); K14 :func:`prefill_norms` times in
+    the prefill, never in the decode."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import graph_reg as gr
     from repro_torch.kernels import moe as kmoe
+    from repro_torch.kernels import norm as knorm
     from repro_torch.models import transformer as tf
     from repro_torch.models.config import ATTN, ATTN_SWA
     from repro_torch.serve import serve_lm
@@ -3362,10 +3499,15 @@ def family_serve_phase(arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
     kmoe.reset_launch_counts()
+    knorm.reset_launch_counts()
     with recorded_routes() as capacity:
         (out, cache), prefill_s = sync_time(
             lambda: serve_lm.prefill(params, cfg, prompts, steps, modality))
     counts, moe_counts = gr.launch_counts(), kmoe.launch_counts()
+    norm_launches = knorm.launch_counts()["rms_norm"]
+    check(norm_launches == prefill_norms(cfg),
+          f"{arch}: the prefill launched K14 {norm_launches} times, not "
+          f"{prefill_norms(cfg)}")
     routes = prefill_routes(out)
     n_moe = len(routes)
     check(not capacity and moe_counts == {n: n_moe for n in kmoe.WRAPPERS},
@@ -3392,9 +3534,12 @@ def family_serve_phase(arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gr.reset_launch_counts()
     kmoe.reset_launch_counts()
+    knorm.reset_launch_counts()
     with recorded_routes() as capacity:
         (toks, cache), decode_s = sync_time(lambda: serve_lm.decode(
             params, cfg, cache, prompts, steps, temperature=0.0))
+    check(knorm.launch_counts()["rms_norm"] == 0,
+          f"{arch}: the decode launched K14")
     # Every decode assignment is computed: K12 and K13 run once a MoE
     # layer a step, and nothing goes through the capacity path.
     check(not capacity and kmoe.launch_counts() == {
@@ -3421,7 +3566,7 @@ def family_serve_phase(arch: str) -> dict:
            "peak_prefill_gb": peak_prefill / 1e9,
            "peak_decode_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "k11_launches": counts["flash_attention"],
-           "moe_launches": moe_counts,
+           "moe_launches": moe_counts, "norm_launches": norm_launches,
            "prefill_dropped": prefill_drop, "decode_dropped": decode_drop}
     del params, cache, prompts, modality
     torch.cuda.empty_cache()
@@ -4632,7 +4777,7 @@ def _analysis_runs() -> dict:
     card = report.metrics["vmem/card"]
     models = {}
     reports = [e for src in ("graph_reg", "graph_reg_bsp", "pairwise",
-                             "flash_attention", "moe")
+                             "flash_attention", "moe", "norm")
                for e in launch_audit.ptxas_entries(src)]
     for where, ln in launch_audit.kernel_launches(card["n_sm"]):
         r = next(r for m, r in reports if ln.symbol in m)
@@ -4764,6 +4909,8 @@ PATH_MODELS = {
                      dict(N=8192, d=4096, E=8, k=2, dtype="bfloat16")),
     "moe_combine": ("moe_combine", "moe_combine_kernel",
                     dict(N=8192, d=4096, k=2, dtype="bfloat16")),
+    "rms_norm": ("rms_norm", "rms_norm_kernel",
+                 dict(rows=8192, d=1536, dtype="bfloat16")),
 }
 
 
@@ -4932,6 +5079,7 @@ def main() -> int:
     t_families = time.perf_counter()
     attn112 = flash_attention_hd112_phase()
     moe_recs = moe_kernel_phase()
+    norm_recs = norm_kernel_phase()
     family_parity_phase()
     served = {arch: family_serve_phase(arch) for arch in FAMILY_CUTS}
     kimi = served["kimi-k2-1t-a32b"]
@@ -4948,6 +5096,15 @@ def main() -> int:
               f"{rec['prefill']['ms'] * n:.3f} ms of the "
               f"{mixtral['prefill_ms']:.3f} ms prefill (kernel phase time × "
               f"launches)")
+    for (label, rows, d), arch in zip(NORM_CASES, (
+            SERVE_ARCH, "phi4-mini-3.8b", SERVE_ARCH, "mixtral-8x7b")):
+        n = (serve["counts"]["rms_norm"] if arch == SERVE_ARCH
+             else served[arch]["norm_launches"])
+        ms = norm_recs[label]["ms"]
+        cut = FAMILY_CUTS[arch][1] if arch in FAMILY_CUTS else "nothing"
+        print(f"serve prefill {arch} [{CARD}]: rms_norm at ({rows}, {d}) "
+              f"{ms:.5f} ms × {n} launches = {ms * n:.3f} ms (kernel phase "
+              f"time × launches; the smoke's cut: {cut})")
     for arch in LAYOUT_ATTN:
         rec = served[arch]
         print(f"serve prefill {arch} [{CARD}]: K11 {attn[arch]['ms']:.4f} ms "
@@ -4996,6 +5153,7 @@ def main() -> int:
     from repro_torch.kernels import (flash_attention, graph_reg,
                                      graph_reg_bsp, pairwise)
     from repro_torch.kernels import moe as kmoe
+    from repro_torch.kernels import norm as knorm
     kernels = []
     for name, rec in records.items():
         b_ms, b_by = rec["bound"]
@@ -5108,6 +5266,30 @@ def main() -> int:
             "cases": {label: {key: r[key] for key in (
                 "ms", "plain_ms", "share_of_bound", "shape", "expert_rows")}
                 for label, r in recs.items() if label != "prefill"}})
+    rec = norm_recs[NORM_CASES[0][0]]
+    kernels.append({
+        "name": "rms_norm", "route": "cuda", "source": knorm.SOURCE,
+        "replaces": None,
+        "note": "replaces no TPU kernel: the JAX package leaves its norms "
+                "to XLA; the plain version is apply_norm's float32 "
+                "composite on the same card tensors; library_ms is "
+                "torch.nn.functional.rms_norm, a yardstick the port never "
+                "calls; times over inputs cycled past the L2",
+        "launches": serve["counts"]["rms_norm"],
+        "path": f"serve_prefill {SERVE_ARCH}",
+        "max_abs_err": None, "tol": None, "tol_rule": knorm.RULE,
+        "err_over_tol": None, "readings": rec["readings"],
+        **{key: rec[key] for key in ("ms", "plain_ms", "library_ms",
+                                     "rounds", "share_of_bound", "bytes",
+                                     "shape", "plan", "buffers")},
+        "kernel_ms": rec["ms"], "bound_ms": rec["bound"][0],
+        "bound_by": rec["bound"][1],
+        "family_launches": {arch: r["norm_launches"]
+                            for arch, r in served.items()},
+        "cases": {label: {key: r[key] for key in (
+            "ms", "plain_ms", "library_ms", "share_of_bound", "shape",
+            "plan", "readings") if key in r}
+            for label, r in norm_recs.items() if label != NORM_CASES[0][0]}})
     kernels[[e["name"] for e in kernels].index("flash_attention")][
         "head_layouts"] = {arch: {
             "shape": dict(zip(("B", "T", "H", "KV", "hd"),

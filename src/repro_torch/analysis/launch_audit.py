@@ -1,6 +1,6 @@
 """Launch models of the port's CUDA kernels, and their checks (V-pass).
 
-The counterpart of the reference's ``vmem_audit.py``.  Each of the 20
+The counterpart of the reference's ``vmem_audit.py``.  Each of the 21
 ``__global__`` functions of ``src/repro_torch/csrc`` is mirrored here by a
 static *launch model* — the grid, threads, cluster, dynamic and static
 shared memory and ``__launch_bounds__`` its entry point uses, and for each
@@ -46,7 +46,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.kernels import graph_reg, graph_reg_bsp, pairwise
+from repro_torch.kernels import graph_reg, graph_reg_bsp, norm, pairwise
 
 __all__ = [
     "Output",
@@ -542,6 +542,28 @@ def _moe_combine(N: int, d: int, k: int, dtype: str) -> list:
         vectors=(Vector("out and y rows", es * d),))]
 
 
+def _rms_norm(rows: int, d: int, dtype: str) -> list:
+    """K14: ``warps`` warps a row and 8 / warps rows a block
+    (``norm.plan``), each block writing its rows whole; the warps of a row
+    meet in 4 bytes of static shared memory a warp where they are more
+    than one."""
+    p = norm.plan(rows, d, dtype)
+    per = p["rows_per_block"]
+
+    def writes(x, y, z):
+        return [((x * per, min(x * per + per, rows)), (0, d))]
+    es = 4 if dtype == "float32" else 2
+    t = "f" if dtype == "float32" else "13__nv_bfloat16"
+    return [Launch(
+        "rms_norm_kernel", f"{dtype} rows={rows} d={d}", "norm.cu",
+        _sym("rms_norm_kernel", f"{t}Li{p['warps']}E"), (p["blocks"], 1, 1),
+        p["threads"], 0, 0 if p["warps"] == 1 else 4 * 8, (256, 0),
+        outputs=(Output("y", (rows, d), writes),),
+        vectors=(Vector("x and y rows", es * d),),
+        library=("norm.launch_plan", (rows, d, dtype), {},
+                 (("warps", p["warps"]), ("blocks", p["blocks"]))))]
+
+
 #: Wrapper calls -> their launch models.
 _CALLS = {
     "graph_reg_fwd": lambda k, B, C, n_sm: _fwd(k, B, C, n_sm),
@@ -562,6 +584,7 @@ _CALLS = {
     "moe_dispatch": lambda N, d, E, k, dtype, n_sm: _moe_dispatch(
         N, d, E, k, dtype),
     "moe_combine": lambda N, d, k, dtype, n_sm: _moe_combine(N, d, k, dtype),
+    "rms_norm": lambda rows, d, dtype, n_sm: _rms_norm(rows, d, dtype),
 }
 
 _P, _C, _BT = 2176, 39, 128
@@ -573,7 +596,10 @@ _T = _cdiv(_P, _BT) ** 2
 #: both tile heights; K11 in bf16 at the serve paths' head layouts and in
 #: float32 at the small head dims; K12 and K13 at the mixtral prefill's
 #: 8,192 tokens of 4,096 (8 experts, top 2) and a decode step's 4, and in
-#: float32 at the reduced configs' width.
+#: float32 at the reduced configs' width; K14 at the four prefill cells'
+#: rows (qwen2 2k and 32k, phi4 2k, mixtral 2k, bf16), and at every
+#: config's width in both dtypes on 7 rows (a block's rows cut short) and
+#: the reduced configs' 128 in float32.
 DEFAULT_SHAPES: tuple = (
     *((name, dict(k=k, B=_P, C=_C)) for k in (1, 4) for name in (
         "graph_reg_fwd", "graph_reg_bwd_dlogp", "graph_reg_bwd_dw")),
@@ -604,6 +630,13 @@ DEFAULT_SHAPES: tuple = (
     *(("moe_combine", dict(N=N, d=d, k=2, dtype=dt))
       for N, d, dt in ((8192, 4096, "bfloat16"), (4, 4096, "bfloat16"),
                        (64, 128, "float32"))),
+    *(("rms_norm", dict(rows=rows, d=d, dtype="bfloat16"))
+      for rows, d in ((8192, 1536), (8192, 3072), (32768, 1536),
+                      (8192, 4096))),
+    *(("rms_norm", dict(rows=7, d=d, dtype=dt))
+      for d in (768, 1024, 1536, 2048, 3072, 4096, 7168, 8192)
+      for dt in ("bfloat16", "float32")),
+    ("rms_norm", dict(rows=64, d=128, dtype="float32")),
 )
 
 
@@ -871,7 +904,8 @@ REDESIGNED = {"graph_reg_bwd_dw": ("graph_reg", "reg_bwd_dwE"),
 _LIBRARY = {"graph_reg.cu": "graph_reg", "graph_reg_tiles.cuh": "graph_reg",
             "graph_reg_bsp.cu": "graph_reg_bsp", "pairwise.cu": "pairwise",
             "d2_tile.cuh": "pairwise", "flash_attention.cu": "flash_attention",
-            "flash_attention_wgmma.cuh": "flash_attention", "moe.cu": "moe"}
+            "flash_attention_wgmma.cuh": "flash_attention", "moe.cu": "moe",
+            "norm.cu": "norm"}
 
 
 def occupancy(launch: Launch) -> dict:
@@ -920,7 +954,7 @@ def check_against_library(launches=None, *, reports: dict | None = None
     if reports is None:
         reports = {name: ptxas_entries(name) for name in
                    ("graph_reg", "graph_reg_bsp", "pairwise",
-                    "flash_attention", "moe")}
+                    "flash_attention", "moe", "norm")}
     entries = [(mangled, r) for rs in reports.values() for mangled, r in rs]
     findings: list[Finding] = []
     plans = static_diff = 0

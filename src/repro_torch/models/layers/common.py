@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...kernels.norm import rms_norm_ref
+
 
 def variance_scaling(generator: torch.Generator, shape, fan_in: int, *,
                      scale: float = 1.0, dtype: torch.dtype = torch.float32,
@@ -34,10 +36,11 @@ def init_norm(d: int, kind: str = "rmsnorm", *, lead: tuple = (),
 
 def apply_norm(p, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    """The norm as float32 torch ops (RMSNorm: K14's plain version), cast
+    back to x's dtype; differentiable."""
     if kind == "rmsnorm":
-        nrm = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-        return (nrm * p["scale"]).to(x.dtype)
+        return rms_norm_ref(x, p["scale"], eps)
+    xf = x.float()
     mu = torch.mean(xf, -1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
     nrm = (xf - mu) * torch.rsqrt(var + eps)

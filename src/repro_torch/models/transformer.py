@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import spans
+from ..kernels import norm as norm_kernels
 from .config import ATTN, ATTN_SWA, MAMBA, MLSTM, SLSTM, XATTN, ModelConfig
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
@@ -202,13 +203,25 @@ def _memory(params: dict, modality_embeds: torch.Tensor | None,
 
 
 # =================================================================== forward
+def _prefill_norm(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """A norm of the prefill: RMSNorm in one launch of K14
+    (``kernels.norm.rms_norm``; on the CPU its plain version, the
+    composite), LayerNorm as :func:`apply_norm`.  Forward only: training's
+    ``forward`` and ``decode_step`` keep :func:`apply_norm`."""
+    if kind == "rmsnorm":
+        return norm_kernels.rms_norm(x, p["scale"])
+    return apply_norm(p, x, kind)
+
+
 def _apply_mixer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor, mem: torch.Tensor | None, *,
                  return_state: bool = False):
     """The mixer of one layer on norm1(x); with ``return_state`` (the
-    prefill) also its decode cache or state."""
+    prefill) also its decode cache or state, and norm1 by
+    :func:`_prefill_norm`."""
+    norm = _prefill_norm if return_state else apply_norm
     with spans.span("attn.norm", device=True):
-        h = apply_norm(p["norm1"], x, cfg.norm)
+        h = norm(p["norm1"], x, cfg.norm)
     if kind in (ATTN, ATTN_SWA):
         return attn_lib.attention_block(p["attn"], h, positions,
                                         theta=cfg.rope_theta,
@@ -237,14 +250,15 @@ def _apply_mixer(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 
 def _apply_ffn(p, cfg: ModelConfig, x: torch.Tensor, *,
-               moe_dispatch: str = "capacity", moe_stats: list | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+               moe_dispatch: str = "capacity", moe_stats: list | None = None,
+               norm=apply_norm) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Post-mixer FFN (dense or MoE) of a layer that has one -> (out, the
-    MoE load-balance loss or None).  A MoE layer dispatches as
-    ``moe_dispatch`` says (:data:`~.layers.moe.DISPATCH`; the dropless
-    layer computes no loss) and appends its record to ``moe_stats``."""
+    MoE load-balance loss or None), norm2 by ``norm`` (the prefill's
+    :func:`_prefill_norm`).  A MoE layer dispatches as ``moe_dispatch``
+    says (:data:`~.layers.moe.DISPATCH`; the dropless layer computes no
+    loss) and appends its record to ``moe_stats``."""
     with spans.span("ffn.norm", device=True):
-        h = apply_norm(p["norm2"], x, cfg.norm)
+        h = norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
         with spans.span("ffn.moe", device=True):
             if moe_dispatch == "dropless":
@@ -393,7 +407,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     dispatch as ``moe_dispatch`` says (the reference's capacity by
     default; the serving entry points ask for ``"dropless"``), and the
     output's ``"moe"`` holds their records (``layers.moe``'s ``stats``),
-    in layer order.
+    in layer order.  Its RMSNorms (norm1, norm2, the final norm) run K14,
+    one launch each on the card (:func:`_prefill_norm`).
 
     The pass is a request of :mod:`repro_torch.spans` (``prefill``, with
     a device interval): ``prefill.embed``, a ``layer`` span a decoder
@@ -404,7 +419,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     B, T = tokens.shape
     n = len(cfg.block_pattern)
     moe_stats: list = []
-    ffn_kw = {"moe_dispatch": moe_dispatch, "moe_stats": moe_stats}
+    ffn_kw = {"moe_dispatch": moe_dispatch, "moe_stats": moe_stats,
+              "norm": _prefill_norm}
     with spans.request("prefill", device=tokens.device, batch=B, tokens=T):
         with spans.span("prefill.embed"):
             x = embed(params["embed"], tokens)
@@ -429,7 +445,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache["layers"] = [_stack(c) for c in per_position]
         with spans.span("prefill.head"):
             with spans.span("head.norm", device=True):
-                x = apply_norm(params["final_norm"], x, cfg.norm)
+                x = _prefill_norm(params["final_norm"], x, cfg.norm)
             out = {"logits": x @ output_head(params, cfg)}
     if cfg.is_moe:
         out["moe"] = moe_stats

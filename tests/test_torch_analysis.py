@@ -373,8 +373,8 @@ class TestLaunchAudit:
     def test_default_models_validate_clean(self):
         findings, metrics = la.validate_launches()
         assert findings == []
-        assert metrics["kernels_in_source"] == 20
-        assert metrics["kernels_modelled"] == 20
+        assert metrics["kernels_in_source"] == 21
+        assert metrics["kernels_modelled"] == 21
         assert metrics["launches_checked"] >= 40
 
     def test_every_kernel_models_its_path_shapes(self):
@@ -388,6 +388,14 @@ class TestLaunchAudit:
         assert {"15knn_topk_kernelILb0ELb1E", "15knn_topk_kernelILb0ELb0E",
                 "15knn_topk_kernelILb1ELb0E", "19rbf_affinity_kernelILi64E",
                 "19rbf_affinity_kernelILi128E"} <= symbols
+        # K14 at the four prefill cells' rows, every config's width in
+        # both dtypes: every instantiation of its occupancy table.
+        from repro_torch.kernels import norm
+        assert set(norm.OCCUPANCY_KERNELS) <= symbols
+        assert {"bfloat16 rows=8192 d=1536", "bfloat16 rows=32768 d=1536",
+                "bfloat16 rows=8192 d=3072", "bfloat16 rows=8192 d=4096"
+                } <= {ln.variant for _, ln in la.kernel_launches()
+                      if ln.kernel == "rms_norm_kernel"}
 
     def test_one_byte_over_the_budget_flagged_and_twin_clean(self):
         at = _launch(dynamic_smem=la.SMEM_BLOCK_BYTES)
@@ -417,9 +425,10 @@ class TestLaunchAudit:
         """The card reads each model's resident blocks from its library's
         occupancy table, by the model's symbol."""
         from repro_torch.kernels import (flash_attention, graph_reg,
-                                         graph_reg_bsp, moe, pairwise)
+                                         graph_reg_bsp, moe, norm, pairwise)
         modules = {m.__name__.rsplit(".", 1)[1]: m for m in
-                   (graph_reg, graph_reg_bsp, pairwise, flash_attention, moe)}
+                   (graph_reg, graph_reg_bsp, pairwise, flash_attention, moe,
+                    norm)}
         for where, ln in la.kernel_launches():
             table = modules[la._LIBRARY[ln.source]].OCCUPANCY_KERNELS
             assert ln.symbol in table, where
@@ -452,7 +461,7 @@ class TestLaunchAudit:
             "__global__ void __launch_bounds__(128) stray(float* x) {}\n")
         findings, metrics = la.validate_launches(csrc=tmp_path)
         assert _rules(findings) == ["V005"]
-        assert metrics["kernels_in_source"] == 21
+        assert metrics["kernels_in_source"] == 22
 
     def test_launch_bounds_held_to_the_source(self):
         (where, ln), *rest = la.kernel_launches()

@@ -16,10 +16,10 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.kernels import (flash_attention, graph_reg,  # noqa: E402
-                                 graph_reg_bsp, moe, pairwise)
+                                 graph_reg_bsp, moe, norm, pairwise)
 
 ROOT = Path(__file__).resolve().parents[1]
-MODULES = (graph_reg, graph_reg_bsp, pairwise, flash_attention, moe)
+MODULES = (graph_reg, graph_reg_bsp, pairwise, flash_attention, moe, norm)
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "int*": ctypes.c_void_p, "int64_t*": ctypes.c_void_p,
            "int": ctypes.c_int,

@@ -22,6 +22,8 @@ bfloat16 at |Δ| ≤ 2^-8·max|want| + 2^-7·|want| (both round p and the
 output to bfloat16 at the same points; the float32 sums run in other
 orders, and the tensor cores take exp from ex2.approx, so a rounding may
 fall the other way).  A reduced qwen2 prefill on the card matches the CPU's.
+K14 (RMSNorm) is held to its plain version, the float32 composite, by
+``kernels.norm.RULE``: only the order of its sum of squares differs.
 """
 
 import numpy as np
@@ -1245,4 +1247,168 @@ def test_reduced_mixtral_serves_on_the_card_as_on_the_cpu(cuda):
     np.testing.assert_allclose(got["cuda"][0].numpy(), got["cpu"][0].numpy(),
                                atol=1e-4)
     for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ K14
+#: d_model of every configuration of ``repro_torch.configs``.
+NORM_WIDTHS = (768, 1024, 1536, 2048, 3072, 4096, 7168, 8192)
+
+
+def _norm_inputs(cuda, rows, d, dtype, seed=14):
+    """x (rows, d), each row normal at a scale of its own, and a float32
+    scale 1 + 0.1·N(0, 1), drawn on the card."""
+    g = torch.Generator(cuda).manual_seed(seed + rows + d)
+    mag = torch.exp(torch.randn((rows, 1), generator=g, device=cuda))
+    x = (torch.randn((rows, d), generator=g, device=cuda) * mag).to(dtype)
+    return x, 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (8192, 1536, torch.bfloat16), (8192, 3072, torch.bfloat16),
+    (32768, 1536, torch.bfloat16), (8192, 4096, torch.bfloat16),
+    (7, 1536, torch.bfloat16)] + [
+    (64, d, dt) for d in NORM_WIDTHS + (128,)
+    for dt in (torch.bfloat16, torch.float32)],
+    ids=lambda v: str(v).removeprefix("torch."))
+def test_rms_norm_holds_the_rule_against_the_composite(cuda, rows, d, dtype):
+    """K14 against the float32 composite on the same card tensors, at the
+    four prefill cells' norms (bf16) and every config's width in bf16 and
+    float32, under ``norm.RULE``: bf16 within 1 ulp of the composite,
+    float32 within a relative 1e-6, and in both K14's worst error against
+    float64 at most the composite's plus 1 ulp (``-s`` prints the
+    readings, the share of elements that differ among them); a second
+    launch gives the same bits; the launch plan is the mirror's."""
+    from repro_torch.kernels import norm
+    x, scale = _norm_inputs(cuda, rows, d, dtype)
+    norm.reset_launch_counts()
+    got, again = norm.rms_norm(x, scale), norm.rms_norm(x, scale)
+    want = norm.rms_norm_ref(x, scale)
+    r = norm.rule_readings(got, want, x, scale)
+    print(f"rms_norm rows {rows} d {d} {dtype}: {r}")
+    assert r["ok"], r
+    assert torch.equal(got, again)
+    assert norm.launch_counts() == {"rms_norm": 2}
+    dt = str(dtype).removeprefix("torch.")
+    plan = norm.plan(rows, d, dt)
+    assert norm.launch_plan(rows, d, dt) == {k: plan[k]
+                                             for k in ("warps", "blocks")}
+
+
+@pytest.mark.cuda
+def test_rms_norm_takes_the_prefills_rows_and_empty_ones(cuda):
+    from repro_torch.kernels import norm
+    x, scale = _norm_inputs(cuda, 6, 1536, torch.bfloat16)
+    y = norm.rms_norm(x.reshape(2, 3, 1536), scale)
+    assert y.shape == (2, 3, 1536) and torch.equal(
+        y.reshape(6, 1536), norm.rms_norm(x, scale))
+    empty = norm.rms_norm(x[:0], scale)
+    assert empty.shape == (0, 1536)
+
+
+@pytest.mark.cuda
+def test_rms_norm_refusals_on_the_card(cuda):
+    from repro_torch.kernels import norm
+    x, scale = _norm_inputs(cuda, 4, 128, torch.bfloat16)
+    norm.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        norm.rms_norm(x[:, :12].contiguous(), scale[:12].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        norm.rms_norm(x.half(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.rms_norm(x[:, ::2], scale[:64].contiguous())
+    with pytest.raises(ValueError, match="16-byte"):
+        norm.rms_norm(x.reshape(-1)[4:4 + 3 * 128].reshape(3, 128), scale)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        norm.rms_norm(x.float().requires_grad_(), scale)
+    with pytest.raises(ValueError, match="one device"):
+        norm.rms_norm(x, scale.cpu())
+    assert norm.launch_counts() == {"rms_norm": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "phi4-mini-3.8b"])
+def test_serve_prefill_launches_k14_once_a_norm(cuda, arch):
+    """A served prefill of 4 × 2,048 tokens at full width launches K14 at
+    each of its 2 · n_layers + 1 norms (57 for qwen2-1.5b, 65 for
+    phi4-mini-3.8b), counts at 0 just before, and its decode never."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import norm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import serve_lm
+    resolve_device("cuda")
+    cfg = get_config(arch)
+    params = serve_lm.load_model(cfg, seed=0, device=cuda)
+    prompts = serve_lm.make_prompts(cfg, 4, 2048, seed=0, device=cuda)
+    norm.reset_launch_counts()
+    out, cache = serve_lm.prefill(params, cfg, prompts, 1)
+    torch.cuda.synchronize()
+    want = {"qwen2-1.5b": 57, "phi4-mini-3.8b": 65}[arch]
+    assert want == 2 * cfg.n_layers + 1
+    assert norm.launch_counts() == {"rms_norm": want}
+    assert bool(torch.isfinite(out["logits"]).all())
+    norm.reset_launch_counts()
+    tf.decode_step(params, cfg, cache, prompts[:, -1:],
+                   torch.full((4,), 2048, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert norm.launch_counts() == {"rms_norm": 0}
+
+
+def _parent_norm(p, x, kind="rmsnorm", eps=1e-6):
+    """``apply_norm`` as it was before K14, verbatim."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        nrm = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+        return (nrm * p["scale"]).to(x.dtype)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+    nrm = (xf - mu) * torch.rsqrt(var + eps)
+    return (nrm * p["scale"] + p["bias"]).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_on_the_card_keeps_the_parents_bits(cuda, dtype,
+                                                     monkeypatch):
+    """Training's forward under autograd on the card (qwen2-1.5b reduced,
+    remat on): logits and every parameter's gradient equal, bit for bit,
+    those of the forward with the parent's composite norm; K14 never
+    launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import leaf_paths, to_torch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import norm
+    from repro_torch.models import transformer as tf
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              dtype=dtype)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+
+    def run():
+        params = to_torch(tf.init_params(
+            cfg, torch.Generator().manual_seed(0)), cuda)
+        leaves = [t for _, t in leaf_paths(params)
+                  if t.is_floating_point()]
+        for t in leaves:
+            t.requires_grad_()
+        out = tf.forward(params, cfg, toks)
+        out["logits"].float().square().mean().backward()
+        return out["logits"].detach(), [t.grad for t in leaves]
+
+    norm.reset_launch_counts()
+    logits, grads = run()
+    assert norm.launch_counts() == {"rms_norm": 0}
+    # Every apply_norm call (norm1, norm2, the final norm) computes the
+    # parent's RMSNorm.
+    from repro_torch.models.layers import common
+    monkeypatch.setattr(common, "rms_norm_ref", lambda x, scale, eps: (
+        _parent_norm({"scale": scale}, x, "rmsnorm", eps)))
+    want, want_grads = run()
+    assert torch.equal(logits, want)
+    assert len(grads) == len(want_grads)
+    for a, b in zip(grads, want_grads):
         assert torch.equal(a, b)

@@ -82,3 +82,33 @@ def test_quickstart_rule_lies_between_its_readings():
     later = [(0.0, 0.0)] * 9 + [(0.0, 0.04)]
     assert cs.qs_breaks(first, "first") and not cs.qs_breaks(first, "later")
     assert cs.qs_breaks(later, "later") and not cs.qs_breaks(later, "first")
+
+
+def test_norm_widths_are_the_configs():
+    """``norm_kernel_phase`` holds K14 at every configuration's width."""
+    assert set(cs.NORM_WIDTHS) == {get_config(a).d_model for a in ARCH_IDS}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_norms_counts_the_prefills_norm_calls(arch, monkeypatch):
+    """:func:`chip_smoke.prefill_norms` (the K14 launches the smoke holds a
+    served prefill to) is the wrapper's calls in a reduced prefill."""
+    import torch
+    from repro_torch.kernels import norm
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch).reduced()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    mod = (torch.zeros((1, cfg.modality_tokens, cfg.modality_dim))
+           if cfg.modality_tokens else None)
+    calls = []
+    wrapper = norm.rms_norm
+    monkeypatch.setattr(norm, "rms_norm",
+                        lambda x, s, eps=1e-6: calls.append(1) or wrapper(
+                            x, s, eps))
+    tf.prefill(params, cfg, toks, modality_embeds=mod, cache_len=8)
+    assert len(calls) == cs.prefill_norms(cfg)
+    full = get_config(arch)
+    if full.norm == "rmsnorm" and set(full.layer_kinds()) <= {ATTN, ATTN_SWA}:
+        assert cs.prefill_norms(full) == 2 * full.n_layers + 1
+

@@ -28,6 +28,9 @@ CHILDREN = {
              "attn.out", "attn.cache", "attn.cache"],
     "ffn": ["ffn.norm", "ffn.mlp"],
     "prefill.head": ["head.norm"],
+    # The prefill's norms run K14's wrapper, which opens its kernel span.
+    **{name: ["kernel.rms_norm"]
+       for name in ("attn.norm", "ffn.norm", "head.norm")},
 }
 
 
